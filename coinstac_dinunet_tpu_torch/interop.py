@@ -7,23 +7,30 @@ the JAX package's order and layout on the wire:
 - **order** — ``jax.tree_util.tree_leaves`` of ``{model: {"params": ...}}``
   flax dicts, i.e. keys sorted at every level;
 - **layout** — flax's: a convolution kernel ``(*k, cin, cout)``, a dense
-  kernel ``(in, out)``, GroupNorm ``scale``/``bias``.  torch keeps
+  kernel ``(in, out)``, GroupNorm/LayerNorm ``scale``/``bias``.  torch keeps
   ``(cout, cin, *k)``, ``(out, in)`` and ``weight``/``bias``.
 
 A port model names its flax counterpart's modules in ``FLAX_NAMES``
-(``{torch module prefix: flax module path}``); everything else follows from
-the parameter's name and rank.  This is the inverse of the JAX package's
+(``{torch module prefix: flax module path}``; the ``""`` entry holds the
+model's own top-level parameters, such as a positional table).  The layout
+follows the parameter's kind, never its rank: only the ``weight`` of an
+``nn.Linear`` or ``nn.Conv*`` is a flax ``kernel`` and is transposed;
+every other parameter (norm scales, biases, a ``(max_len, d)`` embedding
+table) crosses as it is.  This is the inverse of the JAX package's
 checkpoint importer (``utils/torch_import.py::_convert_tensor``).
 """
 import numpy as np
 import torch
+from torch import nn
+
+_KERNEL_MODULES = (nn.Linear, nn.modules.conv._ConvNd)
 
 
-def _flax_leaf(tname, ndim):
-    """flax leaf name of a torch parameter name's last component."""
-    if tname == "weight":
-        return "kernel" if ndim >= 2 else "scale"
-    return tname
+def is_kernel(model, param_name):
+    """Whether ``param_name`` of ``model`` is a dense or convolution kernel
+    (the ``weight`` of an ``nn.Linear`` or ``nn.Conv*``)."""
+    prefix, _, leaf = param_name.rpartition(".")
+    return leaf == "weight" and isinstance(model.get_submodule(prefix), _KERNEL_MODULES)
 
 
 def flax_path(model, param_name):
@@ -31,8 +38,9 @@ def flax_path(model, param_name):
     torch parameter ``param_name`` of ``model``."""
     prefix, _, leaf = param_name.rpartition(".")
     module = tuple(model.FLAX_NAMES[prefix])
-    ndim = model.get_parameter(param_name).ndim
-    return ("params", *module, _flax_leaf(leaf, ndim))
+    if leaf == "weight":
+        leaf = "kernel" if is_kernel(model, param_name) else "scale"
+    return ("params", *module, leaf)
 
 
 def wire_leaves(models):
@@ -47,24 +55,38 @@ def wire_leaves(models):
 
 
 def to_flax_layout(t):
-    """torch layout → flax layout: conv ``(cout, cin, *k)`` →
-    ``(*k, cin, cout)``, dense ``(out, in)`` → ``(in, out)``; rank ≤ 1
-    unchanged.  Works on torch tensors (a view) and numpy arrays."""
+    """A kernel in torch layout → flax layout: conv ``(cout, cin, *k)`` →
+    ``(*k, cin, cout)``, dense ``(out, in)`` → ``(in, out)``.  Works on
+    torch tensors (a view) and numpy arrays."""
     nd = t.ndim
-    if nd < 2:
-        return t
     perm = (*range(2, nd), 1, 0)
     return t.permute(*perm) if hasattr(t, "permute") else np.transpose(t, perm)
 
 
 def from_flax_layout(t, torch_shape):
-    """Inverse of :func:`to_flax_layout` for a parameter of ``torch_shape``."""
+    """Inverse of :func:`to_flax_layout` for a kernel of ``torch_shape``."""
     nd = len(torch_shape)
-    if nd < 2:
-        return t.reshape(torch_shape)
     perm = (nd - 1, nd - 2, *range(nd - 2))
     out = t.permute(*perm) if hasattr(t, "permute") else np.transpose(t, perm)
     return out.reshape(torch_shape)
+
+
+def to_flax(model, param_name, t):
+    """Parameter (or gradient) ``t`` of ``param_name`` in flax layout: a
+    kernel is transposed, anything else is returned as it is."""
+    return to_flax_layout(t) if is_kernel(model, param_name) else t
+
+
+def from_flax(model, param_name, t):
+    """Inverse of :func:`to_flax`: ``t`` in the torch shape of
+    ``param_name``."""
+    shape = tuple(model.get_parameter(param_name).shape)
+    if is_kernel(model, param_name):
+        return from_flax_layout(t, shape)
+    # a rank ≤ 1 leaf may come off the wire flattened; a table never may
+    if t.ndim > 1 and tuple(t.shape) != shape:
+        raise ValueError(f"{param_name}: flax shape {tuple(t.shape)} is not {shape}")
+    return t.reshape(shape)
 
 
 def params_to_jax(model):
@@ -77,7 +99,7 @@ def params_to_jax(model):
         for k in mods:
             node = node.setdefault(k, {})
         node[leaf] = np.ascontiguousarray(
-            to_flax_layout(p.detach().cpu().float().numpy()))
+            to_flax(model, pname, p.detach().cpu().float().numpy()))
     return out
 
 
@@ -86,11 +108,11 @@ def params_from_jax(flax_params, model):
     state dict for the port model ``model`` — load it with
     ``model.load_state_dict``."""
     state = {}
-    for pname, p in model.named_parameters():
+    for pname in dict(model.named_parameters()):
         node = flax_params
         for k in flax_path(model, pname):
             node = node[k]
         a = np.asarray(node, dtype=np.float32)
         # np.array copies: the source may be a read-only (jax) buffer
-        state[pname] = torch.from_numpy(np.array(from_flax_layout(a, tuple(p.shape))))
+        state[pname] = torch.from_numpy(np.array(from_flax(model, pname, a)))
     return state

@@ -1,9 +1,10 @@
 """Build and bind the port's hand-written CUDA kernels.
 
-Each kernel lives in ``csrc/<name>.cu`` with a plain C interface.  At first
-use it is compiled by ``nvcc`` for ``sm_90a`` into a shared library under
-``coinstac_dinunet_tpu_torch/_build/`` (named by a hash of the source and
-flags, so an edited source rebuilds) and loaded with ``ctypes``.  Nothing
+Each kernel lives in ``csrc/<name>.cu`` with a plain C interface (shared
+device code in ``csrc/*.cuh``).  At first use it is compiled by ``nvcc``
+for ``sm_90a`` into a shared library under
+``coinstac_dinunet_tpu_torch/_build/`` (named by a hash of the source, the
+headers and the flags, so an edit rebuilds) and loaded with ``ctypes``.  Nothing
 falls back: a missing ``nvcc``, a failed build or a refused launch raises.
 Nothing here runs at import time.
 """
@@ -40,12 +41,20 @@ def nvcc_path():
 
 
 def library_path(source):
-    """Where the shared library for ``csrc/<source>`` is (or will be) built."""
-    src = os.path.join(CSRC_DIR, source)
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    """Where the shared library for ``csrc/<source>`` is (or will be) built:
+    named by a hash of the source, the shared headers and the flags."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for name in [source, *headers]:
+        with open(os.path.join(CSRC_DIR, name), "rb") as f:
+            digest.update(f.read())
     stem = os.path.splitext(source)[0]
     return os.path.join(BUILD_DIR, f"lib{stem}.{digest.hexdigest()[:16]}.so")
+
+
+def all_sources():
+    """Every kernel source in ``csrc/``."""
+    return sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cu"))
 
 
 def build(sources):

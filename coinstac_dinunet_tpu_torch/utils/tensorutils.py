@@ -22,7 +22,7 @@ import torch
 
 from .. import config
 from ..config.keys import Retry
-from ..interop import from_flax_layout, to_flax_layout, wire_leaves
+from ..interop import from_flax, to_flax, wire_leaves
 from ..ops.quantize import GROUP, dequantize_int8, quantize_int8
 from ..resilience import transport as _transport
 from ..resilience.transport import (  # noqa: F401 (re-export for callers)
@@ -256,7 +256,7 @@ def extract_grads(models, precision_bits=None):
     for name, tname in wire_leaves(models):
         p = models[name].get_parameter(tname)
         g = p.grad if p.grad is not None else torch.zeros_like(p)
-        out.append(to_flax_layout(g.detach()).to(dtype).contiguous())
+        out.append(to_flax(models[name], tname, g.detach()).to(dtype).contiguous())
     return out
 
 
@@ -274,5 +274,5 @@ def grads_like(models, flat_arrays, device=None):
         # np.array copies: wire arrays are read-only views of the payload
         t = torch.from_numpy(np.array(a)).to(device=device or p.device,
                                              dtype=p.dtype)
-        out[name][tname] = from_flax_layout(t, tuple(p.shape))
+        out[name][tname] = from_flax(models[name], tname, t)
     return out

@@ -13,7 +13,7 @@ import torch
 
 import coinstac_dinunet_tpu_torch as port
 from coinstac_dinunet_tpu_torch import COINNLocal, COINNRemote, InProcessEngine, SiteRunner
-from coinstac_dinunet_tpu_torch.models import VBMTrainer
+from coinstac_dinunet_tpu_torch.models import SeqTrainer, VBMTrainer
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -57,6 +57,7 @@ def test_entry_points_need_a_card_unless_given_cpu(tmp_path, monkeypatch):
         lambda dev: InProcessEngine(tmp_path / "e", n_sites=1, device=dev),
         lambda dev: SiteRunner(tmp_path / "s", device=dev),
         lambda dev: VBMTrainer(cache={}, device=dev),
+        lambda dev: SeqTrainer(cache={}, device=dev),
         lambda dev: COINNLocal(cache={}, device=dev),
         lambda dev: COINNRemote(cache={}, device=dev),
     ):
