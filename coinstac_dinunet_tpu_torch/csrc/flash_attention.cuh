@@ -29,6 +29,11 @@ __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 
+// lse as the backward uses it: a fully masked row's sentinel becomes 0
+__device__ __forceinline__ float safe_lse(float x) {
+  return x <= kMaskedLse ? 0.0f : x;
+}
+
 // Copy rows [row0, row0 + kTile) of a (rows, D) matrix into shared memory
 // `dst` (row stride D + 1), times `mul`; rows at or past `rows` read 0.
 template <int D, typename T>

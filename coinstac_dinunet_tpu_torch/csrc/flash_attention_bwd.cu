@@ -13,37 +13,43 @@
 //
 // Design: the JAX package's split, so no block writes another's output —
 // no atomics, and a result that is the same bit for bit from run to run.
-//  - K3, coinn_flash_bwd_dq: one block per (64-row q tile, bh), streaming
-//    the k tiles (the causal mask stops it at the last visible one); the
-//    (64, D) dq accumulator stays in registers.
-//  - K4, coinn_flash_bwd_dkv: one block per (64-row k tile, bh), streaming
-//    the q tiles on the transposed score tile sᵀ = k·qᵀ, so both (64, D)
-//    accumulators keep the key rows (the causal mask starts it at the first
-//    q tile that sees the block's keys).  q rows past Tq read lse = +1e30
-//    and are masked besides, so they contribute exactly zero; key rows at or
-//    past min(kv_len, Tk) get exactly zero dk and dv.
-// Both products of a step run on the CUDA cores in float32 from tiles in
-// shared memory, as in the forward (flash_attention.cuh).
+//  - K3, coinn_flash_bwd_dq: one block per q tile and bh, streaming the k
+//    tiles (the causal mask stops it at the last visible one); the dq
+//    accumulator stays in registers.
+//  - K4, coinn_flash_bwd_dkv: one block per k tile and bh, streaming the q
+//    tiles on the transposed score tile sᵀ = k·qᵀ, so both accumulators
+//    keep the key rows (the causal mask starts it at the first q tile that
+//    sees the block's keys).  q rows past Tq read lse = +1e30 and are masked
+//    besides, so they contribute exactly zero; key rows at or past
+//    min(kv_len, Tk) get exactly zero dk and dv.
 //
-// Bound.  K3 does 6·Tq·Tk·D operations per bh and K4 8·Tq·Tk·D (half under
-// the causal mask) on a few bytes per row: compute-bound, against the
-// tensor cores' 989 TFLOP/s for bfloat16 inputs.  These first kernels run
-// on the CUDA cores in float32 and are far from that bound.
+// Two implementations, picked by the inputs' type:
+//  - bfloat16 q, k, v (the sequence model under autocast): the tensor-core
+//    kernels of flash_attention_bwd_wgmma.cuh — wgmma on bfloat16 tiles fed
+//    by TMA, P and dS kept in registers.  g_out arrives as bfloat16 too.
+//  - float32 q, k, v: the kernels of this file.  Float32 in means float32
+//    arithmetic: both products of a step run on the CUDA cores from float32
+//    tiles in shared memory, as in the forward (flash_attention.cuh), and
+//    agree with the plain version to the last bits.
 //
-// Shared memory: K3 holds Q, g_out, K, V (64 x (D + 1) floats each) and dS
-// (64 x 65); K4 holds K, V, Q, g_out, Pᵀ, dSᵀ and three per-row vectors:
-// 149 KB and 166 KB at D = 128, so the launches raise the dynamic shared
-// memory limit.
+// Bound on an H100.  K3 does 6·Tq·Tk·D product operations per bh and K4
+// 8·Tq·Tk·D (half under the causal mask), and each one exp per valid pair,
+// on a few bytes per row: never memory-bound at the sequence model's
+// lengths.  For bfloat16 the bound is the larger of the products at the
+// tensor cores' 989 TFLOP/s and the exps at 16 a clock on each of 132 SMs;
+// the tensor-core kernels reach about half of it (PERF.md).  For float32 it
+// is the CUDA cores' 67 TFLOP/s, of which these kernels reach a third.
+//
+// Shared memory of the float32 kernels: K3 holds Q, g_out, K, V
+// (64 x (D + 1) floats each) and dS (64 x 65); K4 holds K, V, Q, g_out, Pᵀ,
+// dSᵀ and three per-row vectors: 149 KB and 166 KB at D = 128, so the
+// launches raise the dynamic shared memory limit.
 #include "flash_attention.cuh"
+#include "flash_attention_bwd_wgmma.cuh"
 
 namespace {
 
 using namespace coinn_flash;
-
-// lse as the backward uses it: a fully masked row's sentinel becomes 0
-__device__ __forceinline__ float safe_lse(float x) {
-  return x <= kMaskedLse ? 0.0f : x;
-}
 
 template <int D, typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -215,14 +221,7 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-struct Args {
-  const void *q, *k, *v, *g_out, *lse, *delta, *g_lse;
-  void *out0, *out1;
-  int bh, tq, tk;
-  float scale;
-  int causal, q_offset, k_offset, kv_len;
-  cudaStream_t stream;
-};
+using Args = BwdArgs;
 
 template <int D, typename T>
 int launch_dq(const Args& a) {
@@ -256,29 +255,33 @@ int launch_dkv(const Args& a) {
   return (int)cudaGetLastError();
 }
 
-template <bool kDq, typename T>
-int dispatch(int d, const Args& a) {
-  switch (d) {
-    case 32: return kDq ? launch_dq<32, T>(a) : launch_dkv<32, T>(a);
-    case 64: return kDq ? launch_dq<64, T>(a) : launch_dkv<64, T>(a);
-    case 128: return kDq ? launch_dq<128, T>(a) : launch_dkv<128, T>(a);
-    default: return (int)cudaErrorInvalidValue;
-  }
+// float32 inputs: the CUDA-core kernels above; bfloat16 inputs: the
+// tensor-core kernels of flash_attention_bwd_wgmma.cuh
+template <bool kDq, int D>
+int launch(int is_bf16, const Args& a) {
+  if (is_bf16) return wgmma_bwd::launch<D, kDq>(a);
+  return kDq ? launch_dq<D, float>(a) : launch_dkv<D, float>(a);
 }
 
 template <bool kDq>
 int run(int d, int is_bf16, const Args& a) {
   if (a.bh <= 0 || a.tq <= 0 || a.tk <= 0) return 0;
-  return is_bf16 ? dispatch<kDq, __nv_bfloat16>(d, a) : dispatch<kDq, float>(d, a);
+  switch (d) {
+    case 32: return launch<kDq, 32>(is_bf16, a);
+    case 64: return launch<kDq, 64>(is_bf16, a);
+    case 128: return launch<kDq, 128>(is_bf16, a);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 // Plain C interfaces, loaded with ctypes.  q (bh, tq, d), k and v (bh, tk, d)
-// in float32 (is_bf16 = 0) or bfloat16 (is_bf16 = 1); g_out (bh, tq, d),
+// and g_out (bh, tq, d) in float32 (is_bf16 = 0) or bfloat16 (is_bf16 = 1);
 // lse, delta and g_lse (bh, tq) float32; dq (bh, tq, d), dk and dv
 // (bh, tk, d) float32.  d is 32, 64 or 128.  Each launches on `stream` and
-// returns cudaGetLastError() (0 = launched).
+// returns cudaGetLastError() (0 = launched), or cudaErrorInvalidValue when
+// a tensor map cannot be encoded.
 extern "C" int coinn_flash_bwd_dq(const void* q, const void* k, const void* v,
                                   const void* g_out, const void* lse,
                                   const void* delta, const void* g_lse,

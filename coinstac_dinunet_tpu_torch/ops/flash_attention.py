@@ -13,7 +13,12 @@ Two implementations of each direction:
 - the CUDA kernels, launched for tensors on the card: K2
   ``csrc/flash_attention_fwd.cu`` (replacing the TPU kernel
   ``_flash_kernel``), K3 and K4 ``csrc/flash_attention_bwd.cu``
-  (replacing ``_dq_kernel`` and ``_dkv_kernel``);
+  (replacing ``_dq_kernel`` and ``_dkv_kernel``).  For bfloat16 inputs K3
+  and K4 run every tile product on the tensor cores
+  (``csrc/flash_attention_bwd_wgmma.cuh``): ``g_out``, ``p`` and ``ds``
+  are rounded to bfloat16 before the products and the sums are float32,
+  as on the TPU's matrix unit.  For float32 inputs all three compute in
+  float32 on the CUDA cores;
 - :func:`flash_forward_plain` and :func:`flash_backward_plain`, plain
   PyTorch in float32 with autocast off (the dense form of the same
   identities, the counterparts of ``_flash_xla`` and the XLA backward),
@@ -109,41 +114,54 @@ def flash_delta(out, g_out):
 
 
 def _backward_plain(q, k, v, g_out, lse, delta, g_lse, q_offset, k_offset,
-                    kv_len, causal, scale, dq=True, dkv=True):
+                    kv_len, causal, scale, dq=True, dkv=True, round_dtype=None):
     """The dense backward over ``bh`` chunks, in float32 with autocast off:
-    ``(dq or None, dk or None, dv or None)``."""
+    ``(dq or None, dk or None, dv or None)``.
+
+    ``round_dtype`` serves the checks of the tensor-core kernels only, no
+    path of the port: it is the dtype those kernels round ``g_out``, ``p``
+    and ``ds`` to before their products (bfloat16), and with it ``scale``
+    multiplies the float32 products as in the kernels instead of ``q``.
+    ``None`` is the float32 statement of the function.
+    """
     bh, tq, _ = q.shape
     valid = _valid_mask(tq, k.shape[1], q_offset, k_offset, kv_len, causal, q.device)
+    matched = round_dtype is not None
+    rnd = (lambda t: t.to(round_dtype).float()) if matched else (lambda t: t)
     dqs, dks, dvs = [], [], []
     with torch.autocast(device_type=q.device.type, enabled=False):
         lse_safe = torch.where(lse <= _MASKED_LSE, 0.0, lse.float())
         for sl in _chunks(bh, tq, k.shape[1]):
-            qf = q[sl].float() * scale
-            kf, vf, go = k[sl].float(), v[sl].float(), g_out[sl].float()
+            qf = q[sl].float() if matched else q[sl].float() * scale
+            kf, vf, go = k[sl].float(), v[sl].float(), rnd(g_out[sl].float())
             s = torch.matmul(qf, kf.transpose(1, 2))
+            if matched:
+                s = s * scale
             p = torch.where(valid, torch.exp(torch.where(valid, s, _NEG)
                                              - lse_safe[sl].unsqueeze(-1)), 0.0)
             dp = torch.matmul(go, vf.transpose(1, 2))
             ds = p * (dp - delta[sl].float().unsqueeze(-1) + g_lse[sl].float().unsqueeze(-1))
+            p, ds = rnd(p), rnd(ds)
             if dq:
                 dqs.append(torch.matmul(ds, kf) * scale)
             if dkv:
-                dks.append(torch.matmul(ds.transpose(1, 2), qf))
+                dk = torch.matmul(ds.transpose(1, 2), qf)
+                dks.append(dk * scale if matched else dk)
                 dvs.append(torch.matmul(p.transpose(1, 2), go))
     return tuple(torch.cat(x) if x else None for x in (dqs, dks, dvs))
 
 
-def flash_dq_plain(*args):
+def flash_dq_plain(*args, round_dtype=None):
     """Plain PyTorch version of K3, ``dq = scale·ds·k`` (float32), from
     ``(q, k, v, g_out, lse, Δ, g_lse, q_offset, k_offset, kv_len, causal,
-    scale)``."""
-    return _backward_plain(*args, dkv=False)[0]
+    scale)``; ``round_dtype`` as in :func:`_backward_plain`."""
+    return _backward_plain(*args, dkv=False, round_dtype=round_dtype)[0]
 
 
-def flash_dkv_plain(*args):
+def flash_dkv_plain(*args, round_dtype=None):
     """Plain PyTorch version of K4, ``dk = dsᵀ·(scale·q)`` and ``dv =
     pᵀ·g_out`` (float32), from the arguments of :func:`flash_dq_plain`."""
-    return _backward_plain(*args, dq=False)[1:]
+    return _backward_plain(*args, dq=False, round_dtype=round_dtype)[1:]
 
 
 def flash_backward_plain(q, k, v, out, lse, g_out, g_lse, q_offset, k_offset,
@@ -199,7 +217,10 @@ def _bwd_cuda(kernel, outs, q, k, v, g_out, lse, delta, g_lse, q_offset,
               k_offset, kv_len, causal, scale):
     _check_cuda(q, k, v)
     ins = [t.contiguous() for t in (q, k, v)]
-    ins += [t.float().contiguous() for t in (g_out, lse, delta, g_lse)]
+    # the bfloat16 kernels take g_out in bfloat16 (their products run on
+    # bfloat16 tiles), the float32 kernels in float32
+    ins += [g_out.to(q.dtype).contiguous()]
+    ins += [t.float().contiguous() for t in (lse, delta, g_lse)]
     if q.numel() == 0 or k.numel() == 0:
         return [o.zero_() for o in outs]
     with torch.cuda.device(q.device):
@@ -225,8 +246,9 @@ def flash_backward_cuda(q, k, v, out, lse, g_out, g_lse, q_offset, k_offset,
                         kv_len, causal, scale):
     """K3 then K4 on the card; same contract as
     :func:`flash_backward_plain`."""
-    args = (q, k, v, g_out, lse, flash_delta(out, g_out), g_lse, q_offset, k_offset,
-            kv_len, causal, scale)
+    # Δ from the float32 cotangent; one cast of g_out serves both launches
+    args = (q, k, v, g_out.to(q.dtype), lse, flash_delta(out, g_out), g_lse, q_offset,
+            k_offset, kv_len, causal, scale)
     return (flash_dq_cuda(*args), *flash_dkv_cuda(*args))
 
 

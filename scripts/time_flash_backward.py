@@ -1,0 +1,101 @@
+#!/usr/bin/env python3
+"""Time the PyTorch port's flash-attention backward kernels (K3 dq, K4
+dk/dv) of one or more checkouts on one NVIDIA card, in turns.
+
+Each ``--root`` names a directory that holds a ``coinstac_dinunet_tpu_torch``
+package (``.`` for this checkout, or an unpacked copy of another commit).
+Every root is timed in a process of its own, in the order given, so two
+versions of the package can be compared inside one run on one card:
+
+    python3 scripts/time_flash_backward.py --root _checkout/parent --root . \\
+        --root . --root _checkout/parent
+
+Shapes: the sequence path's (B 16, H 4, T 4096, d 32, bfloat16, not causal)
+and B 1, H 8, T 8192, d 128, bfloat16, causal.  The inputs are random from
+a seed; ``g_out`` is float32, as the model hands it to the kernels.  Times
+are CUDA events around 20 launches after 3 warm-up launches.  Beside them,
+``scaled_dot_product_attention``'s backward on the same inputs (dq, dk and
+dv together).  One JSON object per root and shape goes to standard output,
+then the card's name and power limit.  Imports torch only.
+"""
+import argparse
+import importlib
+import json
+import os
+import subprocess
+import sys
+
+SHAPES = [  # (name, B, H, T, d, causal)
+    ("main", 16, 4, 4096, 32, False),
+    ("tpu", 1, 8, 8192, 128, True),
+]
+
+
+def cuda_ms(fn, iters=20, warmup=3):
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def worker(root):
+    """Time the package under ``root`` (this process imports it once)."""
+    import torch
+    import torch.nn.functional as F
+
+    sys.path.insert(0, os.path.abspath(root))
+    fa = importlib.import_module("coinstac_dinunet_tpu_torch.ops.flash_attention")
+    dev = torch.device("cuda", 0)
+    for name, b, h, t, d, causal in SHAPES:
+        gen = torch.Generator(device=dev).manual_seed(0)
+        bh = b * h
+        q, k, v = [torch.randn((bh, t, d), generator=gen, device=dev).to(torch.bfloat16)
+                   for _ in range(3)]
+        pos = (0, 0, t, causal, d ** -0.5)
+        out, lse = fa.flash_forward_cuda(q, k, v, *pos)
+        g_out = torch.randn(out.shape, generator=gen, device=dev)
+        args = (q, k, v, g_out, lse, fa.flash_delta(out, g_out), torch.zeros_like(lse), *pos)
+        dq_ms = cuda_ms(lambda: fa.flash_dq_cuda(*args))
+        dkv_ms = cuda_ms(lambda: fa.flash_dkv_cuda(*args))
+        ql, kl, vl = [x.reshape(b, h, t, d).detach().requires_grad_() for x in (q, k, v)]
+        lib_out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal)
+        gl = g_out.reshape(b, h, t, d).to(q.dtype)
+        lib_ms = cuda_ms(lambda: torch.autograd.grad(lib_out, (ql, kl, vl), gl,
+                                                     retain_graph=True))
+        print(json.dumps({"root": root, "shape": name, "dq_ms": dq_ms, "dkv_ms": dkv_ms,
+                          "library_backward_ms": lib_ms,
+                          "device": torch.cuda.get_device_name(0)}), flush=True)
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--root", action="append", default=[],
+                    help="a directory holding coinstac_dinunet_tpu_torch (repeatable)")
+    ap.add_argument("--worker", help=argparse.SUPPRESS)
+    ns = ap.parse_args()
+    if ns.worker:
+        worker(ns.worker)
+        return 0
+    import torch
+
+    if not torch.cuda.is_available():
+        print("time_flash_backward: no CUDA device is available", file=sys.stderr)
+        return 2
+    for root in ns.root or ["."]:
+        subprocess.run([sys.executable, os.path.abspath(__file__), "--worker", root], check=True)
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip())
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -188,3 +188,97 @@ def test_none_lse_cotangent_is_zeros():
                                    0, 0, 24, False, 0.25)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+# --- the plain backward with the tensor-core kernels' roundings -----------
+# K3 and K4 on bfloat16 inputs round g_out, p and ds to bfloat16 before
+# their products and apply ``scale`` to the float32 products;
+# ``round_dtype`` gives the plain backward the same roundings, for the
+# checks on the card.  On the CPU it is held to the unrounded plain
+# backward and to the JAX package's backward on the same bf16 inputs.
+
+BACKWARD_CASES = {  # causal, q_offset, k_offset, kv_len, g_lse nonzero
+    "causal": (True, 0, 0, 96, False),
+    "kv_len_tail": (False, 0, 0, 60, False),
+    "offsets": (True, 40, 13, 96, False),
+    "g_lse": (False, 0, 0, 96, True),
+    "causal_offsets_g_lse": (True, 40, 13, 80, True),
+}
+
+
+def _plain_backward_unrounded(q, k, v, g_out, lse, delta, g_lse, q_offset, k_offset, kv_len,
+                           causal, scale):
+    """The dense float32 backward written out on its own: ``scale`` folded
+    into q, no rounding."""
+    valid = fa._valid_mask(q.shape[1], k.shape[1], q_offset, k_offset, kv_len, causal, q.device)
+    lse_safe = torch.where(lse <= fa._MASKED_LSE, 0.0, lse.float())
+    qf = q.float() * scale
+    kf, vf, go = k.float(), v.float(), g_out.float()
+    s = torch.matmul(qf, kf.transpose(1, 2))
+    p = torch.where(valid, torch.exp(torch.where(valid, s, fa._NEG) - lse_safe.unsqueeze(-1)), 0.0)
+    dp = torch.matmul(go, vf.transpose(1, 2))
+    ds = p * (dp - delta.float().unsqueeze(-1) + g_lse.float().unsqueeze(-1))
+    return (torch.matmul(ds, kf) * scale, torch.matmul(ds.transpose(1, 2), qf),
+            torch.matmul(p.transpose(1, 2), go))
+
+
+def _backward_inputs(seed, case, dtype, bh=3, t=96, d=32, g_dtype=torch.float32):
+    causal, qo, ko, kv, nz = BACKWARD_CASES[case]
+    rng = np.random.default_rng(seed)
+    q, k, v = [torch.from_numpy(rng.normal(size=(bh, t, d)).astype(np.float32)).to(dtype)
+               for _ in range(3)]
+    g_out = torch.from_numpy(rng.normal(size=(bh, t, d)).astype(np.float32))
+    g_out = g_out.to(g_dtype).float()  # float32 values that g_dtype can carry
+    g_lse = torch.from_numpy(rng.normal(size=(bh, t)).astype(np.float32)) * float(nz)
+    pos = (qo, ko, kv, causal, d ** -0.5)
+    out, lse = fa.flash_forward_plain(q, k, v, *pos)
+    return (q, k, v, g_out, lse, fa.flash_delta(out, g_out), g_lse, *pos)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", list(BACKWARD_CASES))
+def test_plain_backward_without_rounding_is_unchanged_bit_for_bit(case, dtype):
+    args = _backward_inputs(21, case, dtype)
+    for got, want in zip(fa._backward_plain(*args, round_dtype=None),
+                         _plain_backward_unrounded(*args)):
+        assert torch.equal(got, want)
+    assert torch.equal(fa.flash_dq_plain(*args), fa._backward_plain(*args)[0])
+
+
+@pytest.mark.parametrize("case", list(BACKWARD_CASES))
+def test_scale_after_the_product_equals_scale_folded_into_q(case):
+    """With float32 as the rounding dtype nothing is rounded, so the only
+    difference is where ``scale`` multiplies: the float32 products (as in
+    the tensor-core kernels) or q.  Within float32 rounding: 1e-5·max."""
+    args = _backward_inputs(22, case, torch.bfloat16)
+    for got, want in zip(fa._backward_plain(*args, round_dtype=torch.float32),
+                         fa._backward_plain(*args)):
+        assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("impl", ["xla", "pallas_interpret"])
+@pytest.mark.parametrize("case", list(BACKWARD_CASES))
+def test_rounding_matched_plain_backward_matches_jax_in_bf16(case, impl):
+    """The plain backward with the kernels' bfloat16 roundings against the
+    JAX package's backward (``jax.vjp`` of its XLA path and of its Pallas
+    kernels under the interpreter) on the same numpy-made bfloat16 inputs
+    and cotangents: within 2e-2·max|jax| (bfloat16 carries 8 bits; the JAX
+    gradients come back rounded to bfloat16 themselves)."""
+    causal, qo, ko, kv, nz = BACKWARD_CASES[case]
+    # g_out in values bfloat16 carries: the cotangent of a bfloat16 output
+    args = _backward_inputs(23, case, torch.bfloat16, g_dtype=torch.bfloat16)
+    q, k, v, g_out, _, _, g_lse = args[:7]
+    # (BH, T, d) -> the JAX layout (B, H, T, d) with B = 1
+    as_jax = lambda x, dt: jnp.asarray(x.float().numpy()[None], dt)
+    qj, kj, vj = [as_jax(x, jnp.bfloat16) for x in (q, k, v)]
+    (_, _), vjp = jax.vjp(
+        lambda a, b, c: jax_flash(a, b, c, q_offset=qo, k_offset=ko, kv_len=kv, causal=causal,
+                                  impl=impl, return_lse=True), qj, kj, vj)
+    want = vjp((as_jax(g_out, jnp.bfloat16), as_jax(g_lse, jnp.float32)))
+    got = fa._backward_plain(*args, round_dtype=torch.bfloat16)
+    for a, b in zip(got, want):
+        b = np.asarray(b.astype(jnp.float32))[0]
+        assert np.abs(a.numpy() - b).max() <= 2e-2 * np.abs(b).max()
+    # and the rounding stays near the unrounded statement of the function
+    for a, b in zip(got, fa._backward_plain(*args)):
+        assert float((a - b).abs().max()) <= 2e-2 * float(b.abs().max())
