@@ -11,10 +11,11 @@ Phases, in order; any failure exits non-zero before the last line:
    the shapes the main paths give it and at edge shapes, with kernel,
    plain-version, bound and library times: K1 (int8 quantize) bit-equal;
    K2–K4 (flash-attention forward, dq, dk/dv) within stated tolerances
-   (the bfloat16 tensor-core dq and dk/dv against the plain version with
-   the kernels' bfloat16 roundings and against the float32 one, with
-   ``scaled_dot_product_attention``'s backward as the witness of the
-   format's error), with bit-identical results from two backward launches;
+   (the bfloat16 tensor-core forward, dq and dk/dv against the plain
+   version with the kernels' bfloat16 roundings and against the float32
+   one, with ``scaled_dot_product_attention``'s forward and backward as the
+   witnesses of the format's error), with bit-identical results from two
+   launches of each;
 4. reference — the VBM model's and the sequence model's logits on the card
    against the CPU on a small input (float32, TF32 off), within 1e-4;
 5. main path 1 — ``InProcessEngine`` federated dSGD over 2 sites, the VBM
@@ -74,6 +75,8 @@ SEQ_ARGS = dict(
 )
 SEQ_FILES = 48
 SEQ_PROFILED_ROUND = 3  # the second gradient round, a steady one
+# the port's kernels by their device-side names, picked out of a profile
+PORT_KERNEL_NAMES = ("quantize_int8_kernel", "flash_fwd", "flash_bwd", "flash_dq", "flash_dkv")
 
 
 def log(msg):
@@ -223,7 +226,7 @@ def check_quantize(dev, report):
 # edges: a T that is no tile multiple, every head dim, a masked key tail,
 # no valid key at all, a causal slice with every row masked, and a causal
 # slice with both offsets nonzero.  Every edge runs in float32 (the
-# CUDA-core kernels) and in bfloat16 (K3 and K4 on the tensor cores).
+# CUDA-core kernels) and in bfloat16 (the tensor-core kernels).
 _FLASH_EDGES = [
     ("t160", 1, 2, 160, 32, False, 0, 0, None, True),
     ("t160_causal", 1, 2, 160, 32, True, 0, 0, None, True),
@@ -247,9 +250,10 @@ FLASH_CASES = [
 # kernel, cuBLAS's order in the plain version) and in expf/logf against
 # torch's exp/log (a few ulp each), which stays some 100x below this.
 FLASH_RTOL, FLASH_ATOL = 1e-4, 1e-6
-# K3 and K4 on bfloat16 inputs round g_out, p and ds to bfloat16 before
-# their tensor-core products.  Against the plain version with the same
-# roundings what is left is the order of the float32 sums and, here and
+# On bfloat16 inputs K2 rounds p, K3 and K4 round g_out, p and ds to
+# bfloat16 before their tensor-core products.  Against the plain version
+# with the same roundings (for K2 the online softmax over the kernel's key
+# tiles) what is left is the order of the float32 sums and, here and
 # there, a bfloat16 rounding of p or ds that falls the other way: the two
 # sides' float32 values differ in their last bits (tensor-core sums,
 # ex2.approx against torch.exp), and a value that lies on a rounding
@@ -263,10 +267,12 @@ FLASH_BF16_MATCHED_RTOL = 1e-3
 FLASH_BF16_MATCHED_RTOL_SHORT = 4e-3
 FLASH_LONG_T = 1024  # from here on a case counts as long
 # Against the float32 plain version the difference is the format's: 2^-9
-# relative on each of g_out, p and ds.  scaled_dot_product_attention's
-# backward on the same inputs is the witness: at the "main" and "tpu"
-# shapes the kernels may err at most FLASH_BF16_LIBRARY_FACTOR times as
-# much as it does.
+# relative on each of p (K2) or g_out, p and ds (K3, K4).
+# scaled_dot_product_attention's forward and backward on the same inputs
+# are the witnesses: at the "main" and "tpu" shapes the kernels may err at
+# most FLASH_BF16_LIBRARY_FACTOR times as much as the library does.
+# lse is held to FLASH_RTOL in both types, and two launches of any kernel
+# must give the same bits (no atomics).
 FLASH_BF16_RTOL = 2e-2
 FLASH_BF16_LIBRARY_FACTOR = 2.0
 FLASH_SOURCES = {
@@ -320,6 +326,14 @@ def _close(got, want, what, scales=None, rtol=FLASH_RTOL):
     return err
 
 
+def library_forward(F, shape, q, k, v, causal):
+    """``scaled_dot_product_attention``'s output on the same inputs, as
+    float32 ``(BH, T, d)``: the yardstick of K2's format error."""
+    b, h, t, d = shape
+    ql, kl, vl = [x.reshape(b, h, t, d) for x in (q, k, v)]
+    return F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal).reshape(b * h, t, d).float()
+
+
 def library_backward(F, shape, q, k, v, g_out, causal):
     """``scaled_dot_product_attention``'s (dq, dk, dv) on the same inputs
     in ``(B, H, T, d)``, as float32 ``(BH, T, d)``: the yardstick of the
@@ -344,7 +358,7 @@ def check_flash(dev, report):
 
     rows, kernels = [], {}
     errs = {name: 0.0 for name in FLASH_SOURCES}
-    errs_f32 = {"flash_attention_dq": 0.0, "flash_attention_dkv": 0.0}
+    errs_f32 = {name: 0.0 for name in FLASH_SOURCES}
     library_errs = {}
     exp_per_s = (EXP_PER_CLOCK_PER_SM * torch.cuda.get_device_properties(dev).multi_processor_count
                  * max_sm_clock_hz())
@@ -356,11 +370,38 @@ def check_flash(dev, report):
         kv_len = t if kv is None else kv
         scale = d ** -0.5
         pos = (qo, ko, kv_len, causal, scale)
+        bf16 = dt == torch.bfloat16
+        m_rtol = FLASH_BF16_MATCHED_RTOL if t >= FLASH_LONG_T else FLASH_BF16_MATCHED_RTOL_SHORT
         out, lse = fa.flash_forward_cuda(q, k, v, *pos)
         p_out, p_lse = fa.flash_forward_plain(q, k, v, *pos)
         scales = []  # max |plain| of out, lse, dq, dk, dv
-        e_fwd = max(_close(out, p_out, f"K2 out at {case}", scales),
-                    _close(lse, p_lse, f"K2 lse at {case}", scales))
+        extra = ""
+        if bf16:
+            # first against the plain version with the kernel's roundings ...
+            m_out = fa.flash_forward_plain(q, k, v, *pos, round_dtype=dt)[0]
+            e_out = _close(out, m_out, f"K2 out at {case} (rounding-matched)", rtol=m_rtol)
+            del m_out
+            # ... then against the float32 statement of the function
+            f_out = _close(out, p_out, f"K2 out at {case} (float32 plain)", scales,
+                           rtol=FLASH_BF16_RTOL)
+            errs_f32["flash_attention_fwd"] = max(errs_f32["flash_attention_fwd"], f_out)
+            extra = f"; vs float32 plain out {f_out:.2e}"
+            if case in ("main", "tpu"):
+                l_out = float((library_forward(F, (b, h, t, d), q, k, v, causal)
+                               - p_out).abs().max())
+                extra += f"; library forward vs float32 plain out {l_out:.2e}"
+                if not f_out <= FLASH_BF16_LIBRARY_FACTOR * l_out:
+                    raise AssertionError(
+                        f"K2 out at {case}: error {f_out:.3e} against the float32 plain "
+                        f"version is over {FLASH_BF16_LIBRARY_FACTOR} x the library "
+                        f"forward's {l_out:.3e}")
+                library_errs[case] = {"out": (f_out, l_out)}
+        else:
+            e_out = _close(out, p_out, f"K2 out at {case}", scales)
+        e_fwd = max(e_out, _close(lse, p_lse, f"K2 lse at {case}", scales))
+        if not all(torch.equal(a, b_) for a, b_ in zip((out, lse),
+                                                       fa.flash_forward_cuda(q, k, v, *pos))):
+            raise AssertionError(f"K2 at {case}: two launches differ")
         # the backward kernels get the plain forward's residuals, as the
         # plain backward does, so each check isolates one kernel
         g_out = torch.randn((bh, t, d), generator=gen, device=dev)
@@ -373,9 +414,6 @@ def check_flash(dev, report):
         p_dq = fa.flash_dq_plain(*args)
         p_dk, p_dv = fa.flash_dkv_plain(*args)
         torch.cuda.synchronize()
-        bf16 = dt == torch.bfloat16
-        extra = ""
-        m_rtol = FLASH_BF16_MATCHED_RTOL if t >= FLASH_LONG_T else FLASH_BF16_MATCHED_RTOL_SHORT
         if bf16:
             # first against the plain version with the kernels' roundings ...
             m_dq = fa.flash_dq_plain(*args, round_dtype=dt)
@@ -391,7 +429,7 @@ def check_flash(dev, report):
                                               ("K4 dv", dv, p_dv))]
             errs_f32["flash_attention_dq"] = max(errs_f32["flash_attention_dq"], f_errs[0])
             errs_f32["flash_attention_dkv"] = max(errs_f32["flash_attention_dkv"], *f_errs[1:])
-            extra = "; vs float32 plain dq {:.2e} dk {:.2e} dv {:.2e}".format(*f_errs)
+            extra += "; vs float32 plain dq {:.2e} dk {:.2e} dv {:.2e}".format(*f_errs)
             if case in ("main", "tpu"):
                 lib = library_backward(F, (b, h, t, d), q, k, v, g_out, causal)
                 l_errs = [float((got - want).abs().max())
@@ -404,7 +442,7 @@ def check_flash(dev, report):
                             f"{what} at {case}: error {mine:.3e} against the float32 plain "
                             f"version is over {FLASH_BF16_LIBRARY_FACTOR} x the library "
                             f"backward's {theirs:.3e}")
-                library_errs[case] = dict(zip(("dq", "dk", "dv"), zip(f_errs, l_errs)))
+                library_errs[case].update(zip(("dq", "dk", "dv"), zip(f_errs, l_errs)))
         else:
             e_dq = _close(dq, p_dq, f"K3 dq at {case}", scales)
             e_dkv = max(_close(dk, p_dk, f"K4 dk at {case}", scales),
@@ -413,8 +451,9 @@ def check_flash(dev, report):
                                              or dv[:, 96:].abs().max() != 0):
             raise AssertionError("K4: keys past kv_len got a nonzero gradient")
         if case.startswith(("kv_len_0", "causal_all_masked")):
-            if out.abs().max() != 0 or not bool((lse < -1e29).all()):
-                raise AssertionError(f"K2 at {case}: masked rows must give zeros and lse < -1e29")
+            if out.abs().max() != 0 or not bool((lse <= fa._MASKED_LSE).all()):
+                raise AssertionError(f"K2 at {case}: masked rows must give zeros and lse <= "
+                                     f"{fa._MASKED_LSE}")
             if any(x.abs().max() != 0 for x in (dq, dk, dv)):
                 raise AssertionError(f"K3/K4 at {case}: masked rows must give zero gradients")
         # no atomics: a second launch gives the same bits
@@ -442,10 +481,9 @@ def check_flash(dev, report):
     report["flash_library_errors"] = library_errs
     for name, kern in kernels.items():
         kern["max_abs_err"] = errs[name]
-        if name in errs_f32:
-            # bfloat16 cases: max_abs_err is against the rounding-matched
-            # plain version, this one against the float32 plain version
-            kern["max_abs_err_vs_float32_plain"] = errs_f32[name]
+        # bfloat16 cases: max_abs_err is against the rounding-matched plain
+        # version, this one against the float32 plain version
+        kern["max_abs_err_vs_float32_plain"] = errs_f32[name]
     return [kernels[name] for name in FLASH_SOURCES]
 
 
@@ -736,11 +774,15 @@ def profiled_round(eng):
             rows.append((dev_us, e.key, e.count))
     rows.sort(reverse=True)
     busy_s = sum(r[0] for r in rows) / 1e6
+    # the port's own kernels, whatever their rank: device time per launch
+    ours = [{"name": k[:120], "device_ms": us / 1e3, "count": c, "ms_per_launch": us / 1e3 / c}
+            for us, k, c in rows if any(n in k for n in PORT_KERNEL_NAMES)]
     return site_outs, {
         "round": eng.rounds, "wall_s_profiled": wall, "device_busy_s": busy_s,
         "device_idle_share": max(0.0, 1.0 - busy_s / wall),
         "top_device_ops": [{"name": k[:120], "device_ms": us / 1e3, "count": c}
                            for us, k, c in rows[:12]],
+        "port_kernels": ours,
     }
 
 
@@ -751,6 +793,9 @@ def log_profiles(profiles):
             f"{prof['device_idle_share']:.4f}")
         for op in prof["top_device_ops"][:8]:
             log(f"    {op['device_ms']:9.3f} ms x{op['count']:<4d} {op['name'][:80]}")
+        for op in prof["port_kernels"]:
+            log(f"    port kernel {op['name'][:60]}: {op['device_ms']:.4f} ms in {op['count']} "
+                f"launches, {op['ms_per_launch'] * 1e3:.2f} us a launch")
 
 
 def main():
@@ -777,23 +822,24 @@ def main():
     log(f"[2 build] {', '.join(_cuda.all_sources())} in {time.perf_counter() - t0:.2f} s")
     for source, text in build_logs.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "Performance Loss" in line:
                 log(f"  {source}: {line.strip()}")
             if "spill" in line and "0 bytes spill stores, 0 bytes spill loads" not in line:
                 raise AssertionError(f"{source}: a kernel spills registers: {line.strip()}")
-    n_hgmma = count_sass(_cuda, "flash_attention_bwd.cu", "HGMMA")
-    log(f"  flash_attention_bwd.cu: {n_hgmma} HGMMA (wgmma) instructions in the SASS")
-    if n_hgmma == 0:
-        raise AssertionError("the backward kernels hold no tensor-core (HGMMA) instruction")
+    for source in ("flash_attention_fwd.cu", "flash_attention_bwd.cu"):
+        n_hgmma = count_sass(_cuda, source, "HGMMA")
+        log(f"  {source}: {n_hgmma} HGMMA (wgmma) instructions in the SASS")
+        if n_hgmma == 0:
+            raise AssertionError(f"{source} holds no tensor-core (HGMMA) instruction")
 
     log("[3 kernels] K1 quantize_int8 against its plain version")
     k1 = check_quantize(dev, report)
     log(f"[3 kernels] K2-K4 flash attention against their plain versions (tolerance "
-        f"{FLASH_RTOL} x max|plain| + {FLASH_ATOL}; bfloat16 K3 and K4: "
+        f"{FLASH_RTOL} x max|plain| + {FLASH_ATOL}; bfloat16 K2, K3 and K4: "
         f"{FLASH_BF16_MATCHED_RTOL} (T >= {FLASH_LONG_T}) or {FLASH_BF16_MATCHED_RTOL_SHORT} "
         "against the rounding-matched plain version, "
         f"{FLASH_BF16_RTOL} against the float32 one and at most {FLASH_BF16_LIBRARY_FACTOR} x "
-        "the library backward's error)")
+        "the library's error)")
     k234 = check_flash(dev, report)
 
     err = check_reference(dev)

@@ -23,6 +23,8 @@ constexpr int kPer = 4;        // tile rows (and columns) per thread
 constexpr float kNeg = -1.0e30f;          // _NEG
 constexpr float kMaskedLse = -0.5e30f;    // _MASKED_LSE
 constexpr float kLsePad = 1.0e30f;        // _LSE_PAD
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {

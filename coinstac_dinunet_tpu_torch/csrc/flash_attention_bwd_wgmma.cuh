@@ -68,8 +68,6 @@ namespace wgmma_bwd {
 
 using namespace coinn_hopper;
 
-constexpr float kLog2e = 1.4426950408889634f;
-
 template <int D, bool kDq>
 struct Config {
   using L = TileLayout<D>;

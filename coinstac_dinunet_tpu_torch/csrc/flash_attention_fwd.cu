@@ -9,38 +9,43 @@
 // with an online softmax, so the (Tq, Tk) score matrix never reaches device
 // memory.
 //
-// Design.  One block per (64-row q tile, bh).  The TPU kernel's sequential
-// "arbitrary" kv grid axis becomes a loop inside the block over 64-row
-// key/value tiles; the softmax state (running max m, running sum l and the
-// (64, D) accumulator) stays in registers, 4 rows per thread.  Each step:
-// K and V tiles into shared memory (float32, converted on load), the 64x64
-// score tile S = Q·Kᵀ on the CUDA cores (16 values per thread), the mask,
-// the row max and sum by half-warp shuffles, P into shared memory, and
-// acc += P·V.  Ragged edges are masked in the kernel: rows past Tq or Tk
-// load as zeros, are never stored, and key columns at or past
-// min(kv_len, Tk) are masked like any other.  Under the causal mask a q
-// tile stops at the last k tile it can see.
+// Bound on an H100.  4·Tq·Tk·D product operations per bh (half of that
+// under the causal mask) and one exp per valid (query, key) pair, against
+// 2·(Tq + 2·Tk)·D input bytes in bfloat16: far above the ridge, so the
+// bound is the larger of the products over the tensor cores' 989 TFLOP/s
+// and the exps over the special function units' 16 a clock on each of 132
+// SMs.  At the sequence model's Tq = Tk = 4096, D = 32 the exps bind (about
+// twice the products); at D = 128 the products do.
 //
-// Bound.  4·Tq·Tk·D operations per bh (half of that under the causal
-// mask) against 2·(Tq + 2·Tk)·D input bytes in bfloat16: at the sequence
-// model's Tq = Tk = 4096, D = 32 the work is far above the H100's ridge, so
-// the bound is the tensor cores' 989 TFLOP/s.  This first kernel runs the
-// two products on the CUDA cores in float32 (67 TFLOP/s peak) and is far
-// from that bound; wgmma on bf16 tiles fed by TMA is the next step.
-//
-// Shared memory: Q, K, V tiles (64 x (D + 1) floats each) and P (64 x 65):
-// 42 KB at D = 32, 116 KB at D = 128, so the launch raises the block's
-// dynamic shared memory limit.
+// Two implementations, picked by the inputs' type:
+//  - bfloat16 q, k, v (the sequence model under autocast): the tensor-core
+//    kernel of flash_attention_fwd_wgmma.cuh — Q, K and V tiles fed by TMA
+//    through an mbarrier ring, S = Q·Kᵀ and P·V as wgmma, the online
+//    softmax on the accumulator fragments, p rounded to bfloat16 only as the
+//    register A operand of P·V (as the TPU's matrix unit rounds it).
+//  - float32 q, k, v: the kernel of this file.  Float32 in means float32
+//    arithmetic: one block per (64-row q tile, bh) loops over 64-row K/V
+//    tiles; the softmax state (running max m, running sum l and the (64, D)
+//    accumulator) stays in registers, 4 rows per thread.  Each step: K and
+//    V tiles into shared memory, the 64x64 score tile S = Q·Kᵀ on the CUDA
+//    cores (16 values per thread), the mask, the row max and sum by
+//    half-warp shuffles, P into shared memory, and acc += P·V.  Rows past
+//    Tq or Tk load as zeros and are never stored; under the causal mask a q
+//    tile stops at the last k tile it can see.  Its bound is the CUDA
+//    cores' 67 TFLOP/s.  Shared memory: Q, K, V tiles (64 x (D + 1) floats
+//    each) and P (64 x 65): 42 KB at D = 32, 116 KB at D = 128, so the
+//    launch raises the block's dynamic shared memory limit.
 #include "flash_attention.cuh"
+#include "flash_attention_fwd_wgmma.cuh"
 
 namespace {
 
 using namespace coinn_flash;
 
-template <int D, typename T>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-    flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, float* __restrict__ out,
+    flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ out,
                      float* __restrict__ lse, int tq, int tk, float scale,
                      bool causal, int q_offset, int k_offset, int kv_len) {
   extern __shared__ float smem[];
@@ -53,9 +58,9 @@ __global__ void __launch_bounds__(kThreads)
   const int ty = threadIdx.x / 16;
   const int64_t bh = blockIdx.y;
   const int64_t q0 = (int64_t)blockIdx.x * kTile;
-  const T* qb = q + bh * tq * D;
-  const T* kb = k + bh * tk * D;
-  const T* vb = v + bh * tk * D;
+  const float* qb = q + bh * tq * D;
+  const float* kb = k + bh * tk * D;
+  const float* vb = v + bh * tk * D;
 
   const int64_t kv_eff = kv_len < tk ? kv_len : tk;
   const int64_t row_pos0 = (int64_t)q_offset + q0;  // global position of row 0
@@ -123,57 +128,46 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int D, typename T>
-int launch(const void* q, const void* k, const void* v, void* out, void* lse,
-           int bh, int tq, int tk, float scale, int causal, int q_offset,
-           int k_offset, int kv_len, cudaStream_t stream) {
+template <int D>
+int launch(const FwdArgs& a) {
   const size_t smem = smem_bytes(D, 3, 1, 0);
-  auto kernel = flash_fwd_kernel<D, T>;
+  auto kernel = flash_fwd_kernel<D>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((tq + kTile - 1) / kTile, bh);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (float*)out, (float*)lse, tq, tk,
-      scale, causal != 0, q_offset, k_offset, kv_len);
+  const dim3 grid((a.tq + kTile - 1) / kTile, a.bh);
+  kernel<<<grid, kThreads, smem, a.stream>>>(
+      (const float*)a.q, (const float*)a.k, (const float*)a.v, (float*)a.out,
+      (float*)a.lse, a.tq, a.tk, a.scale, a.causal != 0, a.q_offset, a.k_offset,
+      a.kv_len);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int dispatch(int d, const void* q, const void* k, const void* v, void* out,
-             void* lse, int bh, int tq, int tk, float scale, int causal,
-             int q_offset, int k_offset, int kv_len, cudaStream_t stream) {
-  switch (d) {
-    case 32:
-      return launch<32, T>(q, k, v, out, lse, bh, tq, tk, scale, causal,
-                           q_offset, k_offset, kv_len, stream);
-    case 64:
-      return launch<64, T>(q, k, v, out, lse, bh, tq, tk, scale, causal,
-                           q_offset, k_offset, kv_len, stream);
-    case 128:
-      return launch<128, T>(q, k, v, out, lse, bh, tq, tk, scale, causal,
-                            q_offset, k_offset, kv_len, stream);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+// the float32 kernel of this file, or the tensor-core kernel of
+// flash_attention_fwd_wgmma.cuh for bfloat16 inputs
+template <int D>
+int run(int is_bf16, const FwdArgs& a) {
+  return is_bf16 ? wgmma_fwd::launch<D>(a) : launch<D>(a);
 }
 
 }  // namespace
 
 // Plain C interface, loaded with ctypes.  q (bh, tq, d), k and v (bh, tk, d)
 // in float32 (is_bf16 = 0) or bfloat16 (is_bf16 = 1); out (bh, tq, d) and
-// lse (bh, tq) float32.  d is 32, 64 or 128.  Launches on `stream` and
-// returns cudaGetLastError() (0 = launched).
+// lse (bh, tq) float32.  d is 32, 64 or 128; tk > 0.  Launches on `stream`
+// and returns cudaGetLastError() (0 = launched).
 extern "C" int coinn_flash_fwd(const void* q, const void* k, const void* v,
                                void* out, void* lse, int bh, int tq, int tk,
                                int d, int is_bf16, float scale, int causal,
                                int q_offset, int k_offset, int kv_len,
                                void* stream) {
   if (bh <= 0 || tq <= 0) return 0;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (is_bf16)
-    return dispatch<__nv_bfloat16>(d, q, k, v, out, lse, bh, tq, tk, scale,
-                                   causal, q_offset, k_offset, kv_len, s);
-  return dispatch<float>(d, q, k, v, out, lse, bh, tq, tk, scale, causal,
-                         q_offset, k_offset, kv_len, s);
+  const FwdArgs a{q, k, v, out, lse, bh, tq, tk, scale, causal, q_offset, k_offset,
+                  kv_len, (cudaStream_t)stream};
+  switch (d) {
+    case 32: return run<32>(is_bf16, a);
+    case 64: return run<64>(is_bf16, a);
+    case 128: return run<128>(is_bf16, a);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

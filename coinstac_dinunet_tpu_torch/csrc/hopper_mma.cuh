@@ -1,9 +1,10 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels: TMA
 // tensor maps and loads, mbarriers, wgmma descriptors and instructions.
 //
-// The flash-attention backward kernels (flash_attention_bwd_wgmma.cuh, which
-// replace the TPU kernels _dq_kernel and _dkv_kernel) are built from these;
-// the forward kernel is meant to move onto the same pieces.
+// The flash-attention kernels for bfloat16 inputs are built from these: the
+// forward (flash_attention_fwd_wgmma.cuh, replacing the TPU kernel
+// _flash_kernel) and the backward (flash_attention_bwd_wgmma.cuh, replacing
+// _dq_kernel and _dkv_kernel).
 //
 // Tile layout.  A (rows, D) bfloat16 tile sits in shared memory as D / 64
 // column chunks (one chunk of 32 columns at D = 32), each chunk a dense
@@ -205,12 +206,26 @@ __device__ __forceinline__ void pin(uint32_t (&r)[N]) {
       "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),           \
       "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),           \
       "+f"(d[30]), "+f"(d[31])
+#define COINN_ACC64(d)                                                           \
+  COINN_ACC32(d), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),            \
+      "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),           \
+      "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),           \
+      "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),           \
+      "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),           \
+      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),           \
+      "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
 #define COINN_REGS16 \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
 #define COINN_REGS32                                                         \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "  \
   "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "   \
   "%30, %31}"
+#define COINN_REGS64                                                         \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "  \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "   \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "   \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "   \
+  "%58, %59, %60, %61, %62, %63}"
 
 // d (64 x N, float32) = A·Bᵀ + (accumulate ? d : 0): A a 64 x 16 slice and B
 // an N x 16 slice of K-major bfloat16 tiles in shared memory.
@@ -236,6 +251,18 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b,
       ", %32, %33, p, 1, 1, 0, 0;\n"
       "}\n"
       : COINN_ACC32(d)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a, uint64_t b,
+                                         int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " COINN_REGS64
+      ", %64, %65, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : COINN_ACC64(d)
       : "l"(a), "l"(b), "r"(accumulate));
 }
 

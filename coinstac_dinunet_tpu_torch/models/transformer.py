@@ -17,8 +17,11 @@ takes flax's:
   scales, ``normal(0.02)`` positions), drawn from a ``torch.Generator`` —
   the same seed gives every port site the same replica, not the JAX
   package's weights;
-- **precision**: under bfloat16 autocast the projections run in bfloat16
-  and attention computes in float32 from bfloat16 inputs; the positional
+- **precision**: under bfloat16 autocast the projections run in bfloat16.
+  On the card attention's products take bfloat16 operands (``p``, and in
+  the backward ``g_out`` and ``ds``, rounded to bfloat16) with float32
+  sums, and its softmax state is float32, as on the TPU's matrix unit; on
+  the CPU it computes in float32 from the bfloat16 inputs; the positional
   table is cast to the activations' dtype before the add, and the head, the
   logits and the loss are float32, as in the JAX model.
 

@@ -13,17 +13,21 @@ Two implementations of each direction:
 - the CUDA kernels, launched for tensors on the card: K2
   ``csrc/flash_attention_fwd.cu`` (replacing the TPU kernel
   ``_flash_kernel``), K3 and K4 ``csrc/flash_attention_bwd.cu``
-  (replacing ``_dq_kernel`` and ``_dkv_kernel``).  For bfloat16 inputs K3
-  and K4 run every tile product on the tensor cores
-  (``csrc/flash_attention_bwd_wgmma.cuh``): ``g_out``, ``p`` and ``ds``
-  are rounded to bfloat16 before the products and the sums are float32,
-  as on the TPU's matrix unit.  For float32 inputs all three compute in
-  float32 on the CUDA cores;
+  (replacing ``_dq_kernel`` and ``_dkv_kernel``).  For bfloat16 inputs all
+  three run every tile product on the tensor cores
+  (``csrc/flash_attention_fwd_wgmma.cuh``,
+  ``csrc/flash_attention_bwd_wgmma.cuh``): ``p`` in the forward, and
+  ``g_out``, ``p`` and ``ds`` in the backward, are rounded to bfloat16
+  before the products, whose sums are float32, as on the TPU's matrix unit;
+  the softmax state (row max, row sum, the output accumulator) stays
+  float32.  For float32 inputs all three compute in float32 on the CUDA
+  cores;
 - :func:`flash_forward_plain` and :func:`flash_backward_plain`, plain
   PyTorch in float32 with autocast off (the dense form of the same
   identities, the counterparts of ``_flash_xla`` and the XLA backward),
   taken for tensors on the CPU and used on the card only to check the
-  kernels.
+  kernels.  Their ``round_dtype`` option gives them the tensor-core
+  kernels' bfloat16 roundings, for those checks only.
 
 :class:`FlashAttention` is the ``torch.autograd.Function`` over
 ``(BH, T, d)``: it returns float32 ``(out, lse)`` and takes a cotangent for
@@ -45,9 +49,15 @@ from ._cuda import CudaKernel
 _NEG = -1.0e30  # finite "-inf": keeps exp/max NaN-free for fully masked rows
 _MASKED_LSE = _NEG / 2  # an lse at or below this marks a fully masked row
 _LSE_PAD = 1.0e30  # lse of a q row past Tq: exp(s - pad) == 0
+_LOG2E = 1.4426950408889634
+_LN2 = 0.6931471805599453
 
 #: head dims the kernels are instantiated for
 HEAD_DIMS = (32, 64, 128)
+#: keys of a K/V tile of the bfloat16 forward kernel at every head dim
+#: (``Config<D>::kN`` in ``csrc/flash_attention_fwd_wgmma.cuh``): the tiles
+#: over which its running max, and so its rounding of p, advances
+FWD_KEY_TILE = 128
 
 _ARGS = [ctypes.c_void_p] * 3  # q, k, v
 _SHAPE = [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
@@ -85,11 +95,25 @@ def _chunks(bh, tq, tk, max_elems=2 ** 28):
     return [slice(i, min(bh, i + step)) for i in range(0, bh, step)]
 
 
-def flash_forward_plain(q, k, v, q_offset, k_offset, kv_len, causal, scale):
+def flash_forward_plain(q, k, v, q_offset, k_offset, kv_len, causal, scale,
+                        round_dtype=None):
     """Plain PyTorch version of K2: ``(BH, Tq, d)``, ``(BH, Tk, d)`` →
-    ``(out (BH, Tq, d) float32, lse (BH, Tq) float32)``."""
+    ``(out (BH, Tq, d) float32, lse (BH, Tq) float32)``.
+
+    ``round_dtype`` serves the checks of the tensor-core kernel only, no
+    path of the port: it is the dtype that kernel rounds ``p`` to before
+    P·V (bfloat16).  With it, ``scale`` multiplies the float32 product as in
+    the kernel instead of ``q``, and ``p`` is the online softmax's: the keys
+    go in tiles of ``FWD_KEY_TILE``, ``p`` is taken against the running
+    row max after each tile and rounded there, and each tile's share is
+    rescaled to the final max in float32, as the kernel's accumulator is;
+    ``l`` sums the unrounded ``p``.  ``None`` is the float32 statement of
+    the function.
+    """
     bh, tq, _ = q.shape
     valid = _valid_mask(tq, k.shape[1], q_offset, k_offset, kv_len, causal, q.device)
+    if round_dtype is not None:
+        return _forward_online(q, k, v, valid, scale, round_dtype)
     outs, lses = [], []
     with torch.autocast(device_type=q.device.type, enabled=False):
         for sl in _chunks(bh, tq, k.shape[1]):
@@ -103,6 +127,33 @@ def flash_forward_plain(q, k, v, q_offset, k_offset, kv_len, causal, scale):
             # the sentinel
             outs.append(torch.where((m > _MASKED_LSE).unsqueeze(-1), out, 0.0))
             lses.append(m + torch.log(l))
+    return torch.cat(outs), torch.cat(lses)
+
+
+def _forward_online(q, k, v, valid, scale, round_dtype):
+    """:func:`flash_forward_plain` with the tensor-core kernel's arithmetic:
+    scores in log2 units (``scale·log2 e`` times the float32 product, the
+    sentinel after the scale), the running max over key tiles, ``p`` rounded
+    to ``round_dtype`` against it."""
+    bh, tq, _ = q.shape
+    tk, n = k.shape[1], FWD_KEY_TILE
+    nt = -(-tk // n)
+    outs, lses = [], []
+    with torch.autocast(device_type=q.device.type, enabled=False):
+        for sl in _chunks(bh, tq, nt * n):
+            t = torch.matmul(q[sl].float(), k[sl].float().transpose(1, 2)) * (scale * _LOG2E)
+            t = torch.nn.functional.pad(torch.where(valid, t, _NEG), (0, nt * n - tk),
+                                        value=_NEG).unflatten(-1, (nt, n))
+            m_run = t.amax(dim=-1).cummax(dim=-1).values  # the max after each tile
+            p = torch.exp2(t - m_run.unsqueeze(-1))
+            m = m_run[..., -1]
+            rescale = torch.exp2(m_run - m.unsqueeze(-1))  # each tile to the final max
+            l = torch.clamp_min((p.sum(dim=-1) * rescale).sum(dim=-1), 1e-30)
+            pr = (p.to(round_dtype).float() * rescale.unsqueeze(-1)).flatten(-2)[..., :tk]
+            out = torch.matmul(pr, v[sl].float()) / l.unsqueeze(-1)
+            ok = m > _MASKED_LSE
+            outs.append(torch.where(ok.unsqueeze(-1), out, 0.0))
+            lses.append(torch.where(ok, m * _LN2 + torch.log(l), _NEG))
     return torch.cat(outs), torch.cat(lses)
 
 
@@ -203,8 +254,8 @@ def flash_forward_cuda(q, k, v, q_offset, k_offset, kv_len, causal, scale):
     bh, tq, d = q.shape
     out = torch.empty((bh, tq, d), dtype=torch.float32, device=q.device)
     lse = torch.empty((bh, tq), dtype=torch.float32, device=q.device)
-    if out.numel() == 0:
-        return out, lse.fill_(_NEG)
+    if out.numel() == 0 or k.shape[1] == 0:  # no key: every row fully masked
+        return out.zero_(), lse.fill_(_NEG)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         FWD_KERNEL.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time the PyTorch port's flash-attention backward kernels (K3 dq, K4
+"""Time the PyTorch port's flash-attention kernels (K2 forward, K3 dq, K4
 dk/dv) of one or more checkouts on one NVIDIA card, in turns.
 
 Each ``--root`` names a directory that holds a ``coinstac_dinunet_tpu_torch``
@@ -14,9 +14,9 @@ Shapes: the sequence path's (B 16, H 4, T 4096, d 32, bfloat16, not causal)
 and B 1, H 8, T 8192, d 128, bfloat16, causal.  The inputs are random from
 a seed; ``g_out`` is float32, as the model hands it to the kernels.  Times
 are CUDA events around 20 launches after 3 warm-up launches.  Beside them,
-``scaled_dot_product_attention``'s backward on the same inputs (dq, dk and
-dv together).  One JSON object per root and shape goes to standard output,
-then the card's name and power limit.  Imports torch only.
+``scaled_dot_product_attention``'s forward and its backward (dq, dk and dv
+together) on the same inputs.  One JSON object per root and shape goes to
+standard output, then the card's name and power limit.  Imports torch only.
 """
 import argparse
 import importlib
@@ -61,16 +61,19 @@ def worker(root):
                    for _ in range(3)]
         pos = (0, 0, t, causal, d ** -0.5)
         out, lse = fa.flash_forward_cuda(q, k, v, *pos)
+        fwd_ms = cuda_ms(lambda: fa.flash_forward_cuda(q, k, v, *pos))
         g_out = torch.randn(out.shape, generator=gen, device=dev)
         args = (q, k, v, g_out, lse, fa.flash_delta(out, g_out), torch.zeros_like(lse), *pos)
         dq_ms = cuda_ms(lambda: fa.flash_dq_cuda(*args))
         dkv_ms = cuda_ms(lambda: fa.flash_dkv_cuda(*args))
         ql, kl, vl = [x.reshape(b, h, t, d).detach().requires_grad_() for x in (q, k, v)]
+        lib_fwd_ms = cuda_ms(lambda: F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal))
         lib_out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal)
         gl = g_out.reshape(b, h, t, d).to(q.dtype)
         lib_ms = cuda_ms(lambda: torch.autograd.grad(lib_out, (ql, kl, vl), gl,
                                                      retain_graph=True))
-        print(json.dumps({"root": root, "shape": name, "dq_ms": dq_ms, "dkv_ms": dkv_ms,
+        print(json.dumps({"root": root, "shape": name, "fwd_ms": fwd_ms, "dq_ms": dq_ms,
+                          "dkv_ms": dkv_ms, "library_forward_ms": lib_fwd_ms,
                           "library_backward_ms": lib_ms,
                           "device": torch.cuda.get_device_name(0)}), flush=True)
 

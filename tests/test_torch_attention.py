@@ -282,3 +282,122 @@ def test_rounding_matched_plain_backward_matches_jax_in_bf16(case, impl):
     # and the rounding stays near the unrounded statement of the function
     for a, b in zip(got, fa._backward_plain(*args)):
         assert float((a - b).abs().max()) <= 2e-2 * float(b.abs().max())
+
+
+# --- the plain forward with the tensor-core kernel's roundings ------------
+# K2 on bfloat16 inputs scales the float32 product (log2 e folded in), runs
+# its softmax online over key tiles of FWD_KEY_TILE and rounds p to
+# bfloat16 against the running max before P·V; ``round_dtype`` gives the
+# plain forward the same arithmetic, for the checks on the card.  On the CPU
+# it is held to the unrounded plain forward, to the kernel's loop written
+# out, and to the JAX package's forward on the same bf16 inputs.
+
+FORWARD_T = 300  # three key tiles of 128: the running max moves
+
+
+def _plain_forward_unrounded(q, k, v, q_offset, k_offset, kv_len, causal, scale):
+    """The dense float32 forward written out on its own: ``scale`` folded
+    into q, no rounding."""
+    valid = fa._valid_mask(q.shape[1], k.shape[1], q_offset, k_offset, kv_len, causal, q.device)
+    s = torch.where(valid, torch.matmul(q.float() * scale, k.float().transpose(1, 2)), fa._NEG)
+    m = s.amax(dim=-1)
+    p = torch.exp(s - m.unsqueeze(-1))
+    l = torch.clamp_min(p.sum(dim=-1), 1e-30)
+    out = torch.matmul(p / l.unsqueeze(-1), v.float())
+    return torch.where((m > fa._MASKED_LSE).unsqueeze(-1), out, 0.0), m + torch.log(l)
+
+
+def _online_loop(q, k, v, q_offset, k_offset, kv_len, causal, scale, round_dtype):
+    """K2's loop on the bfloat16 path, tile by tile: the running max m, the
+    rescale alpha of l and of the accumulator, p rounded before P·V."""
+    tk, n = k.shape[1], fa.FWD_KEY_TILE
+    valid = fa._valid_mask(q.shape[1], tk, q_offset, k_offset, kv_len, causal, q.device)
+    t_all = torch.where(valid, (q.float() @ k.float().transpose(1, 2)) * (scale * fa._LOG2E),
+                        fa._NEG)
+    m = torch.full(q.shape[:2], fa._NEG)
+    l = torch.zeros(q.shape[:2])
+    acc = torch.zeros(q.shape)
+    for c0 in range(0, tk, n):
+        t = t_all[..., c0:c0 + n]
+        m_new = torch.maximum(m, t.amax(dim=-1))
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(t - m_new.unsqueeze(-1))
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha.unsqueeze(-1) + p.to(round_dtype).float() @ v[:, c0:c0 + n].float()
+        m = m_new
+    ok = m > fa._MASKED_LSE
+    l = torch.clamp_min(l, 1e-30)
+    return (torch.where(ok.unsqueeze(-1), acc / l.unsqueeze(-1), 0.0),
+            torch.where(ok, m * fa._LN2 + torch.log(l), fa._NEG))
+
+
+def _forward_inputs(seed, case, dtype=torch.bfloat16, bh=3, t=FORWARD_T, d=32):
+    causal, qo, ko, kv, _ = BACKWARD_CASES[case]
+    rng = np.random.default_rng(seed)
+    q, k, v = [torch.from_numpy(rng.normal(size=(bh, t, d)).astype(np.float32)).to(dtype)
+               for _ in range(3)]
+    return q, k, v, qo, ko, kv * t // 96, causal, d ** -0.5
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", list(BACKWARD_CASES))
+def test_plain_forward_without_rounding_is_unchanged_bit_for_bit(case, dtype):
+    args = _forward_inputs(31, case, dtype)
+    for got, want in zip(fa.flash_forward_plain(*args, round_dtype=None),
+                         _plain_forward_unrounded(*args)):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("case", list(BACKWARD_CASES))
+def test_forward_scale_after_the_product_equals_scale_folded_into_q(case):
+    """With float32 as the rounding dtype nothing is rounded, so what is
+    left is float32 rounding: where ``scale`` multiplies (the float32
+    product, in log2 units, or q), exp2 against exp, and the running max's
+    rescaling.  lse within 1e-6·max|lse|; out within 1e-6·max|v|: a row of
+    out is a convex combination of the rows of v, so its rounding errors
+    scale with v, not with the sums' cancellations (1.3e-6·max|out| seen)."""
+    args = _forward_inputs(32, case)
+    (out, lse), (want, want_lse) = (fa.flash_forward_plain(*args, round_dtype=torch.float32),
+                                    fa.flash_forward_plain(*args))
+    assert float((out - want).abs().max()) <= 1e-6 * float(args[2].float().abs().max())
+    assert float((lse - want_lse).abs().max()) <= 1e-6 * float(want_lse.abs().max())
+
+
+@pytest.mark.parametrize("case", list(BACKWARD_CASES) + ["all_masked"])
+def test_rounding_matched_plain_forward_is_the_kernels_loop(case):
+    """The dense rounding-matched forward against K2's tile loop written
+    out: the same roundings, float32 sums in another order (1e-5·max); a
+    fully masked row keeps lse = −1e30 exactly."""
+    if case == "all_masked":
+        args = _forward_inputs(33, "causal")[:3] + (0, FORWARD_T, FORWARD_T, True, 32 ** -0.5)
+    else:
+        args = _forward_inputs(33, case)
+    got = fa.flash_forward_plain(*args, round_dtype=torch.bfloat16)
+    want = _online_loop(*args, round_dtype=torch.bfloat16)
+    for a, b in zip(got, want):
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max()) + 1e-7
+    if case == "all_masked":
+        assert torch.all(got[0] == 0) and torch.all(got[1] == fa._NEG)
+
+
+@pytest.mark.parametrize("impl", ["xla", "pallas_interpret"])
+@pytest.mark.parametrize("case", list(BACKWARD_CASES))
+def test_rounding_matched_plain_forward_matches_jax_in_bf16(case, impl):
+    """The plain forward with the kernel's bfloat16 roundings against the
+    JAX package's forward (its XLA path and its Pallas kernel under the
+    interpreter) on the same numpy-made bfloat16 inputs: out within
+    2e-2·max|jax| (bfloat16 carries 8 bits; the JAX output comes back in
+    bfloat16 itself), lse within 1e-4·max|lse| + 1e-5."""
+    q, k, v, qo, ko, kv, causal, scale = _forward_inputs(34, case)
+    as_jax = lambda x: jnp.asarray(x.float().numpy()[None], jnp.bfloat16)
+    want, want_lse = jax_flash(as_jax(q), as_jax(k), as_jax(v), q_offset=qo, k_offset=ko,
+                               kv_len=kv, causal=causal, impl=impl, return_lse=True)
+    want = np.asarray(want.astype(jnp.float32))[0]
+    want_lse = np.asarray(want_lse)[0]
+    got, got_lse = fa.flash_forward_plain(q, k, v, qo, ko, kv, causal, scale,
+                                          round_dtype=torch.bfloat16)
+    assert np.abs(got.numpy() - want).max() <= 2e-2 * np.abs(want).max()
+    assert np.abs(got_lse.numpy() - want_lse).max() <= 1e-4 * np.abs(want_lse).max() + 1e-5
+    # and the rounding stays near the unrounded statement of the function
+    plain = fa.flash_forward_plain(q, k, v, qo, ko, kv, causal, scale)[0]
+    assert float((got - plain).abs().max()) <= 2e-2 * float(plain.abs().max())
