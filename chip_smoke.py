@@ -9,7 +9,10 @@ Phases, in order; any failure exits non-zero before the last line:
    with ``nvcc`` for ``sm_90a`` (one compiler per source, started together);
 3. kernels — each kernel against its plain PyTorch version on the card, at
    the shapes the main paths give it and at edge shapes, with kernel,
-   plain-version, bound and library times: K1 (int8 quantize) bit-equal;
+   plain-version, bound and library times: K1 (int8 quantize) bit-equal,
+   one leaf a launch and whole payloads in one launch (the data section of
+   one VBM gradient, special values and the edges of the kernel's fast
+   division, edge sizes, a misaligned view, 200 segments);
    K2–K4 (flash-attention forward, dq, dk/dv) within stated tolerances
    (the bfloat16 tensor-core forward, dq and dk/dv against the plain
    version with the kernels' bfloat16 roundings and against the float32
@@ -20,8 +23,9 @@ Phases, in order; any failure exits non-zero before the last line:
    against the CPU on a small input (float32, TF32 off), within 1e-4;
 5. main path 1 — ``InProcessEngine`` federated dSGD over 2 sites, the VBM
    3-D CNN at its full width 16, 64³ input, batch 16, bfloat16 autocast,
-   the int8 wire codec (``precision_bits=8``), run to SUCCESS; K1 must have
-   launched in every gradient round and the outputs must be finite;
+   the int8 wire codec (``precision_bits=8``), run to SUCCESS; in every
+   gradient round K1 must have launched once per payload (2 sites + the
+   aggregator) over all 23 leaves of each, and the outputs must be finite;
 6. main path 2 — ``InProcessEngine`` federated dSGD over 2 sites, the
    sequence transformer at its full width (d_model 128, 4 heads, 2 blocks)
    on 4096-step sequences, batch 16, bfloat16 autocast, run to SUCCESS;
@@ -76,7 +80,7 @@ SEQ_ARGS = dict(
 SEQ_FILES = 48
 SEQ_PROFILED_ROUND = 3  # the second gradient round, a steady one
 # the port's kernels by their device-side names, picked out of a profile
-PORT_KERNEL_NAMES = ("quantize_int8_kernel", "flash_fwd", "flash_bwd", "flash_dq", "flash_dkv")
+PORT_KERNEL_NAMES = ("quantize_int8", "flash_fwd", "flash_bwd", "flash_dq", "flash_dkv")
 
 
 def log(msg):
@@ -126,13 +130,15 @@ def cuda_ms(fn, iters, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def quant_bound_ms(n):
-    """Least time for quantizing ``n`` floats: the larger of the bytes
-    (n·4 read, rows·128 int8 + rows·4 scales written) over HBM bandwidth
-    and the operations over the CUDA-core rate."""
-    rows = -(-n // 128)
-    t_bytes = (4 * n + rows * 128 + rows * 4) / HBM_BYTES_PER_S
-    t_ops = QUANT_OPS_PER_ELEMENT * n / CUDA_CORE_OPS_PER_S
+def quant_bound_ms(ns):
+    """Least time for quantizing leaves of ``ns`` floats (an int or a list):
+    the larger of the bytes (n·4 read, rows·128 int8 + rows·4 scales
+    written, summed over the leaves) over HBM bandwidth and the operations
+    over the CUDA-core rate."""
+    ns = [ns] if isinstance(ns, int) else list(ns)
+    moved = sum(4 * n + -(-n // 128) * 132 for n in ns)
+    t_bytes = moved / HBM_BYTES_PER_S
+    t_ops = QUANT_OPS_PER_ELEMENT * sum(ns) / CUDA_CORE_OPS_PER_S
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -149,10 +155,13 @@ def vbm_leaf_shapes():
 
 def check_quantize(dev, report):
     """K1 against its plain version on the card: bit-equal values and
-    scales at every shape; times at the main path's shapes."""
+    scales at every shape, one leaf a launch, and bit-equal data sections
+    for whole payloads; times for one VBM gradient payload (the main path's
+    launch) and for 64 Mi values."""
     import torch
 
     from coinstac_dinunet_tpu_torch.ops import quantize as q
+    from coinstac_dinunet_tpu_torch.utils import tensorutils
 
     leaf_shapes = vbm_leaf_shapes()
     if len(leaf_shapes) != VBM_LEAVES:
@@ -187,23 +196,70 @@ def check_quantize(dev, report):
         if i < VBM_LEAVES:
             leaf_inputs.append((x, groups, seed))
 
-    # the main path's work: one gradient = the 23 leaves, one launch each
-    def kernel_all():
-        for x, _, seed in leaf_inputs:
-            q.quantize_int8(x, seed)
+    # the main path's work: one gradient payload = the 23 leaves in one
+    # launch, written in the wire's data-section layout; then the edges (a
+    # zero-size leaf among them), a 16-byte-misaligned view and 200
+    # segments (four launches), each bit-equal to the batched plain version
+    payload = [x for x, _, _ in leaf_inputs]
+    seeds = [seed for _, _, seed in leaf_inputs]
+    # groups that take the kernel's exact division (zeros, tiny, subnormal
+    # and huge values, NaN, infinity) or lie at the edges of its
+    # shared-reciprocal path (a scale just under 2^40; one just over 2^-40
+    # with every |x| >= 2^-40)
+    special = torch.randn((10, 128), generator=gen, device=dev)
+    special[0, ::3] = 0.0
+    special[1, 5] = 1e-30
+    special[2] = 1e-42
+    special[3] *= 1e30
+    special[4, 9] = float("nan")
+    special[5, 1] = float("inf")
+    special[6] *= 1e-12
+    special[7] *= 127 * 0.999 * 2.0 ** 40 / special[7].abs().max()
+    special[8] = torch.sign(special[8]) * 2.0 ** -40 * (
+        1 + 126 * torch.rand(128, generator=gen, device=dev))
+    special[8, 0] = 128 * 2.0 ** -40
+    cases = [
+        ("special", [special, special[2:]], [12, 13]),
+        ("vbm_payload", payload, seeds),
+        ("edges", [torch.randn(s, generator=gen, device=dev) for s in [(1,), (127,), (0,), (129,)]],
+         [7, 8, 9, 10]),
+        ("misaligned", [torch.randn(1001, generator=gen, device=dev)[1:]], [11]),
+        ("200_segments", [torch.randn(1 + i % 300, generator=gen, device=dev) for i in range(200)],
+         list(range(200))),
+    ]
+    for case, leaves, case_seeds in cases:
+        launches = q.KERNEL.launches
+        got = q.quantize_int8_many(leaves, case_seeds)
+        want = q.quantize_int8_many_plain(leaves, case_seeds)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"batched K1 differs from its plain version at {case}")
+        n_launch = q.KERNEL.launches - launches
+        log(f"  K1 batched {case:14s} {len(leaves):3d} leaves, {got.numel():8d} bytes: "
+            f"bit-equal in {n_launch} launch(es)")
+        rows_out.append({"case": case, "leaves": len(leaves), "bytes": got.numel(),
+                         "launches": n_launch, "bit_equal": True})
 
-    def plain_all():
-        for _, groups, seed in leaf_inputs:
-            q.quantize_int8_plain(groups, seed)
-
-    ms = cuda_ms(kernel_all, 50)
-    plain_ms = cuda_ms(plain_all, 10)
-    bound = [quant_bound_ms(x.numel()) for x, _, _ in leaf_inputs]
-    bound_ms = sum(b for b, _ in bound)
-    n_params = sum(x.numel() for x, _, _ in leaf_inputs)
-    log(f"  K1 VBM width-16 gradient ({VBM_LEAVES} leaves, {n_params} values): "
-        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms")
+    ms = cuda_ms(lambda: q.quantize_int8_many(payload, seeds), 200, warmup=10)
+    plain_ms = cuda_ms(lambda: q.quantize_int8_many_plain(payload, seeds), 10)
+    sizes = [x.numel() for x in payload]
+    bound_ms, bound_by = quant_bound_ms(sizes)
+    # the wire's whole step: one launch, one copy into pinned memory, one wait
+    for _ in range(10):
+        tensorutils._quantize_to_host(payload, seeds)
+    t0 = time.perf_counter()
+    for _ in range(100):
+        tensorutils._quantize_to_host(payload, seeds)
+    to_host_ms = (time.perf_counter() - t0) * 10
+    log(f"  K1 VBM width-16 gradient payload ({VBM_LEAVES} leaves, {sum(sizes)} values, one "
+        f"launch): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms "
+        f"({bound_by}, {bound_ms / ms:.1%} of it); launch + pinned copy + wait "
+        f"{to_host_ms:.4f} ms (host clock)")
+    big = rows_out[VBM_LEAVES]
+    log(f"  K1 at {big['n']} values: {big['bound_ms'] / big['ms']:.1%} of its byte bound")
     report["quantize_shapes"] = rows_out
+    report["quantize_payload"] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                                  "to_host_ms": to_host_ms, "values": sum(sizes)}
     return {
         "name": "quantize_int8",
         "route": "cuda",
@@ -215,8 +271,10 @@ def check_quantize(dev, report):
         "ms": ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
-        "bound_by": "bytes" if all(b == "bytes" for _, b in bound) else "operations",
+        "bound_by": bound_by,
         "library_ms": None,
+        "ms_64mi": big["ms"],
+        "bound_ms_64mi": big["bound_ms"],
     }
 
 
@@ -582,34 +640,44 @@ def check_seq_reference(dev):
     return err, gerr
 
 
-def run_main_path(dev, workdir):
-    """Federated dSGD of the width-16 VBM at precision_bits=8 to SUCCESS."""
-    import torch
+VBM_BATCH = 16
 
+
+def make_vbm_engine(dev, workdir):
+    """The VBM main path's engine: 2 sites, the width-16 VBM at
+    precision_bits=8, 64 subjects a site, not yet run."""
     from coinstac_dinunet_tpu_torch import InProcessEngine
     from coinstac_dinunet_tpu_torch.models import SyntheticVBMDataset, VBMTrainer
-    from coinstac_dinunet_tpu_torch.ops import quantize as q
 
-    batch = 16
     eng = InProcessEngine(
         workdir, n_sites=N_SITES, trainer_cls=VBMTrainer,
         dataset_cls=SyntheticVBMDataset, device=dev,
         data_dir="data", input_shape=[64, 64, 64], model_width=WIDTH,
-        batch_size=batch, epochs=1, split_ratio=[0.75, 0.125, 0.125],
+        batch_size=VBM_BATCH, epochs=1, split_ratio=[0.75, 0.125, 0.125],
         precision_bits=8, compute_dtype="bfloat16", seed=7, patience=100,
     )
     for s in eng.site_ids:
         d = eng.site_data_dir(s)
         for i in range(64):
             open(os.path.join(d, f"{s}_subject_{i:03d}"), "w").close()
+    return eng
 
+
+def run_main_path(dev, workdir):
+    """Federated dSGD of the width-16 VBM at precision_bits=8 to SUCCESS."""
+    import torch
+
+    from coinstac_dinunet_tpu_torch.ops import quantize as q
+
+    eng = make_vbm_engine(dev, workdir)
     q.KERNEL.launches = 0
+    q.KERNEL.segments = 0
     grad_rounds = 0
-    round_s, profiles = [], []
+    round_s, profiles, per_round = [], [], []
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     while not eng.success and eng.rounds < 40:
-        before = q.KERNEL.launches
+        before = q.KERNEL.launches, q.KERNEL.segments
         tr = time.perf_counter()
         if eng.rounds + 1 in PROFILED_ROUNDS:
             site_outs, profile = profiled_round(eng)
@@ -618,13 +686,17 @@ def run_main_path(dev, workdir):
             site_outs, _ = eng.step_round()
             torch.cuda.synchronize()
         round_s.append(time.perf_counter() - tr)
-        grew = q.KERNEL.launches - before
+        grew = q.KERNEL.launches - before[0], q.KERNEL.segments - before[1]
+        per_round.append(grew)
         if all(o.get("reduce") for o in site_outs.values()):
             grad_rounds += 1
-            if grew < (N_SITES + 1) * VBM_LEAVES:
+            # exactly one launch per payload (2 sites + the aggregator), every
+            # leaf of every payload through the kernel
+            want = N_SITES + 1, (N_SITES + 1) * VBM_LEAVES
+            if grew != want:
                 raise AssertionError(
-                    f"round {eng.rounds}: K1 launched {grew} times, expected "
-                    f">= {(N_SITES + 1) * VBM_LEAVES}")
+                    f"round {eng.rounds}: K1 launched {grew[0]} times over {grew[1]} "
+                    f"segments, expected {want[0]} launches over {want[1]} segments")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = q.KERNEL.launches
@@ -654,11 +726,12 @@ def run_main_path(dev, workdir):
     avg_bytes = os.path.getsize(os.path.join(workdir, "remote_xfer", "avg_grads.npy"))
     n_values = sum(p.numel() for m in eng.site_caches[eng.site_ids[0]]["_train_state"].nn.values()
                    for p in m.parameters())
-    samples = grad_rounds * N_SITES * batch
+    samples = grad_rounds * N_SITES * VBM_BATCH
     return {
         "wire_bytes": {"site_to_aggregator": grads_bytes, "aggregator_to_site": avg_bytes,
                        "float32_values": 4 * n_values},
         "rounds": eng.rounds, "grad_rounds": grad_rounds, "launches": launches,
+        "segments": q.KERNEL.segments, "launches_segments_per_round": per_round,
         "wall_s": wall, "samples_per_s": samples / wall, "round_s": round_s,
         "profiled_rounds": profiles,
         "global_test_metrics": dict(zip(header.split(","), values)),
@@ -774,12 +847,14 @@ def profiled_round(eng):
             rows.append((dev_us, e.key, e.count))
     rows.sort(reverse=True)
     busy_s = sum(r[0] for r in rows) / 1e6
+    d2h = [(us, c) for us, k, c in rows if "DtoH" in k]
     # the port's own kernels, whatever their rank: device time per launch
     ours = [{"name": k[:120], "device_ms": us / 1e3, "count": c, "ms_per_launch": us / 1e3 / c}
             for us, k, c in rows if any(n in k for n in PORT_KERNEL_NAMES)]
     return site_outs, {
         "round": eng.rounds, "wall_s_profiled": wall, "device_busy_s": busy_s,
         "device_idle_share": max(0.0, 1.0 - busy_s / wall),
+        "d2h_copies": sum(c for _, c in d2h), "d2h_ms": sum(us for us, _ in d2h) / 1e3,
         "top_device_ops": [{"name": k[:120], "device_ms": us / 1e3, "count": c}
                            for us, k, c in rows[:12]],
         "port_kernels": ours,
@@ -790,7 +865,8 @@ def log_profiles(profiles):
     for prof in profiles:
         log(f"  profiled round {prof['round']}: wall {prof['wall_s_profiled']:.3f} s, device "
             f"busy {prof['device_busy_s'] * 1e3:.2f} ms, idle share "
-            f"{prof['device_idle_share']:.4f}")
+            f"{prof['device_idle_share']:.4f}; {prof['d2h_copies']} device->host copies, "
+            f"{prof['d2h_ms']:.4f} ms")
         for op in prof["top_device_ops"][:8]:
             log(f"    {op['device_ms']:9.3f} ms x{op['count']:<4d} {op['name'][:80]}")
         for op in prof["port_kernels"]:
@@ -851,11 +927,17 @@ def main():
     with tempfile.TemporaryDirectory() as wd:
         main_path = run_main_path(dev, wd)
     k1["launches"] = main_path["launches"]
+    # the kernel's device time a launch in the profiled rounds (the CUDA
+    # events of phase 3 take the host's enqueue of back-to-back launches)
+    k1["device_ms_per_launch"] = [op["ms_per_launch"] for prof in main_path["profiled_rounds"]
+                                  for op in prof["port_kernels"] if "quantize" in op["name"]]
     log(f"[5 main path 1: VBM] {main_path['rounds']} rounds ({main_path['grad_rounds']} with "
         f"gradients) to SUCCESS in {main_path['wall_s']:.3f} s, "
         f"{main_path['samples_per_s']:.1f} samples/s, K1 launches {main_path['launches']} "
-        f"| {smi}")
+        f"over {main_path['segments']} segments | {smi}")
     log("  round seconds: " + " ".join(f"{t:.3f}" for t in main_path["round_s"]))
+    log("  K1 launches/segments per round: " + " ".join(
+        f"{n}/{m}" for n, m in main_path["launches_segments_per_round"]))
     wb = main_path["wire_bytes"]
     log(f"  wire bytes per gradient round: site->aggregator {wb['site_to_aggregator']}, "
         f"aggregator->each site {wb['aggregator_to_site']} (float32 values alone: "

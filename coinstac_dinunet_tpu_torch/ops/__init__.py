@@ -4,9 +4,17 @@ from .flash_attention import (
     flash_backward_plain,
     flash_forward_plain,
 )
-from .quantize import GROUP, dequantize_int8, quantize_int8, quantize_int8_plain
+from .quantize import (
+    GROUP,
+    dequantize_int8,
+    quantize_int8,
+    quantize_int8_many,
+    quantize_int8_many_plain,
+    quantize_int8_plain,
+)
 
 __all__ = [
-    "GROUP", "quantize_int8", "quantize_int8_plain", "dequantize_int8",
+    "GROUP", "quantize_int8", "quantize_int8_plain", "quantize_int8_many",
+    "quantize_int8_many_plain", "dequantize_int8",
     "FlashAttention", "flash_attention", "flash_forward_plain", "flash_backward_plain",
 ]

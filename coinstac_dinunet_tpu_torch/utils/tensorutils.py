@@ -8,8 +8,10 @@ section.  With ``codec="int8"`` a float array's entry is
 values followed by the float32 scales.
 
 What differs: arrays may be torch tensors on the card.  At the int8 codec
-they are quantized there (``ops/quantize.py``) and only the int8 values and
-scales cross to the host; the JAX package copies float32 to the host first.
+a payload's float tensors are quantized there in one kernel launch, into
+one device buffer already in the data section's layout
+(``ops/quantize.py``), and only that buffer crosses to the host, in one
+copy; the JAX package copies float32 to the host first.
 """
 import json
 import os
@@ -23,7 +25,7 @@ import torch
 from .. import config
 from ..config.keys import Retry
 from ..interop import from_flax, to_flax, wire_leaves
-from ..ops.quantize import GROUP, dequantize_int8, quantize_int8
+from ..ops.quantize import GROUP, dequantize_int8, quantize_int8_many, wire_layout
 from ..resilience import transport as _transport
 from ..resilience.transport import (  # noqa: F401 (re-export for callers)
     WireCorruption,
@@ -48,27 +50,48 @@ def _host(a):
     return np.ascontiguousarray(a)
 
 
+def _quantize_to_host(leaves, seeds):
+    """The int8 data section of ``leaves`` (one device) as a host buffer:
+    from the card one kernel launch (per ``MAX_SEGMENTS`` leaves), one
+    non-blocking copy into pinned memory and one wait for the stream."""
+    buf = quantize_int8_many(leaves, seeds)
+    if buf.device.type != "cuda":
+        return buf
+    host = torch.empty(buf.shape, dtype=buf.dtype, pin_memory=True)
+    host.copy_(buf, non_blocking=True)
+    torch.cuda.current_stream(buf.device).synchronize()
+    return host
+
+
 def _pack_parts(arrays, codec=None, seed=0):
     """(header bytes, data blobs, data CRC32) for a list of ndarrays or
-    torch tensors.  ``codec='int8'`` quantizes each float array on its own
-    device (array ``i`` seeded ``seed + i``); other arrays pass raw."""
+    torch tensors.  ``codec='int8'`` quantizes the float arrays of each
+    device together into the data section's layout (array ``i`` of the
+    payload seeded ``seed + i``, whatever the kinds of the others); other
+    arrays pass raw.  A quantized array's blobs are views of that one host
+    buffer, which they keep alive."""
     quantized = {}
     if codec == "int8":
-        # every launch first, then the copies: the card quantizes the
-        # leaves back to back while the host waits only once
+        by_device = {}
         for i, a in enumerate(arrays):
             t = a if isinstance(a, torch.Tensor) else torch.from_numpy(_host(a))
             if t.is_floating_point():
-                quantized[i] = quantize_int8(t, seed=seed + i), _numpy_dtype(t)
+                by_device.setdefault(t.device, []).append((i, t))
+        for items in by_device.values():
+            host = _quantize_to_host([t for _, t in items], [seed + i for i, _ in items])
+            data = memoryview(host.numpy()).cast("B")
+            groups = [-(-t.numel() // GROUP) for _, t in items]
+            for (i, t), g, (vs, ss) in zip(items, groups, wire_layout(groups)[0]):
+                quantized[i] = t, g, data[vs], data[ss]
     entries, blobs = [], []
     for i, a in enumerate(arrays):
         if i in quantized:
-            (vals, scales, shape), dtype = quantized[i]
+            t, g, vals, scales = quantized[i]
             entries.append({
-                "shape": list(shape), "dtype": dtype.str, "codec": "int8",
-                "groups": int(vals.shape[0]),
+                "shape": list(t.shape), "dtype": _numpy_dtype(t).str, "codec": "int8",
+                "groups": g,
             })
-            blobs += [_host(vals).tobytes(), _host(scales).tobytes()]
+            blobs += [vals, scales]
         else:
             h = _host(a)
             entries.append({"shape": list(h.shape), "dtype": h.dtype.str})

@@ -7,6 +7,9 @@ TPU-interpreter path); the values come from a different noise stream
 value is floor or floor+1 of x/scale, within ±127, unbiased on average —
 and the kernel/plain Philox stream is pinned against an independent
 pure-Python Philox4x32-10.  Payloads cross between the packages both ways.
+The batched entry point (one launch per payload on the card) writes the
+bytes the per-leaf calls write, in the wire's data-section layout.  The
+kernel's own tests are in ``test_torch_quantize_card.py``.
 """
 import json
 
@@ -18,6 +21,7 @@ from coinstac_dinunet_tpu.ops import quantize as jq
 from coinstac_dinunet_tpu.utils import tensorutils as jtu
 from coinstac_dinunet_tpu_torch.ops import quantize as tq
 from coinstac_dinunet_tpu_torch.utils import tensorutils as ttu
+from test_torch_quantize_card import _vbm_leaves
 
 SHAPES = [(37, 19), (256,), (23 * 128 + 17,), (1,), (3, 3, 3, 4, 8)]
 
@@ -196,17 +200,99 @@ def test_payloads_cross_between_packages(tmp_path):
     np.testing.assert_array_equal(_port(arrays[0], 4)[1], s_port)
 
 
-@pytest.mark.cuda
-def test_kernel_matches_plain_version_on_card():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
-    dev = torch.device("cuda")
-    for shape in [(1,), (127,), (129,), (3, 3, 3, 64, 128), (1 << 20,)]:
-        x = torch.randn(shape, device=dev)
-        vals, scales, _ = tq.quantize_int8(x, seed=3)
-        n = x.numel()
-        rows = -(-n // tq.GROUP)
-        groups = torch.nn.functional.pad(x.reshape(-1), (0, rows * tq.GROUP - n))
-        pv, ps = tq.quantize_int8_plain(groups.view(rows, tq.GROUP), 3)
-        assert torch.equal(vals, pv)
-        assert torch.equal(scales.view(torch.int32), ps.view(torch.int32))
+def _per_leaf_bytes(leaves, seeds):
+    """The data section assembled leaf by leaf with ``quantize_int8``."""
+    out = b""
+    for x, seed in zip(leaves, seeds):
+        vals, scales, _ = tq.quantize_int8(x, seed=seed)
+        out += vals.numpy().tobytes() + scales.numpy().tobytes()
+    return out
+
+
+def test_many_plain_equals_per_leaf_results_in_wire_order():
+    leaves = _vbm_leaves()
+    seeds = [2 ** 31 - 5 + i for i in range(len(leaves))]  # wraps modulo 2**31
+    buf = tq.quantize_int8_many_plain(leaves, seeds)
+    groups = [-(-x.numel() // tq.GROUP) for x in leaves]
+    assert sum(groups) == 3423 and buf.numel() == 3423 * 132
+    assert buf.numpy().tobytes() == _per_leaf_bytes(leaves, seeds)
+    # on the CPU the batched entry point is the plain version
+    before = tq.KERNEL.launches
+    assert torch.equal(tq.quantize_int8_many(leaves, seeds), buf)
+    assert tq.KERNEL.launches == before
+
+
+def test_wire_layout_is_the_data_section_unpack_reads():
+    leaves = [torch.from_numpy(_x(s, seed=i)) for i, s in enumerate([(3, 50), (0,), (128,), (129,)])]
+    spans, total = tq.wire_layout([-(-x.numel() // tq.GROUP) for x in leaves])
+    assert [(vs.start, vs.stop, ss.start, ss.stop) for vs, ss in spans] == [
+        (0, 256, 256, 264), (264, 264, 264, 264), (264, 392, 392, 396), (396, 652, 652, 660)]
+    assert total == 5 * 132
+    assert all(sl.start % 4 == 0 for span in spans for sl in span)
+    payload = ttu.pack_arrays(leaves, codec="int8", seed=21)
+    size = _manifest(payload)["size"]
+    data = payload[len(payload) - size:]
+    assert data == tq.quantize_int8_many_plain(leaves, [21 + i for i in range(4)]).numpy().tobytes()
+    for i, (x, (vs, ss), back) in enumerate(zip(leaves, spans, ttu.unpack_arrays(payload))):
+        g = -(-x.numel() // tq.GROUP)
+        vals = np.frombuffer(data[vs], np.int8).reshape(g, tq.GROUP)
+        scales = np.frombuffer(data[ss], np.float32).reshape(g, 1)
+        want_v, want_s, shape = _port(x.numpy(), 21 + i)
+        np.testing.assert_array_equal(vals, want_v)
+        np.testing.assert_array_equal(scales, want_s)
+        np.testing.assert_array_equal(back, tq.dequantize_int8(want_v, want_s, shape))
+
+
+def test_seeds_follow_payload_position_with_integer_arrays():
+    x0, x2 = _x((4, 128), seed=1), _x((3, 128), seed=2)
+    arrays = [x0, np.arange(7, dtype=np.int32), x2, np.array([True, False])]
+    payload = ttu.pack_arrays(arrays, codec="int8", seed=40)
+    data = payload[len(payload) - _manifest(payload)["size"]:]
+    raw = np.arange(7, dtype=np.int32).tobytes()
+    # array 2 is keyed seed + 2 (its payload position), not seed + 1 (its
+    # rank among the float arrays)
+    want = (_per_leaf_bytes([torch.from_numpy(x0)], [40]) + raw
+            + _per_leaf_bytes([torch.from_numpy(x2)], [42]) + b"\x01\x00")
+    assert data == want
+    assert data != (_per_leaf_bytes([torch.from_numpy(x0)], [40]) + raw
+                    + _per_leaf_bytes([torch.from_numpy(x2)], [41]) + b"\x01\x00")
+
+
+def test_zero_size_leaf_in_the_middle():
+    leaves = [torch.from_numpy(_x((300,), 1)), torch.zeros((0, 5)), torch.from_numpy(_x((7,), 2))]
+    buf = tq.quantize_int8_many_plain(leaves, [5, 6, 7])
+    assert buf.numpy().tobytes() == _per_leaf_bytes(leaves, [5, 6, 7])
+    tables, total = tq._segment_tables([t.reshape(-1) for t in leaves], [5, 6, 7])
+    assert total == 4 * 132
+    assert [(vs.start, ss.start, seed) for _, vs, ss, seed in tables[0]] == [
+        (0, 3 * 128, 5), (3 * 132, 3 * 132 + 128, 7)]
+    payload = ttu.pack_arrays(leaves, codec="int8", seed=5)
+    m = _manifest(payload)["e"]
+    assert [e["groups"] for e in m] == [3, 0, 1]
+    back = ttu.unpack_arrays(payload)
+    assert back[1].shape == (0, 5) and back[2].shape == (7,)
+
+
+def _emulate_kernel(tables, total):
+    """What the kernel's launches write, from the plain version: each
+    segment's values and scales at their offsets."""
+    out = torch.zeros(total, dtype=torch.int8)
+    for segs in tables:
+        assert len(segs) <= tq.MAX_SEGMENTS
+        for f, vs, ss, seed in segs:
+            vals, scales, _ = tq.quantize_int8(f, seed)
+            out[vs] = vals.reshape(-1)
+            out[ss] = scales.reshape(-1).view(torch.int8)
+    return out
+
+
+def test_more_segments_than_one_launch_takes():
+    leaves = [torch.from_numpy(_x((1 + (i * 37) % 128,), seed=i)) for i in range(200)]
+    flats = [x.reshape(-1) for x in leaves]
+    tables, total = tq._segment_tables(flats, [9 + i for i in range(200)])
+    assert [len(t) for t in tables] == [64, 64, 64, 8]
+    assert total == 200 * 132
+    assert [vs.start for t in tables for _, vs, _, _ in t] == [132 * i for i in range(200)]
+    assert [ss.start for t in tables for _, _, ss, _ in t] == [132 * i + 128 for i in range(200)]
+    want = tq.quantize_int8_many_plain(leaves, [9 + i for i in range(200)])
+    assert torch.equal(_emulate_kernel(tables, total), want)

@@ -7,6 +7,7 @@ typed errors; fan-in loads are issued in sorted order.
 """
 import json
 import os
+import struct
 
 import numpy as np
 import pytest
@@ -142,3 +143,71 @@ def test_save_wire_seed_rule(tmp_path):
     ttu.save_wire(tmp_path / "w32.npy", arrays, salt="x", cache={}, precision_bits=32)
     jtu.save_wire(str(tmp_path / "j32.npy"), arrays, salt="x", cache={}, precision_bits=32)
     assert open(tmp_path / "w32.npy", "rb").read() == open(tmp_path / "j32.npy", "rb").read()
+
+
+def _pack_leaf_by_leaf(arrays, seed):
+    """An int8 payload assembled one leaf at a time: ``quantize_int8`` per
+    float array (array ``i`` at ``seed + i``), each result copied to the
+    host on its own, raw arrays as they are."""
+    from coinstac_dinunet_tpu_torch.ops.quantize import quantize_int8
+
+    entries, blobs = [], []
+    for i, a in enumerate(arrays):
+        t = a if isinstance(a, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(a))
+        if t.is_floating_point():
+            vals, scales, shape = quantize_int8(t, seed=seed + i)
+            entries.append({"shape": list(shape), "dtype": ttu._numpy_dtype(t).str,
+                            "codec": "int8", "groups": int(vals.shape[0])})
+            blobs += [vals.cpu().numpy().tobytes(), scales.cpu().numpy().tobytes()]
+        else:
+            h = np.ascontiguousarray(a)
+            entries.append({"shape": list(h.shape), "dtype": h.dtype.str})
+            blobs.append(h.tobytes())
+    manifest = json.dumps({"e": entries, "crc": ttr.crc32(*blobs),
+                           "size": sum(len(b) for b in blobs)}).encode("utf-8")
+    return b"COINNTW2" + struct.pack("<Q", len(manifest)) + manifest + b"".join(blobs)
+
+
+def _mixed_payload():
+    rng = np.random.default_rng(5)
+    return [
+        torch.from_numpy(rng.normal(size=(3, 3, 3, 4, 8)).astype(np.float32)),
+        np.arange(6, dtype=np.int64),
+        torch.from_numpy(rng.normal(size=(40, 9)).astype(np.float32)).t(),  # a to_flax view
+        torch.zeros((0, 4)),
+        rng.normal(size=(5,)).astype(np.float64),
+        np.array([True, False, True]),
+        torch.from_numpy(rng.normal(size=(130,)).astype(np.float16)),
+        np.asarray(2.5, np.float32),
+        torch.from_numpy(rng.normal(size=(501,)).astype(np.float32))[1:],  # misaligned
+    ]
+
+
+def test_save_wire_int8_bytes_equal_the_leaf_by_leaf_payload(tmp_path):
+    arrays = _mixed_payload()
+    cache = {"_wire_seed": 11}
+    ttu.save_wire(tmp_path / "w.npy", arrays, salt="site_1", cache=cache, precision_bits=8)
+    seed = (stable_file_id("site_1") + 11) % 2 ** 31
+    assert open(tmp_path / "w.npy", "rb").read() == _pack_leaf_by_leaf(arrays, seed)
+    # a seed near 2**31: each array's seed wraps on its own
+    assert ttu.pack_arrays(arrays, codec="int8", seed=2 ** 31 - 4) == \
+        _pack_leaf_by_leaf(arrays, 2 ** 31 - 4)
+
+
+def test_jax_reads_the_ports_mixed_int8_payload(tmp_path):
+    arrays = _mixed_payload()
+    path = tmp_path / "g.npy"
+    ttu.save_arrays(path, arrays, codec="int8", seed=3)
+    got_jax, got_port = jtu.load_arrays(str(path)), ttu.load_arrays(str(path))
+    assert len(got_jax) == len(arrays)
+    for a, j, t in zip(arrays, got_jax, got_port):
+        a = a.numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+        assert j.dtype == t.dtype == a.dtype
+        np.testing.assert_array_equal(j, t)
+        if a.dtype.kind == "f" and a.size:
+            # one quantization step, plus the rounding back to the dtype
+            top = np.max(np.abs(a.astype(np.float64)))
+            err = np.abs(j.astype(np.float64).reshape(-1) - a.astype(np.float64).reshape(-1))
+            assert err.max() <= top / 127.0 + top * np.finfo(a.dtype).eps
+        else:
+            np.testing.assert_array_equal(j.reshape(-1), a.reshape(-1))
