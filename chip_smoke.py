@@ -20,7 +20,10 @@ Phases, in order; any failure exits non-zero before the last line:
    witnesses of the format's error), with bit-identical results from two
    launches of each;
 4. reference — the VBM model's and the sequence model's logits on the card
-   against the CPU on a small input (float32, TF32 off), within 1e-4;
+   against the CPU on a small input (float32, TF32 off), within 1e-4; the
+   compression math (``orthogonalize``, ``power_iteration_BC`` with the
+   start block injected) on the card against the CPU at the rankDAD embed
+   layer's shapes, within 1e-4·max;
 5. main path 1 — ``InProcessEngine`` federated dSGD over 2 sites, the VBM
    3-D CNN at its full width 16, 64³ input, batch 16, bfloat16 autocast,
    the int8 wire codec (``precision_bits=8``), run to SUCCESS; in every
@@ -30,7 +33,23 @@ Phases, in order; any failure exits non-zero before the last line:
    sequence transformer at its full width (d_model 128, 4 heads, 2 blocks)
    on 4096-step sequences, batch 16, bfloat16 autocast, run to SUCCESS;
    K2, K3 and K4 must each have launched in every gradient round, once per
-   block and site at least, and the outputs must be finite.
+   block and site at least, and the outputs must be finite;
+7. main path 3 — path 1's VBM federation with ``agg_engine="powerSGD"``
+   (rank 1, one dSGD warm-up round) after a local pretrain of one epoch on
+   the site with the most data: the aggregator's broadcast reaches every
+   site and each site's parameters equal the pretrainer's best weights bit
+   for bit after the load; in every gradient round K1 launched once per
+   payload per node (dSGD 23 segments, P 8, Q 8, rank-1 15), and the
+   payloads of the first round of each kind bit-equal to K1's plain version
+   on the same leaves; SUCCESS with finite outputs; wire bytes of the P
+   round and the Q + rank-1 round;
+8. main path 4 — path 2's sequence federation with ``agg_engine="rankDAD"``
+   (rank 10, 5 power iterations) at ``precision_bits=8``: the capture plan
+   is exactly the embed and the head; K2, K3 and K4 launched in every
+   gradient round and K1 once per payload per node (factors 4 segments,
+   rest 23), one round's payloads bit-equal to K1's plain version on the
+   same leaves; SUCCESS with finite outputs; wire bytes per round and a
+   profiled steady round.
 
 Then one JSON line ``{"kernels": [...]}``, the ``nvidia-smi`` name/power
 line, and the last line ``{"ok": true, "device": {...}}``.  Per-shape
@@ -79,6 +98,12 @@ SEQ_ARGS = dict(
 )
 SEQ_FILES = 48
 SEQ_PROFILED_ROUND = 3  # the second gradient round, a steady one
+# path 3: the pretrainer holds the most training data
+PRETRAIN_EXTRA_FILES = 8
+# the compressed wire's payloads: segments (float leaves) per payload
+VBM_MATRIX_LEAVES, VBM_RANK1_LEAVES = 8, 15
+SEQ_LEAVES, DAD_LAYERS, DAD_RANK = 27, 2, 10
+POWER_ITERATION_RTOL = 1e-4
 # the port's kernels by their device-side names, picked out of a profile
 PORT_KERNEL_NAMES = ("quantize_int8", "flash_fwd", "flash_bwd", "flash_dq", "flash_dkv")
 
@@ -640,12 +665,44 @@ def check_seq_reference(dev):
     return err, gerr
 
 
+def check_power_iteration(dev):
+    """``orthogonalize`` and ``power_iteration_BC`` on the card against the
+    CPU, float32 (TF32 off), at the rankDAD embed layer's shapes on the
+    sequence path (N = batch·T rows, d_model outputs, features + 1
+    inputs, rank 10) with the start block injected: the projector Q Qᵀ and
+    the product Brᵀ Cr (column signs may differ) within 1e-4·max."""
+    import torch
+
+    from coinstac_dinunet_tpu_torch.ops import orthogonalize, power_iteration_BC
+
+    gen = torch.Generator().manual_seed(3)
+    n = SEQ_ARGS["batch_size"] * SEQ_ARGS["seq_len"]
+    B = torch.randn((n, SEQ_ARGS["d_model"]), generator=gen)
+    C = torch.randn((n, SEQ_ARGS["num_features"] + 1), generator=gen)
+    q0 = torch.randn((SEQ_ARGS["d_model"], DAD_RANK), generator=gen)
+    m = torch.randn((SEQ_ARGS["d_model"], DAD_RANK), generator=gen)
+    errs = {}
+    for name, fn in (
+        ("orthogonalize", lambda d: (lambda q: q @ q.T)(orthogonalize(m.to(d)))),
+        ("power_iteration_BC", lambda d: (lambda f: f[0].T @ f[1])(
+            power_iteration_BC(B.to(d), C.to(d), rank=DAD_RANK, iterations=5, q0=q0))),
+    ):
+        want, got = fn(torch.device("cpu")), fn(dev).cpu()
+        err, scale = float((got - want).abs().max()), float(want.abs().max())
+        if not err <= POWER_ITERATION_RTOL * scale:
+            raise AssertionError(f"{name} on the card differs from the CPU by {err} > "
+                                 f"{POWER_ITERATION_RTOL} x {scale}")
+        errs[name] = {"max_abs_err": err, "relative": err / scale}
+    return errs
+
+
 VBM_BATCH = 16
 
 
-def make_vbm_engine(dev, workdir):
+def make_vbm_engine(dev, workdir, extra_files=None, **args):
     """The VBM main path's engine: 2 sites, the width-16 VBM at
-    precision_bits=8, 64 subjects a site, not yet run."""
+    precision_bits=8, 64 subjects a site (plus ``extra_files[site]``), not
+    yet run; ``args`` add to the configuration."""
     from coinstac_dinunet_tpu_torch import InProcessEngine
     from coinstac_dinunet_tpu_torch.models import SyntheticVBMDataset, VBMTrainer
 
@@ -654,11 +711,11 @@ def make_vbm_engine(dev, workdir):
         dataset_cls=SyntheticVBMDataset, device=dev,
         data_dir="data", input_shape=[64, 64, 64], model_width=WIDTH,
         batch_size=VBM_BATCH, epochs=1, split_ratio=[0.75, 0.125, 0.125],
-        precision_bits=8, compute_dtype="bfloat16", seed=7, patience=100,
+        precision_bits=8, compute_dtype="bfloat16", seed=7, patience=100, **args,
     )
     for s in eng.site_ids:
         d = eng.site_data_dir(s)
-        for i in range(64):
+        for i in range(64 + (extra_files or {}).get(s, 0)):
             open(os.path.join(d, f"{s}_subject_{i:03d}"), "w").close()
     return eng
 
@@ -705,20 +762,7 @@ def run_main_path(dev, workdir):
     if grad_rounds == 0 or launches == 0:
         raise AssertionError("the main path shipped no gradients through K1")
 
-    for s in eng.site_ids:
-        ts = eng.site_caches[s]["_train_state"]
-        for name, m in ts.nn.items():
-            for pname, p in m.named_parameters():
-                if not p.is_cuda:
-                    raise AssertionError(f"{s} {name}.{pname} is not on the card")
-                if not torch.isfinite(p).all():
-                    raise AssertionError(f"{s} {name}.{pname} is not finite")
-    csv = os.path.join(workdir, "remote_out", "task", "global_test_metrics.csv")
-    with open(csv) as f:
-        header, row = f.read().strip().splitlines()[:2]
-    values = [float(v) for v in row.split(",")]
-    if len(values) != len(header.split(",")) or not all(v == v for v in values):
-        raise AssertionError(f"bad global test metrics: {header} / {row}")
+    metrics = check_outputs(eng, workdir)
     # wire bytes of the last gradient round (the payload files persist):
     # int8 values + float32 scales against float32 values of the gradient
     grads_bytes = [os.path.getsize(os.path.join(workdir, "remote_base", s, "grads.npy"))
@@ -733,8 +777,7 @@ def run_main_path(dev, workdir):
         "rounds": eng.rounds, "grad_rounds": grad_rounds, "launches": launches,
         "segments": q.KERNEL.segments, "launches_segments_per_round": per_round,
         "wall_s": wall, "samples_per_s": samples / wall, "round_s": round_s,
-        "profiled_rounds": profiles,
-        "global_test_metrics": dict(zip(header.split(","), values)),
+        "profiled_rounds": profiles, "global_test_metrics": metrics,
     }
 
 
@@ -792,17 +835,7 @@ def run_seq_path(dev, workdir):
     if grad_rounds == 0 or min(launches.values()) == 0:
         raise AssertionError("the sequence path ran no gradient through K2-K4")
 
-    for s in eng.site_ids:
-        for name, m in eng.site_caches[s]["_train_state"].nn.items():
-            for pname, p in m.named_parameters():
-                if not p.is_cuda or not torch.isfinite(p).all():
-                    raise AssertionError(f"{s} {name}.{pname} is not finite on the card")
-    csv = os.path.join(workdir, "remote_out", "task", "global_test_metrics.csv")
-    with open(csv) as f:
-        header, row = f.read().strip().splitlines()[:2]
-    values = [float(v) for v in row.split(",")]
-    if len(values) != len(header.split(",")) or not all(v == v for v in values):
-        raise AssertionError(f"bad global test metrics: {header} / {row}")
+    metrics = check_outputs(eng, workdir)
     train = 0
     for s in eng.site_ids:
         with open(os.path.join(workdir, s, "out", "task", "splits", "SPLIT.json")) as f:
@@ -815,7 +848,302 @@ def run_seq_path(dev, workdir):
         "rounds": eng.rounds, "grad_rounds": grad_rounds, "launches": launches,
         "launches_per_round": per_round, "train_samples": train * SEQ_ARGS["epochs"],
         "wall_s": wall, "samples_per_s": train * SEQ_ARGS["epochs"] / wall, "round_s": round_s,
-        "profiled_rounds": profiles, "global_test_metrics": dict(zip(header.split(","), values)),
+        "profiled_rounds": profiles, "global_test_metrics": metrics,
+    }
+
+
+def check_outputs(eng, workdir):
+    """Every site's parameters on the card and finite, and the global test
+    metrics finite; returns the metrics."""
+    import torch
+
+    for s in eng.site_ids:
+        for name, m in eng.site_caches[s]["_train_state"].nn.items():
+            for pname, p in m.named_parameters():
+                if not p.is_cuda or not torch.isfinite(p).all():
+                    raise AssertionError(f"{s} {name}.{pname} is not finite on the card")
+    csv = os.path.join(workdir, "remote_out", "task", "global_test_metrics.csv")
+    with open(csv) as f:
+        header, row = f.read().strip().splitlines()[:2]
+    values = [float(v) for v in row.split(",")]
+    if len(values) != len(header.split(",")) or not all(v == v for v in values):
+        raise AssertionError(f"bad global test metrics: {header} / {row}")
+    return dict(zip(header.split(","), values))
+
+
+def wire_sizes(eng, workdir, up, down=None):
+    """Bytes of a round's payload files: what each site shipped up (the
+    files ``up`` in ``remote_base/<site>``) and what the aggregator shipped
+    down (``down``, default the same names, in ``remote_xfer``)."""
+    return {"site_to_aggregator": [sum(os.path.getsize(os.path.join(workdir, "remote_base", s, n))
+                                       for n in up) for s in eng.site_ids],
+            "aggregator_to_site": sum(os.path.getsize(os.path.join(workdir, "remote_xfer", n))
+                                      for n in (down or up))}
+
+
+class PayloadRecorder:
+    """While ``on``, keeps every payload the wire hands K1: a copy of its
+    leaves and seeds and of the kernel's output, taken on the launch's
+    stream right after it.  :meth:`check` then holds each output bit-equal
+    to the plain version on the same leaves (no launch: the counts stay
+    the main path's)."""
+
+    def __init__(self):
+        self.on, self.payloads = False, []
+
+    def __enter__(self):
+        from coinstac_dinunet_tpu_torch.utils import tensorutils
+
+        real = self._real = tensorutils.quantize_int8_many
+
+        def record(leaves, seeds):
+            leaves, seeds = list(leaves), list(seeds)
+            out = real(leaves, seeds)
+            if self.on:
+                self.payloads.append(([x.detach().clone() for x in leaves], seeds, out.clone()))
+            return out
+
+        tensorutils.quantize_int8_many = record
+        return self
+
+    def __exit__(self, *exc):
+        from coinstac_dinunet_tpu_torch.utils import tensorutils
+
+        tensorutils.quantize_int8_many = self._real
+
+    def take(self):
+        """The payloads recorded since the last call."""
+        taken, self.payloads = self.payloads, []
+        return taken
+
+    @staticmethod
+    def check(payloads, what):
+        """``[(leaves, values, bytes)]`` of recorded payloads, each
+        bit-equal to ``quantize_int8_many_plain``; raises otherwise."""
+        import torch
+
+        from coinstac_dinunet_tpu_torch.ops import quantize as q
+
+        rows = []
+        for leaves, seeds, got in payloads:
+            want = q.quantize_int8_many_plain(leaves, seeds)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"{what}: K1's payload of {len(leaves)} leaves "
+                                     f"({[tuple(x.shape) for x in leaves]}) differs from its "
+                                     "plain version")
+            rows.append((len(leaves), sum(x.numel() for x in leaves), got.numel()))
+        return rows
+
+
+def hold_payloads(payloads, round_no, segments):
+    """A round's recorded payloads held to the plain version; every
+    segment K1 took in the round must be among them."""
+    rows = PayloadRecorder.check(payloads, f"round {round_no}")
+    if sum(n for n, _, _ in rows) != segments:
+        raise AssertionError(f"round {round_no}: held {rows}, K1 took {segments} segments")
+    return rows
+
+
+def _flat_leaves(tree, prefix=""):
+    """``[(path, array)]`` of a nested dict, keys sorted."""
+    out = []
+    for k in sorted(tree):
+        v = tree[k]
+        out += (_flat_leaves(v, f"{prefix}{k}/") if isinstance(v, dict) else [(prefix + k, v)])
+    return out
+
+
+def check_pretrain_load(eng):
+    """``pretrained_weights.ckpt`` in every site's base directory, and each
+    site's parameters bit-equal to the pretrainer's best weights (the file
+    it wrote into its transfer directory)."""
+    import numpy as np
+
+    from coinstac_dinunet_tpu_torch.interop import params_to_jax
+    from coinstac_dinunet_tpu_torch.utils import flax_msgpack
+
+    (pre,) = [s for s in eng.site_ids if eng.site_caches[s].get("pretrain")]
+    src = os.path.join(eng.site_states[pre]["transferDirectory"], eng.site_caches[pre]["weights_file"])
+    with open(src, "rb") as f:
+        want = _flat_leaves(flax_msgpack.restore(f.read())["models"])
+    for s in eng.site_ids:
+        if not os.path.exists(os.path.join(eng.site_states[s]["baseDirectory"],
+                                           "pretrained_weights.ckpt")):
+            raise AssertionError(f"the pretrain broadcast did not reach {s}")
+        ts = eng.site_caches[s]["_train_state"]
+        got = _flat_leaves({n: params_to_jax(m) for n, m in ts.nn.items()})
+        if [k for k, _ in got] != [k for k, _ in want] or not all(
+                np.array_equal(a, b) for (_, a), (_, b) in zip(got, want)):
+            raise AssertionError(f"{s}'s parameters differ from the pretrainer's ({pre}) after the load")
+    return pre, len(want)
+
+
+def run_powersgd_path(dev, workdir):
+    """Path 1's VBM federation with a local pretrain and PowerSGD to
+    SUCCESS: the broadcast load checked bit for bit, K1 once per payload
+    per node in every gradient round."""
+    import torch
+
+    from coinstac_dinunet_tpu_torch.ops import quantize as q
+
+    eng = make_vbm_engine(dev, workdir, extra_files={"site_0": PRETRAIN_EXTRA_FILES},
+                          agg_engine="powerSGD", matrix_approximation_rank=1,
+                          start_powerSGD_iter=1, pretrain_args={"epochs": 1})
+    # segments of each payload a gradient round's site ships, by its key
+    payloads = {"grads_file": (VBM_LEAVES,), "powerSGD_P_file": (VBM_MATRIX_LEAVES,),
+                "powerSGD_Q_file": (VBM_MATRIX_LEAVES, VBM_RANK1_LEAVES)}
+    files = {"grads_file": (("grads.npy",), ("avg_grads.npy",)),
+             "powerSGD_P_file": (("powerSGD_P.npy",),),
+             "powerSGD_Q_file": (("powerSGD_Q.npy", "powerSGD_rank1.npy"),)}
+    # every payload of a round is held to the plain version until each
+    # kind has been held once (after the run, outside its timing)
+    recorder, held, recorded = PayloadRecorder(), [], set()
+    q.KERNEL.launches = 0
+    q.KERNEL.segments = 0
+    grad_rounds, round_s, per_round, wire, pretrain = 0, [], [], {}, None
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while not eng.success and eng.rounds < 60:
+        broadcast = eng.site_inputs[eng.site_ids[0]].get("pretrained_weights")
+        before = q.KERNEL.launches, q.KERNEL.segments
+        recorder.on = recorded != set(payloads)
+        tr = time.perf_counter()
+        with recorder:
+            site_outs, _ = eng.step_round()
+        torch.cuda.synchronize()
+        round_s.append(time.perf_counter() - tr)
+        grew = q.KERNEL.launches - before[0], q.KERNEL.segments - before[1]
+        kinds = [k for k in payloads if all(k in o for o in site_outs.values())]
+        per_round.append({"round": eng.rounds, "payload": kinds, "launches": grew[0],
+                          "segments": grew[1]})
+        if broadcast:
+            pretrain = check_pretrain_load(eng)
+        if all(o.get("reduce") for o in site_outs.values()):
+            grad_rounds += 1
+            if len(kinds) != 1:
+                raise AssertionError(f"round {eng.rounds}: sites shipped {kinds}")
+            segs = payloads[kinds[0]]
+            want = (N_SITES + 1) * len(segs), (N_SITES + 1) * sum(segs)
+            if grew != want:
+                raise AssertionError(
+                    f"round {eng.rounds} ({kinds[0]}): K1 launched {grew[0]} times over "
+                    f"{grew[1]} segments, expected {want[0]} launches over {want[1]}")
+            wire[kinds[0]] = wire_sizes(eng, workdir, *files[kinds[0]])
+            if recorder.on:
+                recorded.add(kinds[0])
+        if recorder.on:
+            held.append((eng.rounds, kinds, grew[1], recorder.take()))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    held = [{"round": r, "payload": kinds, "leaves_values_bytes": hold_payloads(p, r, segs)}
+            for r, kinds, segs, p in held if p]
+    if not eng.success:
+        raise AssertionError(f"no SUCCESS after {eng.rounds} rounds")
+    if pretrain is None:
+        raise AssertionError("no site loaded a pretrain broadcast")
+    if set(wire) != set(payloads) or recorded != set(payloads):
+        raise AssertionError(f"the run shipped only {sorted(wire)}, held {sorted(recorded)}")
+    return {
+        "rounds": eng.rounds, "grad_rounds": grad_rounds, "launches": q.KERNEL.launches,
+        "segments": q.KERNEL.segments, "per_round": per_round, "wire_bytes": wire,
+        "payloads_held": held,
+        "pretrainer": pretrain[0], "pretrain_leaves_checked": pretrain[1],
+        "wall_s": wall, "round_s": round_s,
+        "global_test_metrics": check_outputs(eng, workdir),
+    }
+
+
+def run_rankdad_path(dev, workdir):
+    """Path 2's sequence federation with rankDAD at precision_bits=8 to
+    SUCCESS: the capture plan is the embed and the head, K2–K4 in every
+    gradient round, K1 once per payload per node."""
+    import torch
+
+    from coinstac_dinunet_tpu_torch import InProcessEngine
+    from coinstac_dinunet_tpu_torch.interop import wire_leaves
+    from coinstac_dinunet_tpu_torch.models import SeqTrainer, SyntheticSeqDataset
+    from coinstac_dinunet_tpu_torch.ops import quantize as q
+
+    fa = importlib.import_module("coinstac_dinunet_tpu_torch.ops.flash_attention")
+    eng = InProcessEngine(
+        workdir, n_sites=N_SITES, trainer_cls=SeqTrainer, dataset_cls=SyntheticSeqDataset,
+        device=dev, data_dir="data", seed=7, patience=100, agg_engine="rankDAD",
+        dad_reduction_rank=DAD_RANK, dad_num_pow_iters=5, precision_bits=8, **SEQ_ARGS,
+    )
+    for s in eng.site_ids:
+        d = eng.site_data_dir(s)
+        for i in range(SEQ_FILES):
+            open(os.path.join(d, f"{s}_subj_{i:03d}"), "w").close()
+    want_plan = {"Dense_0@0": ("embed.weight", "embed.bias"),
+                 "Dense_1@0": ("head.weight", "head.bias")}
+    names = list(FLASH_SOURCES)
+    for kern in fa.KERNELS:
+        kern.launches = 0
+    q.KERNEL.launches = 0
+    q.KERNEL.segments = 0
+    need = N_SITES * SEQ_ARGS["num_layers"]
+    # per node a round two payloads: the factors (B and C of each of the 2
+    # layers: 4 segments) and the rest leaves (27 - 4 = 23 segments)
+    k1_want = 2 * (N_SITES + 1), (N_SITES + 1) * SEQ_LEAVES
+    # the payloads of the first gradient round that is not profiled are
+    # held to the plain version (after the run, outside its timing)
+    recorder, held = PayloadRecorder(), None
+    grad_rounds, round_s, profiles, per_round, plan = 0, [], [], [], None
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while not eng.success and eng.rounds < 40:
+        before = [kern.launches for kern in fa.KERNELS], q.KERNEL.launches, q.KERNEL.segments
+        tr = time.perf_counter()
+        if eng.rounds + 1 == SEQ_PROFILED_ROUND:
+            site_outs, profile = profiled_round(eng)
+            profiles.append(profile)
+        else:
+            recorder.on = held is None
+            with recorder:
+                site_outs, _ = eng.step_round()
+            torch.cuda.synchronize()
+        round_s.append(time.perf_counter() - tr)
+        grew = [kern.launches - b for kern, b in zip(fa.KERNELS, before[0])]
+        k1 = q.KERNEL.launches - before[1], q.KERNEL.segments - before[2]
+        per_round.append({**dict(zip(names, grew)), "quantize_int8": k1})
+        if all(o.get("reduce") for o in site_outs.values()):
+            grad_rounds += 1
+            if min(grew) < need:
+                raise AssertionError(f"round {eng.rounds}: K2/K3/K4 launched {grew} times, "
+                                     f"expected >= {need} each")
+            if k1 != k1_want:
+                raise AssertionError(f"round {eng.rounds}: K1 launched {k1[0]} times over "
+                                     f"{k1[1]} segments, expected {k1_want}")
+            for s in eng.site_ids:
+                st = eng.site_caches[s]["_rankdad_state"]
+                leaves = wire_leaves(eng.site_caches[s]["_train_state"].nn)
+                plan = {k: tuple(leaves[i][1] for i in st.leaf_map[k]) for k in st.layer_keys}
+                if st.layer_keys != list(want_plan) or plan != want_plan:
+                    raise AssertionError(f"{s}: the capture plan is {plan}, expected {want_plan}")
+            wire = wire_sizes(eng, workdir, ("dad_data.npy", "dad_rest.npy"))
+            if recorder.on and held is None:
+                held = eng.rounds, k1[1], recorder.take()
+        elif eng.rounds == SEQ_PROFILED_ROUND:
+            raise AssertionError(f"the profiled round {eng.rounds} shipped no gradients")
+        recorder.take()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if held is None:
+        raise AssertionError("no gradient round's payloads were held to the plain version")
+    r, segs, payloads = held
+    held = {"round": r, "leaves_values_bytes": hold_payloads(payloads, r, segs)}
+    launches = dict(zip(names, (kern.launches for kern in fa.KERNELS)))
+    if not eng.success:
+        raise AssertionError(f"no SUCCESS after {eng.rounds} rounds")
+    if grad_rounds == 0 or min(launches.values()) == 0 or plan is None:
+        raise AssertionError("the rankDAD path ran no gradient round")
+    return {
+        "rounds": eng.rounds, "grad_rounds": grad_rounds, "launches": launches,
+        "k1_launches": q.KERNEL.launches, "k1_segments": q.KERNEL.segments,
+        "per_round": per_round, "plan": plan, "wire_bytes": wire, "payloads_held": held,
+        "wall_s": wall, "round_s": round_s, "profiled_rounds": profiles,
+        "global_test_metrics": check_outputs(eng, workdir),
     }
 
 
@@ -923,6 +1251,11 @@ def main():
     err, gerr = check_seq_reference(dev)
     log(f"[4 reference] sequence model card vs CPU, float32, T=200: logits max |d| {err:.3e}, "
         f"gradients max relative |d| {gerr:.3e}")
+    report["power_iteration_errors"] = check_power_iteration(dev)
+    log("[4 reference] compression math card vs CPU, float32, rankDAD embed shapes: "
+        + ", ".join(f"{k} max |d| {v['max_abs_err']:.3e} ({v['relative']:.2e} of max)"
+                    for k, v in report["power_iteration_errors"].items())
+        + f" (tolerance {POWER_ITERATION_RTOL} x max)")
 
     with tempfile.TemporaryDirectory() as wd:
         main_path = run_main_path(dev, wd)
@@ -960,9 +1293,52 @@ def main():
         f"aggregator->each site {wb['aggregator_to_site']}")
     log_profiles(seq_path["profiled_rounds"])
 
+    with tempfile.TemporaryDirectory() as wd:
+        psgd_path = run_powersgd_path(dev, wd)
+    log(f"[7 main path 3: VBM + pretrain + PowerSGD] {psgd_path['rounds']} rounds "
+        f"({psgd_path['grad_rounds']} with gradients) to SUCCESS in {psgd_path['wall_s']:.3f} s; "
+        f"pretrainer {psgd_path['pretrainer']}, every site bit-equal to its best weights "
+        f"({psgd_path['pretrain_leaves_checked']} leaves) after the load; K1 launches "
+        f"{psgd_path['launches']} over {psgd_path['segments']} segments | {smi}")
+    log("  round seconds: " + " ".join(f"{t:.3f}" for t in psgd_path["round_s"]))
+    log("  payload, K1 launches/segments per round: " + " ".join(
+        f"{'+'.join(r['payload']) or '-'}:{r['launches']}/{r['segments']}"
+        for r in psgd_path["per_round"]))
+    for h in psgd_path["payloads_held"]:
+        log(f"  round {h['round']} ({'+'.join(h['payload']) or '-'}): K1's payloads bit-equal "
+            "to the plain version (leaves/values/bytes): "
+            + " ".join("/".join(map(str, row)) for row in h["leaves_values_bytes"]))
+    for key, wb in psgd_path["wire_bytes"].items():
+        log(f"  wire bytes, {key} round: site->aggregator {wb['site_to_aggregator']}, "
+            f"aggregator->each site {wb['aggregator_to_site']} (path 1's dSGD round: "
+            f"{main_path['wire_bytes']['site_to_aggregator']})")
+
+    with tempfile.TemporaryDirectory() as wd:
+        dad_path = run_rankdad_path(dev, wd)
+    log(f"[8 main path 4: sequence + rankDAD] {dad_path['rounds']} rounds "
+        f"({dad_path['grad_rounds']} with gradients) to SUCCESS in {dad_path['wall_s']:.3f} s; "
+        f"capture plan {dad_path['plan']}; launches {dad_path['launches']}, K1 "
+        f"{dad_path['k1_launches']} over {dad_path['k1_segments']} segments | {smi}")
+    log("  round seconds: " + " ".join(f"{t:.3f}" for t in dad_path["round_s"]))
+    h = dad_path["payloads_held"]
+    log(f"  round {h['round']}: K1's payloads bit-equal to the plain version "
+        "(leaves/values/bytes): " + " ".join("/".join(map(str, row))
+                                             for row in h["leaves_values_bytes"]))
+    wb = dad_path["wire_bytes"]
+    log(f"  wire bytes per gradient round (factors + rest, int8): site->aggregator "
+        f"{wb['site_to_aggregator']}, aggregator->each site {wb['aggregator_to_site']} "
+        f"(path 2's dSGD round, float32 wire: {seq_path['wire_bytes']['site_to_aggregator']})")
+    log_profiles(dad_path["profiled_rounds"])
+
+    k1["launches_by_path"] = {"vbm_dsgd": main_path["launches"],
+                              "vbm_pretrain_powersgd": psgd_path["launches"],
+                              "seq_rankdad": dad_path["k1_launches"]}
+    for kern in k234:
+        kern["launches_by_path"] = {"seq_dsgd": seq_path["launches"][kern["name"]],
+                                    "seq_rankdad": dad_path["launches"][kern["name"]]}
     kernels = [k1, *k234]
-    report.update(main_path=main_path, seq_path=seq_path, device=kind, power=smi,
-                  kernels=kernels)
+    report.update(main_path=main_path, seq_path=seq_path, powersgd_path=psgd_path,
+                  rankdad_path=dad_path, device=kind, power=smi, kernels=kernels)
     out_dir = os.path.join(HERE, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:

@@ -18,6 +18,9 @@ from .keys import AggEngine, GatherMode, Key, Mode, Phase  # noqa: F401 (re-expo
 grads_file = "grads.npy"
 avg_grads_file = "avg_grads.npy"
 weights_file = "weights.ckpt"
+dad_data_file = "dad_data.npy"
+powersgd_P_file = "powerSGD_P.npy"
+powersgd_Q_file = "powerSGD_Q.npy"
 
 # ---- numeric behavior ------------------------------------------------------
 metrics_eps = 1e-5

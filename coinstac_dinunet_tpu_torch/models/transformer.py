@@ -64,7 +64,9 @@ def _refuse_attn_impl(attn_impl):
 class TPDense(nn.Linear):
     """The JAX package's tensor-parallel dense layer with ``tp_axis=None``:
     exactly a dense layer (flax name ``Dense_N``, lecun-normal kernel, zero
-    bias).  The sharded modes wait for multiple devices."""
+    bias), but not a ``flax.linen.Dense``, so rankDAD does not compress it
+    (it captures exact ``nn.Linear``s only).  The sharded modes wait for
+    multiple devices."""
 
     def __init__(self, in_features, features, use_bias=True, tp_axis=None):
         _refuse_mesh(tp_axis=tp_axis)

@@ -14,8 +14,14 @@ different stream from the JAX package's PRNG key, so runs with dropout on
 differ between the packages); a bfloat16 ``compute_dtype`` runs the
 forward and backward under ``torch.autocast`` while the loss, the logits
 and the metric reductions stay float32.  Local checkpoints are
-``torch.save`` payloads.  Local data parallelism waits for a later slice
-(``ROADMAP.md``).
+``torch.save`` payloads; a checkpoint that crosses the wire (the
+pretrained weights the aggregator broadcasts) is the JAX package's own
+format — ``flax.serialization.msgpack_serialize`` of ``{"source":
+"coinstac-dinunet-tpu", "models": <flax variables>, "step"}``, written and
+read by :mod:`..utils.flax_msgpack` through :mod:`..interop` — so either
+package loads the other's.  Reading one, the port ignores ``optimizers``
+and ``rng`` (the optimizer restarts, the dropout generator stays).  Local
+data parallelism waits for a later slice (``ROADMAP.md``).
 
 User subclasses implement ``_init_nn_model`` (fill ``self.nn``) and
 ``iteration(batch, generator=None)`` returning at least ``{"loss": ...}``
@@ -29,14 +35,38 @@ from dataclasses import dataclass
 
 import torch
 
-from .. import config
+from .. import config, interop
 from ..config.keys import Mode
 from ..data import to_device
 from ..metrics import COINNAverages, Prf1a
-from ..utils import atomic_write, logger
+from ..utils import atomic_write, flax_msgpack, logger
 from ..utils.utils import performance_improved_, stop_training_
 
 CHECKPOINT_SOURCE = "coinstac-dinunet-tpu-torch"
+#: the ``source`` of a wire checkpoint: the JAX package's string, which its
+#: ``load_checkpoint`` needs to read ``models`` (any other string sends it
+#: down its foreign-payload fallback)
+WIRE_CHECKPOINT_SOURCE = "coinstac-dinunet-tpu"
+
+
+def is_torch_file(path):
+    """Whether ``path`` holds a ``torch.save`` payload: a zip archive with a
+    ``data.pkl`` member, or a legacy pickle (first byte ``0x80``, which is
+    also msgpack's empty map — no checkpoint is one)."""
+    try:
+        with open(path, "rb") as f:
+            head = f.read(2)
+    except OSError:
+        return False
+    if head[:2] == b"PK":
+        import zipfile
+
+        try:
+            with zipfile.ZipFile(path) as z:
+                return any(n.endswith("data.pkl") for n in z.namelist())
+        except (zipfile.BadZipFile, OSError):
+            return False
+    return head[:1] == b"\x80"
 
 
 @dataclass
@@ -170,15 +200,40 @@ class NNTrainer:
         atomic_write(path, buf.getvalue())
         return path
 
-    def load_checkpoint(self, name=None, full_path=None, load_optimizer=True):
+    def save_wire_checkpoint(self, full_path):
+        """Write the models as a wire checkpoint (the JAX package's msgpack
+        format, see the module docstring): what crosses to other sites."""
+        payload = {
+            "source": WIRE_CHECKPOINT_SOURCE,
+            "models": {n: interop.params_to_jax(m) for n, m in self.nn.items()},
+            "step": int(self.step),
+        }
+        atomic_write(full_path, flax_msgpack.serialize(payload))
+        return full_path
+
+    def load_checkpoint(self, name=None, full_path=None, load_optimizer=True,
+                        allow_torch=True):
         """Restore models (and optimizers, step, generator when present)
-        from a :meth:`save_checkpoint` file into the built models."""
+        from a :meth:`save_checkpoint` file, or the models and step from a
+        wire checkpoint (:meth:`save_wire_checkpoint`, or one the JAX
+        package wrote), into the built models.  ``allow_torch=False`` — a
+        file received from the aggregator — refuses a ``torch.save``
+        payload rather than unpickle it."""
         path = full_path or self.checkpoint_path(name)
+        if not self.nn:
+            raise RuntimeError("load_checkpoint needs built models: call init_nn() first")
+        if not is_torch_file(path):
+            return self._load_wire_checkpoint(path)
+        if not allow_torch:
+            raise RuntimeError(
+                f"{path!r} is a torch checkpoint, but torch files are only "
+                "loaded from operator-configured local paths "
+                "(cache['pretrained_path']), never from files received from "
+                "the aggregator"
+            )
         payload = torch.load(path, map_location="cpu", weights_only=True)
         if payload.get("source") != CHECKPOINT_SOURCE:
             raise ValueError(f"{path!r} is not a {CHECKPOINT_SOURCE} checkpoint")
-        if not self.nn:
-            raise RuntimeError("load_checkpoint needs built models: call init_nn() first")
         self.last_checkpoint_extra = dict(payload.get("extra", {}))
         for n, sd in payload["models"].items():
             self.nn[n].load_state_dict(sd)
@@ -188,6 +243,21 @@ class NNTrainer:
             self.step = int(payload.get("step", self.step))
             if "rng" in payload and self.generator is not None:
                 self.generator.set_state(payload["rng"])
+        return self
+
+    def _load_wire_checkpoint(self, path):
+        """Models and step from a msgpack checkpoint.  As in the JAX package
+        a payload of another ``source`` is taken as the models dict itself;
+        ``optimizers`` and ``rng`` are ignored."""
+        with open(path, "rb") as f:
+            payload = flax_msgpack.restore(f.read())
+        self.last_checkpoint_extra = dict(payload.get("extra", {}))
+        models = (payload["models"] if payload.get("source") == WIRE_CHECKPOINT_SOURCE
+                  else payload)
+        for n, m in self.nn.items():
+            m.load_state_dict(interop.params_from_jax(models[n], m))
+        if "step" in payload:
+            self.step = int(payload["step"])
         return self
 
     # -------------------------------------------------------------- the steps

@@ -1,19 +1,21 @@
 """COINNLocal — the site-side phase state machine (PyTorch port).
 
-Port of the JAX package's ``nodes/local.py`` for the lockstep dSGD path:
-the first invocation resolves the three-tier argument override (engine
+Port of the JAX package's ``nodes/local.py`` for the lockstep path: the
+first invocation resolves the three-tier argument override (engine
 ``input`` > ``<task_id>_args`` > ``<agg_engine>_args`` > constructor
 defaults) and freezes a ``shared_args`` snapshot for the aggregator; every
-invocation then advances INIT_RUNS → NEXT_RUN → COMPUTATION →
-NEXT_RUN_WAITING → SUCCESS, echoing the aggregator's ``wire_round`` and
-``roster_epoch`` stamps.  The live train state (models, optimizers,
-generator) persists in ``cache['_train_state']`` between invocations of a
-persistent process.
+invocation then advances INIT_RUNS → NEXT_RUN [→ PRE_COMPUTATION] →
+COMPUTATION → NEXT_RUN_WAITING → SUCCESS, echoing the aggregator's
+``wire_round`` and ``roster_epoch`` stamps.  ``agg_engine`` picks the
+learner (dSGD, PowerSGD or rankDAD).  With ``pretrain_args.epochs > 0`` the
+designated site trains locally first, and in PRE_COMPUTATION every site
+loads the weights the aggregator broadcast.  The live train state (models,
+optimizers, generator) persists in ``cache['_train_state']`` between
+invocations of a persistent process.
 
-Not ported yet, and refused with the ROADMAP item named: the PowerSGD and
-rankDAD engines, quorum, async rounds and run-ahead, the tree fan-in,
-quarantine, elastic membership, the aggregator's pretrained-weights
-broadcast, fresh-process round state and resume.
+Not ported yet, and refused with the ROADMAP item named: quorum, async
+rounds and run-ahead, the tree fan-in, quarantine, elastic membership,
+fresh-process round state and resume.
 """
 import os
 import shutil
@@ -23,10 +25,13 @@ import traceback
 from .. import config, utils
 from ..config.keys import AggEngine, Key, LocalWire, Mode, Phase, RemoteWire
 from ..data import COINNDataHandle
-from ..parallel import COINNLearner
+from ..parallel import COINNLearner, DADLearner, PowerSGDLearner
 
 # engine/epoch state cleared on every fold transition
-_EPHEMERAL_KEYS = ("_ep_averages", "_ep_metrics", "_train_state", "cursor", "epoch")
+_EPHEMERAL_KEYS = (
+    "_powersgd_state", "_rankdad_state", "_ep_averages", "_ep_metrics",
+    "_train_state", "cursor", "epoch",
+)
 
 # options of the JAX package this slice does not carry: any set value is
 # refused rather than silently ignored
@@ -40,12 +45,6 @@ _UNPORTED_ARGS = (
 def refuse_unported(cache):
     """Raise NotImplementedError for a configured option this slice of the
     port does not carry."""
-    engine = str(cache.get("agg_engine", AggEngine.DSGD.value))
-    if engine != AggEngine.DSGD.value:
-        raise NotImplementedError(
-            f"agg_engine={engine!r} is not ported yet "
-            "(ROADMAP.md Queue 1: PowerSGD and rankDAD)"
-        )
     for key in _UNPORTED_ARGS:
         if cache.get(key):
             raise NotImplementedError(
@@ -173,8 +172,7 @@ class COINNLocal:
 
     def _pretrain_local(self, trainer):
         """The designated site trains locally (``pretrain_args``) and
-        advertises its best weights.  Used by :class:`..engine.SiteRunner`;
-        the aggregator's broadcast of those weights is not ported yet."""
+        advertises its best weights, which the aggregator broadcasts."""
         out = {LocalWire.PHASE.value: Phase.COMPUTATION.value}
         pretrain_args = self.cache.get("pretrain_args") or {}
         epochs = int(pretrain_args.get("epochs", 0))
@@ -206,7 +204,14 @@ class COINNLocal:
         )
 
     def _get_learner_cls(self, learner_cls=None):
-        return learner_cls or COINNLearner
+        """The built-in learner of ``agg_engine``; another engine name takes
+        ``learner_cls`` (default dSGD), as in the JAX package."""
+        builtin = {
+            AggEngine.DSGD.value: COINNLearner,
+            AggEngine.RANK_DAD.value: DADLearner,
+            AggEngine.POWER_SGD.value: PowerSGDLearner,
+        }
+        return builtin.get(str(self.cache.get("agg_engine")), learner_cls or COINNLearner)
 
     # -------------------------------------------------------------- main loop
     def compute(self, trainer_cls=None, dataset_cls=None,
@@ -235,10 +240,18 @@ class COINNLocal:
 
         elif self.out[LocalWire.PHASE.value] == Phase.PRE_COMPUTATION.value:
             if self.input.get(RemoteWire.PRETRAINED_WEIGHTS.value):
-                raise NotImplementedError(
-                    "the pretrained-weights broadcast is not ported yet "
-                    "(ROADMAP.md Queue 1: pretrain broadcast)"
+                trainer.init_nn()
+                # a file from the aggregator: a wire checkpoint, never a
+                # torch pickle
+                trainer.load_checkpoint(
+                    full_path=os.path.join(
+                        self.state.get("baseDirectory", "."),
+                        self.input[RemoteWire.PRETRAINED_WEIGHTS.value],
+                    ),
+                    load_optimizer=False,
+                    allow_torch=False,
                 )
+                self.cache["_train_state"] = trainer.train_state
             self.out[LocalWire.PHASE.value] = Phase.COMPUTATION.value
 
         if self.input.get(RemoteWire.ADMISSIONS.value):

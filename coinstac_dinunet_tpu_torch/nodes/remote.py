@@ -1,8 +1,10 @@
 """COINNRemote — the aggregator phase state machine (PyTorch port).
 
-Port of the JAX package's ``nodes/remote.py`` for the lockstep dSGD path:
-adopts ``shared_args`` from the first site, builds the fold queue, reduces
-gradients when every site reports ``reduce``, runs the epoch/validation
+Port of the JAX package's ``nodes/remote.py`` for the lockstep path:
+adopts ``shared_args`` from the first site, builds the fold queue,
+broadcasts the pretrain site's weights (PRE_COMPUTATION), reduces with the
+``agg_engine``'s reducer (dSGD, PowerSGD or rankDAD) when every site
+reports ``reduce``, runs the epoch/validation
 barriers over the ``*_WAITING`` modes, merges cross-site scores exactly
 (count merge), signals best-checkpoint saves, early-stops, rotates folds,
 and finally reduces the global test scores, writes the CSV/JSON logs and
@@ -12,7 +14,7 @@ the (fixed) ``roster_epoch``, and every site must echo the stamp.
 What differs from the JAX package: the training-curve PNGs
 (``vision/plotter``) are not drawn — the CSV/JSON logs are the same.  Not
 ported yet: quorum (a missing site fails the round), async windows,
-elastic membership, the pretrained-weights broadcast, health rollups.
+elastic membership (and its reuse of the broadcast), health rollups.
 """
 import datetime
 import math
@@ -21,9 +23,10 @@ import shutil
 import traceback
 
 from .. import config, utils
-from ..config.keys import GatherMode, Key, LocalWire, Mode, Phase, RemoteWire
+from ..config.keys import AggEngine, GatherMode, Key, LocalWire, Mode, Phase, RemoteWire
 from ..data import EmptyDataHandle
-from ..parallel import COINNReducer
+from ..parallel import COINNReducer, DADReducer, PowerSGDReducer
+from ..resilience import transport as wire_transport
 from ..utils.utils import performance_improved_, stop_training_
 from . import check, gather
 from .local import refuse_unported
@@ -226,6 +229,34 @@ class COINNRemote:
         )
         return out
 
+    def _pre_compute(self):
+        """Broadcast the pretrain site's weights: its ``weights_file`` is
+        copied, atomically, to ``pretrained_<weights_file>`` in the
+        aggregator's transfer directory."""
+        out = {}
+        for site, site_vars in self.input.items():
+            if site_vars.get(LocalWire.WEIGHTS_FILE.value):
+                src = os.path.join(self.state.get("baseDirectory", "."), site,
+                                   site_vars[LocalWire.WEIGHTS_FILE.value])
+                if os.path.exists(src):
+                    out[RemoteWire.PRETRAINED_WEIGHTS.value] = f"pretrained_{config.weights_file}"
+                    # no site can ever read a half-copied broadcast
+                    wire_transport.atomic_copy(
+                        src, os.path.join(self.state.get("transferDirectory", "."),
+                                          out[RemoteWire.PRETRAINED_WEIGHTS.value]))
+                break
+        return out
+
+    def _get_reducer_cls(self, reducer_cls=None):
+        """The built-in reducer of ``agg_engine``; another engine name takes
+        ``reducer_cls`` (default dSGD), as in the JAX package."""
+        builtin = {
+            AggEngine.DSGD.value: COINNReducer,
+            AggEngine.RANK_DAD.value: DADReducer,
+            AggEngine.POWER_SGD.value: PowerSGDReducer,
+        }
+        return builtin.get(str(self.cache.get("agg_engine")), reducer_cls or COINNReducer)
+
     def _set_mode(self, mode=None):
         return {
             site: (mode if mode else site_vars.get(LocalWire.MODE.value, "N/A"))
@@ -250,10 +281,8 @@ class COINNRemote:
             self.out[RemoteWire.PHASE.value] = Phase.NEXT_RUN.value
 
         if check(all, LocalWire.PHASE.value, Phase.PRE_COMPUTATION.value, self.input):
-            raise NotImplementedError(
-                "the pretrained-weights broadcast is not ported yet "
-                "(ROADMAP.md Queue 1: pretrain broadcast)"
-            )
+            self.out.update(**self._pre_compute())
+            self.out[RemoteWire.PHASE.value] = Phase.PRE_COMPUTATION.value
 
         # the lockstep round stamp, committed to the cache only at the end
         self.out[RemoteWire.ROUND.value] = int(self.cache.get("wire_round") or 0) + 1
@@ -261,7 +290,7 @@ class COINNRemote:
 
         self.out[RemoteWire.GLOBAL_MODES.value] = self._set_mode()
         if check(all, LocalWire.PHASE.value, Phase.COMPUTATION.value, self.input):
-            reducer = (reducer_cls or COINNReducer)(trainer=trainer)
+            reducer = self._get_reducer_cls(reducer_cls)(trainer=trainer)
             self.out[RemoteWire.PHASE.value] = Phase.COMPUTATION.value
             if check(all, LocalWire.REDUCE.value, True, self.input):
                 self.out.update(**reducer.reduce())

@@ -48,12 +48,17 @@ class COINNLearner:
     def _base_path(self, fname):
         return os.path.join(self.state.get("baseDirectory", "."), fname)
 
+    def _load_wire(self, path):
+        """An inbound payload under the site's wire retry policy: an absent,
+        incomplete or corrupt payload (a broadcast still being relayed) is
+        retried with backoff before it fails the site."""
+        return tensorutils.load_arrays(path, retry=RetryPolicy.for_wire(self.cache))
+
     def step(self):
         """Apply the averaged gradients broadcast by the aggregator: one
         optimizer step on every model."""
         fname = self.input.get("avg_grads_file", config.avg_grads_file)
-        flat = tensorutils.load_arrays(
-            self._base_path(fname), retry=RetryPolicy.for_wire(self.cache))
+        flat = self._load_wire(self._base_path(fname))
         self.trainer.apply_grads(tensorutils.grads_like(self.trainer.nn, flat))
         return {}
 

@@ -90,10 +90,10 @@ class COINNReducer:
 
     def _average(self, site_leaves):
         """Stack each leaf across sites on the device and take the
-        participation-weighted mean; the means stay on the device, in the
-        wire dtype."""
+        participation-weighted mean (weights: :meth:`_site_weights`); the
+        means stay on the device, in the wire dtype."""
         n_leaves = len(site_leaves[0])
-        if n_leaves == 0:
+        if n_leaves == 0:  # e.g. rankDAD's rest payload of an all-dense model
             return []
         weights = self._site_weights()
         stacked = [

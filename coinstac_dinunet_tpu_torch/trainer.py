@@ -2,9 +2,9 @@
 
 Port of the JAX package's ``trainer.py``: distributed validation/test that
 emit serialized count payloads for the aggregator, the best-model save
-during a local pretrain, and the metric factory keyed by task shape.  The
-aggregator's broadcast of pretrained weights to the sites waits for a later
-slice (``ROADMAP.md``).
+during a local pretrain (a wire checkpoint in the transfer directory, which
+the aggregator broadcasts to every site), and the metric factory keyed by
+task shape.
 """
 import os
 
@@ -20,13 +20,14 @@ class COINNTrainer(NNTrainer):
 
     def _save_if_better(self, epoch, score):
         """During a local pretrain, an improved model is written into the
-        transfer directory."""
+        transfer directory as a wire checkpoint (the JAX package's format:
+        the file crosses to every site)."""
         if performance_improved_(epoch, score, self.cache):
             out = os.path.join(
                 self.state.get("transferDirectory", "."),
                 self.cache.get("best_nn_state", config.weights_file),
             )
-            self.save_checkpoint(full_path=out)
+            self.save_wire_checkpoint(out)
             self.cache["weights_file"] = os.path.basename(out)
             return True
         return False

@@ -284,8 +284,9 @@ def extract_grads(models, precision_bits=None):
 
 
 def grads_like(models, flat_arrays, device=None):
-    """Unflatten a wire list back to ``{model: {param name: tensor}}`` in
-    torch layout on ``device`` (default: each model's own)."""
+    """Unflatten a wire list (numpy arrays or torch tensors, flax layout)
+    back to ``{model: {param name: tensor}}`` in torch layout on ``device``
+    (default: each model's own)."""
     leaves = wire_leaves(models)
     if len(leaves) != len(flat_arrays):
         raise ValueError(
@@ -294,8 +295,9 @@ def grads_like(models, flat_arrays, device=None):
     out = {name: {} for name in models}
     for (name, tname), a in zip(leaves, flat_arrays):
         p = models[name].get_parameter(tname)
-        # np.array copies: wire arrays are read-only views of the payload
-        t = torch.from_numpy(np.array(a)).to(device=device or p.device,
-                                             dtype=p.dtype)
+        if not isinstance(a, torch.Tensor):
+            # np.array copies: wire arrays are read-only views of the payload
+            a = torch.from_numpy(np.array(a))
+        t = a.to(device=device or p.device, dtype=p.dtype)
         out[name][tname] = from_flax(models[name], tname, t)
     return out

@@ -1,7 +1,8 @@
 """The port stands alone: importing ``coinstac_dinunet_tpu_torch`` and
-every module under it pulls in neither JAX (nor flax/optax) nor any module
-of the JAX package, and its entry points default to the card — without
-one they raise unless given ``device="cpu"``."""
+every module under it pulls in neither JAX (nor flax/optax) nor msgpack
+(which the card's machine does not have) nor any module of the JAX
+package, and its entry points default to the card — without one they
+raise unless given ``device="cpu"``."""
 import os
 import pkgutil
 import subprocess
@@ -26,7 +27,7 @@ def test_port_imports_no_jax_and_no_jax_package():
         for name in names:
             importlib.import_module(name)
         bad = sorted(m for m in sys.modules
-                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax")
+                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "msgpack")
                      or m == "coinstac_dinunet_tpu" or m.startswith("coinstac_dinunet_tpu."))
         assert len(names) >= 20, names
         print("BAD", bad)
@@ -40,10 +41,11 @@ def test_port_imports_no_jax_and_no_jax_package():
 
 def test_every_port_module_has_a_reference_module():
     """The port mirrors the JAX package's tree file for file where it
-    ports a module (its own additions: interop, csrc build helper)."""
+    ports a module (its own additions: interop, the csrc build helper and
+    the msgpack codec that stands in for flax's)."""
     names = [m.name.split(".", 1)[1] for m in
              pkgutil.walk_packages(port.__path__, port.__name__ + ".")]
-    own = {"interop", "ops._cuda"}
+    own = {"interop", "ops._cuda", "utils.flax_msgpack"}
     for name in names:
         if name in own:
             continue
@@ -70,9 +72,23 @@ def test_entry_points_need_a_card_unless_given_cpu(tmp_path, monkeypatch):
 
 
 def test_unported_options_are_refused(tmp_path):
-    for args in ({"agg_engine": "powerSGD"}, {"site_quorum": 1}, {"async_staleness": 1},
+    for args in ({"run_ahead": 1}, {"site_quorum": 1}, {"async_staleness": 1},
                  {"reduce_fanin": 2}):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             COINNLocal(cache={}, device="cpu", **args)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         port.metrics.new_metrics(num_classes=3)
+
+
+def test_every_aggregation_engine_is_carried():
+    """dSGD, PowerSGD and rankDAD each pick their own learner and reducer."""
+    from coinstac_dinunet_tpu_torch import parallel
+
+    want = {"dSGD": (parallel.COINNLearner, parallel.COINNReducer),
+            "powerSGD": (parallel.PowerSGDLearner, parallel.PowerSGDReducer),
+            "rankDAD": (parallel.DADLearner, parallel.DADReducer)}
+    for engine, (learner, reducer) in want.items():
+        local = COINNLocal(cache={}, device="cpu", agg_engine=engine)
+        remote = COINNRemote(cache={"agg_engine": engine}, device="cpu")
+        assert local._get_learner_cls() is learner
+        assert remote._get_reducer_cls() is reducer
