@@ -49,7 +49,19 @@ Phases, in order; any failure exits non-zero before the last line:
    gradient round and K1 once per payload per node (factors 4 segments,
    rest 23), one round's payloads bit-equal to K1's plain version on the
    same leaves; SUCCESS with finite outputs; wire bytes per round and a
-   profiled steady round.
+   profiled steady round;
+9. main path 5 — path 2's configuration through ``SubprocessEngine`` and
+   the port's ``seq_classification`` entry scripts with
+   ``persist_round_state`` and ``--device cuda``: every site and aggregator
+   invocation a fresh ``python`` process (a wrapper written to a temporary
+   directory runs the entry module's ``compute`` and appends the process's
+   kernel launch counts and clock readings to a JSON-lines file).  SUCCESS
+   in path 2's number of rounds; ``train_log``, ``validation_log``,
+   ``test_metrics`` and every site's final parameters (from its round
+   file) equal path 2's bit for bit; K2, K3 and K4 launched in every
+   gradient-round site invocation, once per block at least; the round file
+   at every site; the cost of an invocation split into the start-up before
+   the node's entry, the node's compute, and the total.
 
 Then one JSON line ``{"kernels": [...]}``, the ``nvidia-smi`` name/power
 line, and the last line ``{"ok": true, "device": {...}}``.  Per-shape
@@ -97,6 +109,8 @@ SEQ_ARGS = dict(
     split_ratio=[0.75, 0.125, 0.125], compute_dtype="bfloat16",
 )
 SEQ_FILES = 48
+SEQ_TASK = "seq_classification"  # the example whose entry scripts path 5 runs
+SEQ_LOGS = ("train_log", "validation_log", "test_metrics")
 SEQ_PROFILED_ROUND = 3  # the second gradient round, a steady one
 # path 3: the pretrainer holds the most training data
 PRETRAIN_EXTRA_FILES = 8
@@ -794,12 +808,9 @@ def run_seq_path(dev, workdir):
     fa = importlib.import_module("coinstac_dinunet_tpu_torch.ops.flash_attention")
     eng = InProcessEngine(
         workdir, n_sites=N_SITES, trainer_cls=SeqTrainer, dataset_cls=SyntheticSeqDataset,
-        device=dev, data_dir="data", seed=7, patience=100, **SEQ_ARGS,
+        device=dev, task_id=SEQ_TASK, **seq_node_args(),
     )
-    for s in eng.site_ids:
-        d = eng.site_data_dir(s)
-        for i in range(SEQ_FILES):
-            open(os.path.join(d, f"{s}_subj_{i:03d}"), "w").close()
+    make_seq_files(eng)
 
     names = list(FLASH_SOURCES)
     for kern in fa.KERNELS:
@@ -838,7 +849,7 @@ def run_seq_path(dev, workdir):
     metrics = check_outputs(eng, workdir)
     train = 0
     for s in eng.site_ids:
-        with open(os.path.join(workdir, s, "out", "task", "splits", "SPLIT.json")) as f:
+        with open(os.path.join(workdir, s, "out", SEQ_TASK, "splits", "SPLIT.json")) as f:
             train += len(_json.load(f)["train"])
     grads_bytes = [os.path.getsize(os.path.join(workdir, "remote_base", s, "grads.npy"))
                    for s in eng.site_ids]
@@ -849,7 +860,24 @@ def run_seq_path(dev, workdir):
         "launches_per_round": per_round, "train_samples": train * SEQ_ARGS["epochs"],
         "wall_s": wall, "samples_per_s": train * SEQ_ARGS["epochs"] / wall, "round_s": round_s,
         "profiled_rounds": profiles, "global_test_metrics": metrics,
+        "logs": {k: eng.remote_cache[k] for k in SEQ_LOGS},
+        # for path 5, which holds its sites to these bit for bit (not written out)
+        "final_params": {s: {k: v.detach().cpu().clone() for k, v in
+                             eng.site_caches[s]["_train_state"].nn["seq_net"].state_dict().items()}
+                         for s in eng.site_ids},
     }
+
+
+def seq_node_args():
+    """The node arguments of the sequence paths 2 and 5."""
+    return dict(data_dir="data", seed=7, patience=100, **SEQ_ARGS)
+
+
+def make_seq_files(eng):
+    for s in eng.site_ids:
+        d = eng.site_data_dir(s)
+        for i in range(SEQ_FILES):
+            open(os.path.join(d, f"{s}_subj_{i:03d}"), "w").close()
 
 
 def check_outputs(eng, workdir):
@@ -862,7 +890,12 @@ def check_outputs(eng, workdir):
             for pname, p in m.named_parameters():
                 if not p.is_cuda or not torch.isfinite(p).all():
                     raise AssertionError(f"{s} {name}.{pname} is not finite on the card")
-    csv = os.path.join(workdir, "remote_out", "task", "global_test_metrics.csv")
+    return check_metrics_csv(workdir, eng.remote_cache.get("task_id", "task"))
+
+
+def check_metrics_csv(workdir, task):
+    """The global test metrics of ``task`` finite; returns them."""
+    csv = os.path.join(workdir, "remote_out", task, "global_test_metrics.csv")
     with open(csv) as f:
         header, row = f.read().strip().splitlines()[:2]
     values = [float(v) for v in row.split(",")]
@@ -1147,6 +1180,182 @@ def run_rankdad_path(dev, workdir):
     }
 
 
+# path 5's node process: the entry module's compute, then this process's
+# kernel launch counts and clock readings appended to a JSON-lines file.
+# It sets the TF32 switches as phase 1 does in this process, so that the
+# two runs path 5 compares use the same ones.
+FRESH_WRAPPER = """\
+import time
+T_START = time.time()
+import importlib, importlib.util, json, sys
+ROOT, ENTRY, RECORDS, ROLE = {root!r}, {entry!r}, {records!r}, {role!r}
+sys.path.insert(0, ROOT)
+device = sys.argv[sys.argv.index("--device") + 1]
+import torch
+t_torch = time.time()
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.zeros(1, device=device)
+torch.cuda.synchronize()
+t_context = time.time()
+import coinstac_dinunet_tpu_torch
+t_port = time.time()
+fa = importlib.import_module("coinstac_dinunet_tpu_torch.ops.flash_attention")
+if ROLE == "site":
+    for kern in fa.KERNELS:
+        kern._load()  # dlopen of the library phase 2 built: no launch
+t_kernels = time.time()
+spec = importlib.util.spec_from_file_location("entry", ENTRY)
+mod = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(mod)
+payload = json.loads(sys.stdin.read())
+dynamo_before = "torch._dynamo" in sys.modules
+t_entry = time.time()
+result = mod.compute(payload, device=device)
+torch.cuda.synchronize()
+t_exit = time.time()
+phase_in = (payload["input"] if ROLE == "site" else
+            next(iter(payload["input"].values()), {{}})).get("phase", "init_runs")
+record = dict(role=ROLE, site=payload["state"].get("clientId", "remote"), phase=phase_in,
+              reduce=bool(result["output"].get("reduce")),
+              launches=[k.launches for k in fa.KERNELS],
+              dynamo_import_in_compute="torch._dynamo" in sys.modules and not dynamo_before,
+              t=dict(start=T_START, torch=t_torch, context=t_context, port=t_port,
+                     kernels=t_kernels, entry=t_entry, exit=t_exit))
+with open(RECORDS, "a") as f:
+    f.write(json.dumps(record) + "\\n")
+print(json.dumps(result))
+"""
+
+
+def run_fresh_process_path(dev, workdir, seq_path):
+    """Path 2's sequence federation with every node invocation a fresh
+    process (``SubprocessEngine``, the port's ``seq_classification`` entry
+    scripts, ``persist_round_state``): SUCCESS, path 2's results bit for
+    bit, K2–K4 in every gradient-round site invocation, and the cost of an
+    invocation split into start-up and compute."""
+    import torch
+
+    from coinstac_dinunet_tpu_torch.engine import SubprocessEngine
+
+    class TimedEngine(SubprocessEngine):
+        """Records the parent's clock around each child process."""
+
+        def _invoke(self, script, payload):
+            t0 = time.time()
+            res = super()._invoke(script, payload)
+            spans.append((t0, time.time()))
+            return res
+
+    entry_dir = os.path.join(HERE, "coinstac_dinunet_tpu_torch", "examples", SEQ_TASK)
+    records = os.path.join(workdir, "invocations.jsonl")
+    scripts, spans = {}, []
+    for role, entry in (("site", "local.py"), ("remote", "remote.py")):
+        scripts[role] = os.path.join(workdir, f"fresh_{role}.py")
+        with open(scripts[role], "w") as f:
+            f.write(FRESH_WRAPPER.format(root=HERE, entry=os.path.join(entry_dir, entry),
+                                         records=records, role=role))
+    fed = os.path.join(workdir, "fed")
+    eng = TimedEngine(
+        fed, n_sites=N_SITES, local_script=scripts["site"], remote_script=scripts["remote"],
+        device=dev.type, timeout=600,
+        first_input={f"{SEQ_TASK}_args": {**seq_node_args(), "persist_round_state": True}},
+    )
+    make_seq_files(eng)
+    round_s = []
+    t0 = time.perf_counter()
+    while not eng.success and eng.rounds < 40:
+        tr = time.perf_counter()
+        eng.step_round()
+        round_s.append(time.perf_counter() - tr)
+    wall = time.perf_counter() - t0
+    if not eng.success:
+        raise AssertionError(f"no SUCCESS after {eng.rounds} rounds")
+    with open(records) as f:
+        recs = [json.loads(line) for line in f]
+    if len(recs) != len(spans) or len(recs) != eng.rounds * (N_SITES + 1):
+        raise AssertionError(f"{len(recs)} records for {len(spans)} invocations "
+                             f"in {eng.rounds} rounds")
+
+    # the results against path 2's, bit for bit; every difference gathered
+    # before the verdict
+    faults = []
+    if eng.rounds != seq_path["rounds"]:
+        faults.append(f"{eng.rounds} rounds against path 2's {seq_path['rounds']}")
+    for key in SEQ_LOGS:
+        if eng.remote_cache[key] != seq_path["logs"][key]:
+            faults.append(f"{key}: {eng.remote_cache[key]} against {seq_path['logs'][key]}")
+    round_files, param_gaps = {}, {}
+    for s in eng.site_ids:
+        path = os.path.join(eng.site_states[s]["outputDirectory"], ".round_state.ckpt")
+        round_files[s] = os.path.getsize(path)
+        got = torch.load(path, map_location="cpu", weights_only=True)["models"]["seq_net"]
+        want = seq_path["final_params"][s]
+        if sorted(got) != sorted(want):
+            raise AssertionError(f"{s}: the round file holds {sorted(got)}")
+        if not all(torch.isfinite(v).all() for v in got.values()):
+            faults.append(f"{s}: a parameter in its round file is not finite")
+        param_gaps[s] = max(float((got[k].double() - want[k].double()).abs().max())
+                            for k in want)
+        differ = sorted(k for k in want if not torch.equal(got[k], want[k]))
+        if differ:
+            faults.append(f"{s}: {len(differ)} of {len(want)} parameters differ from path 2's "
+                          f"(max |d| {param_gaps[s]:.3e}): {differ[:6]}")
+
+    # K2-K4 in every gradient-round site invocation, once per block at least
+    need = SEQ_ARGS["num_layers"]
+    names = list(FLASH_SOURCES)
+    launches = dict.fromkeys(names, 0)
+    for rec in recs:
+        for name, n in zip(names, rec["launches"]):
+            launches[name] += n
+        if rec["role"] == "site" and rec["reduce"] and min(rec["launches"]) < need:
+            faults.append(f"{rec['site']} ({rec['phase']}): K2/K3/K4 launched "
+                          f"{rec['launches']} times, expected >= {need} each")
+    if not any(r["reduce"] for r in recs) or min(launches.values()) == 0:
+        faults.append("no gradient round ran through K2-K4")
+    if faults:
+        raise AssertionError("path 5 against path 2:\n  " + "\n  ".join(faults))
+
+    # the cost of one invocation: start-up (process start to the node's
+    # entry), the node's compute, and the total on the engine's clock
+    per_inv = []
+    for rec, (t_spawn, t_done) in zip(recs, spans):
+        t = rec["t"]
+        per_inv.append(dict(
+            role=rec["role"], site=rec["site"], phase=rec["phase"], reduce=rec["reduce"],
+            dynamo_import_in_compute=rec["dynamo_import_in_compute"],
+            startup_s=t["entry"] - t_spawn, compute_s=t["exit"] - t["entry"],
+            total_s=t_done - t_spawn, interpreter_s=t["start"] - t_spawn,
+            torch_import_s=t["torch"] - t["start"], cuda_context_s=t["context"] - t["torch"],
+            port_import_s=t["port"] - t["context"], kernel_load_s=t["kernels"] - t["port"],
+            entry_s=t["entry"] - t["kernels"], exit_s=t_done - t["exit"]))
+    dynamo = subprocess.run(
+        [sys.executable, "-c", "import time, torch; t = time.time(); import torch._dynamo; "
+                               "print(time.time() - t)"],
+        capture_output=True, text=True, check=True, timeout=300)
+    return {
+        "rounds": eng.rounds, "invocations": len(recs), "launches": launches,
+        "wall_s": wall, "round_s": round_s, "round_file_bytes": round_files,
+        "param_max_abs_diff": param_gaps, "per_invocation": per_inv,
+        "split": summarize_invocations(per_inv),
+        "torch_dynamo_import_s": float(dynamo.stdout.strip()),
+        "global_test_metrics": check_metrics_csv(fed, SEQ_TASK),
+    }
+
+
+def summarize_invocations(per_inv):
+    """Sums and means of the per-invocation split, by role."""
+    keys = ("startup_s", "compute_s", "total_s", "interpreter_s", "torch_import_s",
+            "cuda_context_s", "port_import_s", "kernel_load_s", "entry_s", "exit_s")
+    out = {}
+    for role in ("site", "remote", "all"):
+        rows = [r for r in per_inv if role in ("all", r["role"])]
+        out[role] = {"n": len(rows), **{f"sum_{k}": sum(r[k] for r in rows) for k in keys},
+                     **{f"mean_{k}": sum(r[k] for r in rows) / len(rows) for k in keys}}
+    return out
+
+
 def profiled_round(eng):
     """One engine round under ``torch.profiler``: the round's host wall
     time, the device time its kernels took, the idle share, and the
@@ -1330,15 +1539,42 @@ def main():
         f"(path 2's dSGD round, float32 wire: {seq_path['wire_bytes']['site_to_aggregator']})")
     log_profiles(dad_path["profiled_rounds"])
 
+    with tempfile.TemporaryDirectory() as wd:
+        fresh_path = run_fresh_process_path(dev, wd, seq_path)
+    seq_path.pop("final_params")
+    log(f"[9 main path 5: sequence, a fresh process per invocation] {fresh_path['rounds']} "
+        f"rounds, {fresh_path['invocations']} invocations, to SUCCESS in "
+        f"{fresh_path['wall_s']:.3f} s (path 2 in one process: {seq_path['wall_s']:.3f} s); "
+        f"train_log, validation_log, test_metrics and every site's parameters equal path 2's "
+        f"bit for bit; launches {fresh_path['launches']} | {smi}")
+    log("  round seconds: " + " ".join(f"{t:.3f}" for t in fresh_path["round_s"]))
+    log(f"  round files (bytes): {fresh_path['round_file_bytes']}")
+    for role, row in fresh_path["split"].items():
+        log(f"  {role} ({row['n']} invocations), mean s: start-up {row['mean_startup_s']:.3f} "
+            f"(interpreter {row['mean_interpreter_s']:.3f}, torch {row['mean_torch_import_s']:.3f}, "
+            f"CUDA context {row['mean_cuda_context_s']:.3f}, port {row['mean_port_import_s']:.3f}, "
+            f"kernel libraries {row['mean_kernel_load_s']:.4f}, entry {row['mean_entry_s']:.3f}), "
+            f"compute {row['mean_compute_s']:.3f}, exit {row['mean_exit_s']:.3f}, "
+            f"total {row['mean_total_s']:.3f}; sums: start-up {row['sum_startup_s']:.3f}, "
+            f"compute {row['sum_compute_s']:.3f}, total {row['sum_total_s']:.3f}")
+    log("  per invocation (role/input phase/reduce: start-up + compute = total s): " + " ".join(
+        f"{r['role'][0]}/{r['phase']}/{int(r['reduce'])}{'/dynamo' * r['dynamo_import_in_compute']}:"
+        f"{r['startup_s']:.2f}+{r['compute_s']:.2f}={r['total_s']:.2f}"
+        for r in fresh_path["per_invocation"]))
+    log(f"  torch._dynamo import in a fresh process (torch.optim's first optimizer pulls it "
+        f"in): {fresh_path['torch_dynamo_import_s']:.3f} s")
+
     k1["launches_by_path"] = {"vbm_dsgd": main_path["launches"],
                               "vbm_pretrain_powersgd": psgd_path["launches"],
                               "seq_rankdad": dad_path["k1_launches"]}
     for kern in k234:
         kern["launches_by_path"] = {"seq_dsgd": seq_path["launches"][kern["name"]],
-                                    "seq_rankdad": dad_path["launches"][kern["name"]]}
+                                    "seq_rankdad": dad_path["launches"][kern["name"]],
+                                    "seq_fresh_process": fresh_path["launches"][kern["name"]]}
     kernels = [k1, *k234]
     report.update(main_path=main_path, seq_path=seq_path, powersgd_path=psgd_path,
-                  rankdad_path=dad_path, device=kind, power=smi, kernels=kernels)
+                  rankdad_path=dad_path, fresh_process_path=fresh_path, device=kind,
+                  power=smi, kernels=kernels)
     out_dir = os.path.join(HERE, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:

@@ -1,11 +1,15 @@
-"""In-process federation engine (simulator) + single-site runner.
+"""Federation engines (in-process simulator, fresh process per invocation)
++ single-site runner.
 
 Port of the JAX package's ``engine.py`` for the lockstep path:
 :class:`InProcessEngine` runs N site nodes and one aggregator in one
 process, relaying each node's output JSON and transfer files the way an
-external COINSTAC engine would; :class:`SiteRunner` drives one site through
-a local pretrain with no aggregator.  Both take a ``device`` (``cuda``
-unless the caller asks for the CPU) and hand it to every node and trainer.
+external COINSTAC engine would; :class:`SubprocessEngine` runs every node
+invocation as its own ``python <script>`` process, as the COINSTAC engine
+does; :class:`SiteRunner` drives one site through a local pretrain with no
+aggregator.  Each takes a ``device`` (``cuda`` unless the caller asks for
+the CPU) and hands it to every node and trainer (to a child process as
+``--device``).
 
 Directory layout per site ``i`` under ``workdir`` (as in the JAX package)::
 
@@ -16,11 +20,13 @@ Directory layout per site ``i`` under ``workdir`` (as in the JAX package)::
 
 Not ported yet (``ROADMAP.md`` Queue 1: the other engines and their
 options): chaos fault plans, invocation retries, quorum, async rounds and
-run-ahead, elastic membership, telemetry, the subprocess/daemon/mesh/
-site-vectorized engines.
+run-ahead, elastic membership, telemetry, the daemon/mesh/site-vectorized
+engines.
 """
 import json
 import os
+import subprocess
+import sys
 
 from . import config
 from .config.keys import Phase
@@ -28,7 +34,13 @@ from .data import COINNDataHandle
 from .nodes import COINNLocal, COINNRemote
 from .resilience import transport as wire_transport
 from .trainer import COINNTrainer
-from .utils import logger
+from .utils import clean_recursive, logger
+
+
+class InvokeTimeout(RuntimeError):
+    """A fresh-process node invocation exceeded the engine's ``timeout``;
+    the message carries the partial stderr the process wrote before it was
+    killed."""
 
 
 def load_inputspec(path, site_index=None):
@@ -142,24 +154,29 @@ class InProcessEngine:
                     os.path.join(self.site_states[s]["baseDirectory"], f),
                 )
 
-    def step_round(self):
-        """One full round: every site computes, the aggregator computes on
-        the sites' outputs and files, its output and files relay back.
-        Returns ``(site outputs, aggregator output)``."""
-        site_outs = {}
-        for s in self.site_ids:
-            node = COINNLocal(
-                cache=self.site_caches[s], input=self.site_inputs[s],
-                state=self.site_states[s], device=self.device,
-                **{**self.site_spec.get(s, {}), **self.args,
-                   **self.site_args.get(s, {})},
-            )
-            site_outs[s] = node(
-                trainer_cls=self.trainer_cls,
-                dataset_cls=self.dataset_cls,
-                datahandle_cls=self.datahandle_cls,
-                learner_cls=self.learner_cls,
-            )["output"]
+    # What differs between engines is only how one node invocation runs:
+    # these three hooks.
+    def _site_input(self, s):
+        """The input of this round's invocation of site ``s``."""
+        return self.site_inputs[s]
+
+    def _site_attempt(self, s, inp):
+        """One invocation of site ``s``; returns its output."""
+        node = COINNLocal(
+            cache=self.site_caches[s], input=inp, state=self.site_states[s],
+            device=self.device,
+            **{**self.site_spec.get(s, {}), **self.args, **self.site_args.get(s, {})},
+        )
+        return node(
+            trainer_cls=self.trainer_cls,
+            dataset_cls=self.dataset_cls,
+            datahandle_cls=self.datahandle_cls,
+            learner_cls=self.learner_cls,
+        )["output"]
+
+    def _remote_attempt(self, site_outs):
+        """One invocation of the aggregator; returns its output and records
+        ``success``."""
         remote = COINNRemote(
             cache=self.remote_cache, input=site_outs, state=self.remote_state,
             device=self.device,
@@ -167,7 +184,14 @@ class InProcessEngine:
         result = remote(trainer_cls=self.remote_trainer_cls,
                         reducer_cls=self.reducer_cls)
         self.success = bool(result.get("success"))
-        remote_out = result["output"]
+        return result["output"]
+
+    def step_round(self):
+        """One full round: every site computes, the aggregator computes on
+        the sites' outputs and files, its output and files relay back.
+        Returns ``(site outputs, aggregator output)``."""
+        site_outs = {s: self._site_attempt(s, self._site_input(s)) for s in self.site_ids}
+        remote_out = self._remote_attempt(site_outs)
         self.last_remote_out = remote_out
         self._relay_broadcast()
         self.site_inputs = {s: dict(remote_out) for s in self.site_ids}
@@ -185,6 +209,95 @@ class InProcessEngine:
                     True,
                 )
         return self
+
+
+class SubprocessEngine(InProcessEngine):
+    """The fresh-process engine: every node invocation is ``python <script>
+    --device <cpu|cuda>`` with ``{"cache", "input", "state"}`` on stdin,
+    and the last JSON line of its stdout, ``{"output", "cache"}``, is the
+    result (the contract of the example entry scripts).  The engine keeps
+    each node's JSON cache between invocations, as the COINSTAC engine
+    does; the live train state survives through
+    ``cache['persist_round_state']`` (``nodes/local.py``).
+
+    ``first_input`` (one dict for every site, or a dict per site id) is
+    merged into each site's first input, where the node's arguments
+    resolve once.  ``env`` is the children's environment (default this
+    process's); ``timeout`` bounds each invocation in seconds."""
+
+    def __init__(self, workdir, n_sites, local_script, remote_script,
+                 first_input=None, env=None, timeout=600, device=None, **kw):
+        super().__init__(workdir, n_sites, device=device, **kw)
+        # the in-process argument channels never reach a child process: a
+        # silently different configuration is worse than an error
+        if self.args or self.site_args or self.site_spec:
+            raise ValueError(
+                "SubprocessEngine nodes run in their own processes: engine "
+                "**args / site_args / inputspec are not shipped to them; "
+                "pass node args via first_input (merged into the first "
+                "invocation's input)"
+            )
+        self.local_script = str(local_script)
+        self.remote_script = str(remote_script)
+        self.env = env
+        self.timeout = timeout
+        first_input = first_input or {}
+        if not any(s in first_input for s in self.site_ids):
+            first_input = {s: dict(first_input) for s in self.site_ids}
+        self.first_input = first_input
+        self._first_done = set()
+
+    def _invoke(self, script, payload):
+        """Run ``script`` once on ``payload``; returns its result dict."""
+        try:
+            res = subprocess.run(
+                [sys.executable, script, "--device", self.device.type],
+                input=json.dumps(clean_recursive(payload)),
+                capture_output=True, text=True, env=self.env, timeout=self.timeout,
+            )
+        except subprocess.TimeoutExpired as exc:
+            stderr = exc.stderr or ""
+            if isinstance(stderr, bytes):
+                stderr = stderr.decode("utf-8", "replace")
+            raise InvokeTimeout(
+                f"{script} timed out after {self.timeout}s\n"
+                f"--- partial stderr ---\n{stderr[-4000:]}"
+            ) from exc
+        if res.returncode != 0:
+            raise RuntimeError(
+                f"{script} exited rc={res.returncode}\n--- stderr ---\n{res.stderr[-4000:]}"
+            )
+        # the node may print log lines: the LAST JSON line is the result
+        for line in reversed(res.stdout.strip().splitlines()):
+            line = line.strip()
+            if line.startswith("{"):
+                try:
+                    return json.loads(line)
+                except ValueError:
+                    continue
+        raise RuntimeError(f"{script} produced no JSON result\n--- stdout ---\n{res.stdout[-2000:]}")
+
+    def _site_input(self, s):
+        inp = dict(self.site_inputs[s])
+        if s not in self._first_done:
+            inp.update(self.first_input.get(s, {}))
+            self._first_done.add(s)
+        return inp
+
+    def _site_attempt(self, s, inp):
+        res = self._invoke(self.local_script, {
+            "cache": self.site_caches[s], "input": inp, "state": self.site_states[s],
+        })
+        self.site_caches[s] = res.get("cache", {})
+        return res["output"]
+
+    def _remote_attempt(self, site_outs):
+        res = self._invoke(self.remote_script, {
+            "cache": self.remote_cache, "input": site_outs, "state": self.remote_state,
+        })
+        self.remote_cache = res.get("cache", {})
+        self.success = bool(res.get("success"))
+        return res["output"]
 
 
 class SiteRunner:

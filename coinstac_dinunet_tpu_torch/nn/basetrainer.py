@@ -139,11 +139,17 @@ class NNTrainer:
         return int(self.cache.get("seed", config.current_seed))
 
     def init_nn(self, init_models=True, init_weights=True, init_optimizer=True):
+        """Build the models (``init_models``), give them their seeded
+        weights (``init_weights``; without it they go to the device as
+        built, for a checkpoint to fill) and the optimizers and train state
+        (``init_optimizer``)."""
         if init_models:
             self.nn = {}
             self._init_nn_model()
         if init_weights:
             self._init_nn_weights()
+        else:
+            self.nn = {name: m.to(self.device) for name, m in self.nn.items()}
         if init_optimizer:
             self._init_optimizer()
             self._init_train_state()

@@ -11,12 +11,20 @@ learner (dSGD, PowerSGD or rankDAD).  With ``pretrain_args.epochs > 0`` the
 designated site trains locally first, and in PRE_COMPUTATION every site
 loads the weights the aggregator broadcast.  The live train state (models,
 optimizers, generator) persists in ``cache['_train_state']`` between
-invocations of a persistent process.
+invocations of a persistent process.  An engine that runs every invocation
+in a fresh process keeps only the JSON cache: with
+``cache['persist_round_state']`` the live state (and the aggregation
+engine's, and the epoch's score accumulators) goes to a round file in the
+site's output directory after every invocation and comes back from it in
+the next; without it a mid-run invocation that finds no live state raises.
+Every validation barrier writes a full resume point (``autosave_epochs``,
+default every epoch), from which ``cache['resume']`` rebuilds a site that
+lost its cache.
 
 Not ported yet, and refused with the ROADMAP item named: quorum, async
-rounds and run-ahead, the tree fan-in, quarantine, elastic membership,
-fresh-process round state and resume.
+rounds and run-ahead, the tree fan-in, quarantine, elastic membership.
 """
+import json
 import os
 import shutil
 import time
@@ -25,7 +33,8 @@ import traceback
 from .. import config, utils
 from ..config.keys import AggEngine, Key, LocalWire, Mode, Phase, RemoteWire
 from ..data import COINNDataHandle
-from ..parallel import COINNLearner, DADLearner, PowerSGDLearner
+from ..parallel import COINNLearner, DADLearner, PowerSGDLearner, powersgd, rankdad
+from ..utils import logger
 
 # engine/epoch state cleared on every fold transition
 _EPHEMERAL_KEYS = (
@@ -38,7 +47,6 @@ _EPHEMERAL_KEYS = (
 _UNPORTED_ARGS = (
     "site_quorum", "quarantine_on_anomaly", "reduce_fanin", "async_staleness",
     "async_invoke_pool", "async_stale_discount", "run_ahead",
-    "persist_round_state", "resume",
 )
 
 
@@ -195,6 +203,66 @@ class COINNLocal:
             out[LocalWire.PHASE.value] = Phase.PRE_COMPUTATION.value
         return out
 
+    # ------------------------------------------ fresh-process round state
+    def _round_state_path(self):
+        return os.path.join(self.state.get("outputDirectory", "."), ".round_state.ckpt")
+
+    def _engine_state(self, full):
+        """The aggregation engine's carried state for a checkpoint's
+        ``extra``: PowerSGD's (with its mid-protocol fields when ``full``)
+        and rankDAD's (its start-block generator and plan)."""
+        extra = {}
+        psgd = self.cache.get(powersgd._STATE_KEY)
+        if psgd is not None:
+            extra["powersgd"] = psgd.serialize(full=full)
+        dad = self.cache.get(rankdad._STATE_KEY)
+        if dad is not None:
+            extra["rankdad"] = dad.serialize()
+        return extra
+
+    def _restore_engine_state(self, extra):
+        if "powersgd" in extra:
+            self.cache[powersgd._STATE_KEY] = powersgd._PowerSGDState.deserialize(
+                extra["powersgd"], device=self.device)
+        if "rankdad" in extra:
+            self.cache[rankdad._STATE_KEY] = rankdad._DADState.deserialize(
+                extra["rankdad"], self.cache.get("seed", 0))
+
+    def _persist_round_state(self, trainer):
+        """With ``persist_round_state``: the live state to the round file."""
+        if not self.cache.get("persist_round_state") or trainer.train_state is None:
+            return
+        extra = self._engine_state(full=True)
+        # the epoch's train-score accumulators span many rounds (popped at
+        # the epoch barrier): raw counts, exact across processes
+        for key in ("_ep_averages", "_ep_metrics"):
+            if self.cache.get(key) is not None:
+                extra[key[1:]] = self.cache[key].serialize()
+        trainer.save_checkpoint(full_path=self._round_state_path(), extra=extra)
+
+    def _restore_round_state(self, trainer):
+        """Rebuild the live state from the previous invocation's round
+        file; True on success."""
+        path = self._round_state_path()
+        if not (self.cache.get("persist_round_state") and os.path.exists(path)):
+            return False
+        try:
+            trainer.init_nn(init_weights=False)  # the round file fills them
+            trainer.load_checkpoint(full_path=path)
+        except Exception as exc:  # noqa: BLE001 — a damaged file, of any kind
+            logger.warn(f"Unreadable round state {path} ({exc})")
+            return False
+        extra = trainer.last_checkpoint_extra
+        self._restore_engine_state(extra)
+        if "ep_averages" in extra:
+            self.cache["_ep_averages"] = type(trainer.new_averages()).deserialize(
+                extra["ep_averages"])
+        if "ep_metrics" in extra:
+            self.cache["_ep_metrics"] = type(trainer.new_metrics()).deserialize(
+                extra["ep_metrics"])
+        self.cache["_train_state"] = trainer.train_state
+        return True
+
     def _midrun_state_lost(self):
         """True when this invocation is mid-run but the live state is gone."""
         return (
@@ -202,6 +270,50 @@ class COINNLocal:
             or int(self.cache.get("cursor", 0) or 0) > 0
             or bool(self.cache.get(Key.TRAIN_SERIALIZABLE.value))
         )
+
+    # ------------------------------------------------------- mid-run resume
+    def _resume_pointer(self):
+        return os.path.join(self.state.get("outputDirectory", "."), ".resume.json")
+
+    def _barrier_autosave(self, trainer):
+        """A full resume point at the epoch barrier, every
+        ``autosave_epochs`` epochs (0: never): the latest checkpoint
+        (models, optimizers, step, generator), the JSON cache and the
+        engine's carried state, then a pointer to it."""
+        every = int(self.cache.get("autosave_epochs", 1) or 0)
+        if every <= 0 or int(self.cache.get("epoch", 0)) % every != 0:
+            return
+        snapshot = {k: v for k, v in dict(self.cache).items()
+                    if not str(k).startswith("_") and k != "resume"}
+        extra = {"site_cache": utils.clean_recursive(snapshot), **self._engine_state(full=False)}
+        path = trainer.save_checkpoint(name=self.cache["latest_nn_state"], extra=extra)
+        utils.atomic_write(self._resume_pointer(), json.dumps({"checkpoint": path}))
+
+    def _try_resume(self, trainer):
+        """A fresh-cache COMPUTATION invocation with ``resume`` set: rebuild
+        the site from the last epoch-barrier autosave; True on success."""
+        ptr = self._resume_pointer()
+        try:
+            with open(ptr) as f:
+                ckpt = json.load(f)["checkpoint"]
+            if not os.path.exists(ckpt):
+                return False
+            trainer.init_nn()
+            trainer.load_checkpoint(full_path=ckpt)
+        except FileNotFoundError:
+            return False
+        except Exception as exc:  # noqa: BLE001 — a damaged file, of any kind
+            logger.warn(f"Unreadable resume point {ptr} ({exc}); starting fresh")
+            return False
+        extra = trainer.last_checkpoint_extra
+        snapshot = dict(extra.get("site_cache", {}))
+        snapshot.pop("resume", None)
+        self.cache.update(snapshot)
+        self._restore_engine_state(extra)
+        self.cache["_train_state"] = trainer.train_state
+        logger.info(f"Resumed site from {ckpt} (epoch {self.cache.get('epoch')})",
+                    self.cache.get("verbose", True))
+        return True
 
     def _get_learner_cls(self, learner_cls=None):
         """The built-in learner of ``agg_engine``; another engine name takes
@@ -263,12 +375,20 @@ class COINNLocal:
         if self.out[LocalWire.PHASE.value] == Phase.COMPUTATION.value and trainer.train_state is None:
             if "_train_state" in self.cache:
                 trainer.train_state = self.cache["_train_state"]
+            elif self._restore_round_state(trainer):
+                pass  # a fresh process: rebuilt from the round file
+            elif self.cache.get("resume") and self._try_resume(trainer):
+                pass  # rebuilt from the epoch-barrier autosave
             elif self._midrun_state_lost():
                 raise RuntimeError(
                     "mid-run invocation (epoch="
                     f"{self.cache.get('epoch')}, cursor="
                     f"{self.cache.get('cursor')}) but the live train state "
-                    "is gone; run the node in a persistent process"
+                    "is gone: the engine runs each invocation in a fresh "
+                    "process.  Set cache['persist_round_state']=true (the "
+                    "state on disk after every invocation) or run the node in "
+                    "a persistent process; cache['resume']=true recovers "
+                    "from the last epoch-barrier autosave only."
                 )
             else:
                 trainer.init_nn()
@@ -301,6 +421,7 @@ class COINNLocal:
                 self.out.update(**trainer.validation_distributed())
                 self.out.update(**learner.train_serializable())
                 self.out[LocalWire.MODE.value] = Mode.TRAIN_WAITING.value
+                self._barrier_autosave(trainer)
 
             if global_modes and all(
                 m == Mode.TEST.value for m in global_modes.values()
@@ -325,6 +446,7 @@ class COINNLocal:
 
         if trainer.train_state is not None:
             self.cache["_train_state"] = trainer.train_state
+        self._persist_round_state(trainer)
         return self.out
 
     def __call__(self, *a, **kw):

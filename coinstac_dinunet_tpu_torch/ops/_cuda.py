@@ -60,7 +60,11 @@ def all_sources():
 def build(sources):
     """Compile every source not built yet, one ``nvcc`` per source, all
     started together.  Returns ``{source: compiler output}``; raises with
-    the compiler's output when any build fails."""
+    the compiler's output when any build fails.  A library already built
+    is only loaded, as in every node process after the first; two
+    processes that build one source at once each write their own temporary
+    file and ``os.replace`` it, so a reader never sees a half-written
+    library."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     procs = {}
     for source in sources:

@@ -29,9 +29,10 @@ What differs:
   the JAX package's (threefry), so a mixed JAX/port PowerSGD federation
   starts its sites from different Qs.
 - The telemetry events and the compression-health records of the JAX file
-  are left out (the port has no ``telemetry/`` package yet), and so is the
-  state's (de)serialization for fresh-process rounds and resume, which the
-  port refuses.
+  are left out (the port has no ``telemetry/`` package yet).
+- :meth:`_PowerSGDState.serialize` gives CPU float32 tensors where the JAX
+  package gives numpy arrays (the same keys and shapes): the state goes
+  into a ``torch.save`` file, which is read back with ``weights_only``.
 """
 import numpy as np
 import torch
@@ -100,6 +101,62 @@ class _PowerSGDState:
         self.shapes = None  # flax-layout shapes of the compressed leaves
         self.hi = self.lo = None  # the leaf index split
         self.weight = 1.0  # this round's participation (P-sync → Q-sync)
+
+    # Across rounds only the error feedback, the warm-started Qs and the
+    # warm-up counter carry over (the epoch-barrier autosave); ``full=True``
+    # adds the mid-protocol fields, so that a fresh process can take over
+    # between the P-sync and the Q-sync invocations of one update
+    # (``persist_round_state``).
+    def serialize(self, full=False):
+        """The state as plain values and CPU tensors (see the JAX
+        package's ``_PowerSGDState.serialize`` for the keys)."""
+        def cpu(ts, dtype=torch.float32):
+            return [t.detach().to("cpu", dtype) for t in ts]
+
+        out = {
+            "iteration": int(self.iteration),
+            "weight": float(self.weight),
+            "errors": cpu(self.errors) if self.errors is not None else [],
+            "Qs": cpu(self.Qs) if self.Qs is not None else [],
+        }
+        if full:
+            if self.Ms is not None:
+                out["Ms"] = cpu(self.Ms)
+            if self.Phats is not None:
+                out["Phats"] = cpu(self.Phats)
+            if self.rank1 is not None:
+                out["rank1"] = [r.detach().cpu() for r in self.rank1]
+            if self.shapes is not None:
+                out["shapes"] = [list(s) for s in self.shapes]
+            if self.hi is not None:
+                out["hi"] = [int(i) for i in self.hi]
+                out["lo"] = [int(i) for i in self.lo]
+        return out
+
+    @classmethod
+    def deserialize(cls, payload, device="cpu"):
+        """The inverse of :meth:`serialize`, its tensors on ``device``."""
+        def dev(ts, dtype=torch.float32):
+            return [torch.as_tensor(t).to(device, dtype) for t in tensorutils.aslist(ts)]
+
+        st = cls()
+        st.iteration = int(payload.get("iteration", 0))
+        st.weight = float(payload.get("weight", 1.0))
+        st.errors = dev(payload.get("errors")) or None
+        st.Qs = dev(payload.get("Qs")) or None
+        if payload.get("Ms") is not None:
+            st.Ms = dev(payload["Ms"])
+        if payload.get("Phats") is not None:
+            st.Phats = dev(payload["Phats"])
+        if payload.get("rank1") is not None:
+            st.rank1 = [torch.as_tensor(r).to(device)
+                        for r in tensorutils.aslist(payload["rank1"])]
+        if payload.get("shapes") is not None:
+            st.shapes = [tuple(int(d) for d in s) for s in tensorutils.aslist(payload["shapes"])]
+        if payload.get("hi") is not None:
+            st.hi = [int(i) for i in tensorutils.aslist(payload["hi"])]
+            st.lo = [int(i) for i in tensorutils.aslist(payload["lo"])]
+        return st
 
 
 class PowerSGDLearner(COINNLearner):

@@ -38,6 +38,13 @@ What differs from the JAX package:
   not from JAX PRNG keys.
 - The telemetry events and compression-health records of the JAX file are
   left out (the port has no ``telemetry/`` package yet).
+- A site's state between invocations, :meth:`_DADState.serialize`, for
+  the round file and the epoch-barrier autosave: the start-block
+  generator's state (it advances from round to round, where the JAX
+  package splits its key off the train state's PRNG key) and the capture
+  plan.  The JAX package re-derives the plan in ``to_reduce`` only, so in
+  a fresh process its ``step``, which comes first, finds none and fails;
+  the port carries it.
 """
 import functools
 
@@ -160,6 +167,25 @@ class _DADState:
         self.leaf_map = None  # layer key -> (kernel leaf ix, bias leaf ix | None)
         self.rest_ix = None  # wire leaf indices exchanged whole
         self.generator = torch.Generator().manual_seed(int(seed) + 17)  # start blocks
+
+    def serialize(self):
+        """What a fresh process needs to go on as this one would: the
+        generator's state and the plan (None before the first batch)."""
+        out = {"generator": self.generator.get_state()}
+        if self.layer_keys is not None:
+            out.update(layer_keys=list(self.layer_keys), rest_ix=list(self.rest_ix),
+                       leaf_map={k: list(v) for k, v in self.leaf_map.items()})
+        return out
+
+    @classmethod
+    def deserialize(cls, payload, seed):
+        st = cls(seed)
+        st.generator.set_state(payload["generator"])
+        if "layer_keys" in payload:
+            st.layer_keys = list(payload["layer_keys"])
+            st.rest_ix = [int(i) for i in payload["rest_ix"]]
+            st.leaf_map = {k: tuple(v) for k, v in payload["leaf_map"].items()}
+        return st
 
 
 class DADLearner(COINNLearner):

@@ -1,8 +1,9 @@
 """The port stands alone: importing ``coinstac_dinunet_tpu_torch`` and
-every module under it pulls in neither JAX (nor flax/optax) nor msgpack
-(which the card's machine does not have) nor any module of the JAX
-package, and its entry points default to the card — without one they
-raise unless given ``device="cpu"``."""
+every module under it, or its example entry scripts, pulls in neither JAX
+(nor flax/optax) nor msgpack (which the card's machine does not have) nor
+any module of the JAX package, and its entry points default to the card —
+without one they raise unless given ``device="cpu"``."""
+import glob
 import os
 import pkgutil
 import subprocess
@@ -35,6 +36,32 @@ def test_port_imports_no_jax_and_no_jax_package():
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          env=env, cwd=REPO, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "BAD []"
+
+
+def test_entry_scripts_import_no_jax(tmp_path):
+    """The example entry scripts (``examples/*/{local,remote}.py``, which
+    COINSTAC runs as ``python local.py``) load from any directory without
+    the package installed, and pull in nothing of JAX either."""
+    scripts = sorted(glob.glob(os.path.join(REPO, "coinstac_dinunet_tpu_torch", "examples",
+                                            "*", "*.py")))
+    assert len(scripts) == 6, scripts
+    code = textwrap.dedent("""
+        import importlib.util, sys
+        for i, path in enumerate(sys.argv[1:]):
+            spec = importlib.util.spec_from_file_location(f"entry{i}", path)
+            mod = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(mod)
+            assert callable(mod.compute), path
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "msgpack")
+                     or m == "coinstac_dinunet_tpu" or m.startswith("coinstac_dinunet_tpu."))
+        print("BAD", bad)
+    """)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code, *scripts], capture_output=True,
+                         text=True, env=env, cwd=tmp_path, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1] == "BAD []"
 
