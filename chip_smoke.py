@@ -91,7 +91,26 @@ Phases, in order; any failure exits non-zero before the last line:
    the card; each round's wall time with its events, and for the steady
    rounds the sites' summed compute over the round's wall time (the card's
    concurrency over the workers' contexts); the compute processes
-   ``nvidia-smi`` lists while the workers are up.
+   ``nvidia-smi`` lists while the workers are up;
+12. main path 8 — the site-vectorized federation (``SiteVectorizedEngine``:
+   every site's step as one forward and one backward over the sites'
+   batches folded into one).  12a: path 2's configuration through it, its
+   train, validation, test and global test logs within 2e-3 of path 2's
+   (the JAX package's tolerance between its vectorized and file
+   transports; if bfloat16 misses it, the distance is printed and a
+   float32 rerun of both must meet it).  12b: 16 sites of 192 subjects
+   (9 full gradient rounds in the epoch) at path 2's width, 2 of them
+   killed at round 2 (``fraction_kill_plan``)
+   under ``site_quorum=0.75``, one spare slot joining at round 3: SUCCESS
+   with finite test metrics, exactly the planned sites dead, one
+   ``membership:join`` on the engine lane, K2, K3 and K4 each launched
+   ``num_layers × k`` times in every gradient round whatever the number
+   of sites (in 12a too); each round's wall time and samples, the median
+   and range over the full-batch rounds after the join, the lane's
+   ``rounds_per_sec``/``sites_per_sec``, ``torch.cuda.max_memory_allocated``
+   and a profiled full-batch round in the middle of the epoch (from the
+   end of the previous round's step to the end of its own, the data
+   loading included).
 
 Then one JSON line ``{"kernels": [...]}``, the ``nvidia-smi`` name/power
 line, and the last line ``{"ok": true, "device": {...}}``.  Per-shape
@@ -368,6 +387,8 @@ _FLASH_EDGES = [
 FLASH_CASES = [
     ("main", 16, 4, 4096, 32, "bfloat16", False, 0, 0, None, False),
     ("tpu", 1, 8, 8192, 128, "bfloat16", True, 0, 0, None, False),
+    # path 8's folded batch: 16 sites and a spare slot of 16 sequences each
+    ("vectorized", 272, 4, 4096, 32, "bfloat16", False, 0, 0, None, False),
 ] + [(name, b, h, t, d, "float32", *rest) for name, b, h, t, d, *rest in _FLASH_EDGES] + [
     (name + "_bf16", b, h, t, d, "bfloat16", *rest) for name, b, h, t, d, *rest in _FLASH_EDGES]
 # Tolerance of a kernel's output against its plain version: 1e-4 of the
@@ -476,7 +497,8 @@ def library_backward(F, shape, q, k, v, g_out, causal):
 
 def check_flash(dev, report):
     """K2, K3 and K4 against their plain versions on the card at every
-    case of FLASH_CASES; times at the main path's and the TPU's shapes."""
+    case of FLASH_CASES; times at path 2's, path 8's and the TPU's
+    shapes."""
     import torch
     import torch.nn.functional as F
 
@@ -598,7 +620,7 @@ def check_flash(dev, report):
             f"max|d| fwd {e_fwd:.2e} dq {e_dq:.2e} dk/dv {e_dkv:.2e}"
             + (" (rounding-matched plain)" if bf16 else "") + "; bit-identical reruns; "
             "max|plain| out/lse/dq/dk/dv " + " ".join(f"{x:.3g}" for x in scales) + extra)
-        if case in ("main", "tpu"):
+        if case in ("main", "tpu", "vectorized"):
             row["times"] = time_flash(fa, F, case, (b, h, t, d), q, k, v, g_out, args, pos,
                                       kernels if case == "main" else None, exp_per_s)
         rows.append(row)
@@ -825,9 +847,10 @@ def run_main_path(dev, workdir):
     }
 
 
-def run_seq_path(dev, workdir):
+def run_seq_path(dev, workdir, compute_dtype=None):
     """Federated dSGD of the width-128 sequence transformer on 4096-step
-    sequences to SUCCESS; K2–K4 launched in every gradient round."""
+    sequences to SUCCESS; K2–K4 launched in every gradient round.
+    ``compute_dtype`` replaces path 2's bfloat16 (phase 12a's rerun)."""
     import json as _json
 
     import torch
@@ -838,7 +861,8 @@ def run_seq_path(dev, workdir):
     fa = importlib.import_module("coinstac_dinunet_tpu_torch.ops.flash_attention")
     eng = InProcessEngine(
         workdir, n_sites=N_SITES, trainer_cls=SeqTrainer, dataset_cls=SyntheticSeqDataset,
-        device=dev, task_id=SEQ_TASK, **seq_node_args(),
+        device=dev, task_id=SEQ_TASK,
+        **{**seq_node_args(), **({"compute_dtype": compute_dtype} if compute_dtype else {})},
     )
     make_seq_files(eng)
 
@@ -891,6 +915,7 @@ def run_seq_path(dev, workdir):
         "wall_s": wall, "samples_per_s": train * SEQ_ARGS["epochs"] / wall, "round_s": round_s,
         "profiled_rounds": profiles, "global_test_metrics": metrics,
         "logs": {k: eng.remote_cache[k] for k in SEQ_LOGS},
+        "global_test_log": eng.remote_cache["global_test_metrics"],
         # for path 5, which holds its sites to these bit for bit (not written out)
         "final_params": {s: {k: v.detach().cpu().clone() for k, v in
                              eng.site_caches[s]["_train_state"].nn["seq_net"].state_dict().items()}
@@ -1986,6 +2011,304 @@ def log_async_chaos_path(path, smi):
         f"{path['global_test_metrics']}")
 
 
+# Path 8: the site-vectorized federation.  12a runs path 2's configuration
+# through SiteVectorizedEngine and holds its logs to path 2's within the JAX
+# package's tolerance between its vectorized and file transports; 12b scales
+# to VEC_SITES simulated sites, kills VEC_KILL_FRACTION of them at round
+# VEC_KILL_ROUND under the quorum and admits one spare slot at
+# VEC_JOIN_ROUND.  Each gradient round must launch K2, K3 and K4 once per
+# block and micro-batch over the folded batch, whatever the number of sites.
+# 12b's sites hold VEC_SUBJECTS subjects each, 4x path 2's, so that the
+# epoch's training split (144 = 9 batches of 16) has full-batch rounds
+# after the kill and the join to measure and profile.
+VEC_LOG_ATOL = 2e-3
+VEC_SITES = 16
+VEC_SUBJECTS = 4 * SEQ_FILES
+VEC_KILL_FRACTION = 0.125
+VEC_KILL_ROUND = 2
+VEC_JOIN_ROUND = 3
+VEC_QUORUM = 0.75
+VEC_PROFILED_ROUND = 6  # a full-batch round in the middle of the epoch
+VEC_MIN_STEADY = 4  # full-batch rounds after the join, the profiled one aside
+
+
+class RoundMeter:
+    """Meters a site-vectorized engine's gradient rounds by wrapping its
+    plane's ``train_step``.  A round runs from the end of the previous
+    step (after a ``synchronize``) to the end of its own: the epoch
+    accumulators' host copy, the next batches' loading, the engine's round
+    hook and the step.  Per round: its wall time, the step's part of it,
+    the unmasked samples, and each flash kernel's launches; round
+    ``profile_round`` runs under ``torch.profiler``."""
+
+    def __init__(self, fa, profile_round=None):
+        self.fa = fa
+        self.profile_round = profile_round
+        self.rounds, self.profile = [], None
+        self._prof = None
+        self._t_last = None
+
+    def engine_cls(self):
+        from coinstac_dinunet_tpu_torch.federation import SiteVectorizedEngine
+
+        meter = self
+
+        class MeteredEngine(SiteVectorizedEngine):
+            def _build_federation(self, rc):
+                return meter.wrap(super()._build_federation(rc))
+
+        return MeteredEngine
+
+    def start(self):
+        import torch
+
+        torch.cuda.synchronize()
+        self._t_last = time.perf_counter()
+
+    def wrap(self, fed):
+        import numpy as np
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        step = fed.train_step
+
+        def metered(site_batches):
+            n = len(self.rounds) + 1
+            samples = int(sum(np.asarray(b["_mask"]).sum() for site in site_batches
+                              for b in site))
+            before = [kern.launches for kern in self.fa.KERNELS]
+            t_step = time.perf_counter()
+            aux = step(site_batches)
+            torch.cuda.synchronize()
+            t_end = time.perf_counter()
+            self.rounds.append({
+                "round": n, "wall_s": t_end - self._t_last, "step_s": t_end - t_step,
+                "samples": samples, "folded_rows": len(site_batches) * len(
+                    site_batches[0][0]["_mask"]) * len(site_batches[0]),
+                "launches": [kern.launches - b for kern, b in zip(self.fa.KERNELS, before)],
+                "profiled": n == self.profile_round,
+            })
+            if self._prof is not None:
+                self._prof.stop()
+                self.profile = {"round": n, **profile_summary(self._prof, t_end - self._t_last)}
+                self._prof = None
+            if n + 1 == self.profile_round:
+                self._prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+                self._prof.start()
+            self._t_last = time.perf_counter()
+            return aux
+
+        fed.train_step = metered
+        return fed
+
+
+def check_vec_outputs(eng, workdir):
+    """The vectorized engine's models on the card and finite, and the
+    global test metrics finite; returns the metrics."""
+    import torch
+
+    for name, m in eng._trainer.nn.items():
+        for pname, p in m.named_parameters():
+            if not p.is_cuda or not torch.isfinite(p).all():
+                raise AssertionError(f"{name}.{pname} is not finite on the card")
+    return check_metrics_csv(workdir, SEQ_TASK)
+
+
+def vec_flash_per_round():
+    """K2-K4's launches a gradient round: num_layers x k (k micro-batches
+    a round), and k."""
+    k = max(int(seq_node_args().get("local_iterations", 1)), 1)
+    return SEQ_ARGS["num_layers"] * k, k
+
+
+def vec_flash_counts(meter):
+    """Faults of the K2-K4 count per gradient round: each kernel exactly
+    num_layers x k times."""
+    want, _ = vec_flash_per_round()
+    return [f"round {r['round']}: K2/K3/K4 launched {r['launches']} times, expected "
+            f"{want} each" for r in meter.rounds if r["launches"] != [want] * 3]
+
+
+def log_distance(got, want):
+    """The largest absolute difference between two runs' score logs."""
+    import numpy as np
+
+    return max(float(np.abs(np.asarray(got[k], np.float64) - np.asarray(want[k], np.float64)).max())
+               for k in want)
+
+
+def run_vec_same_function(dev, workdir, fa, compute_dtype=None):
+    """12a: path 2's configuration through ``SiteVectorizedEngine`` (both
+    sites' steps in one folded batch): its logs against path 2's.  With
+    ``compute_dtype`` both runs take that dtype (the float32 rerun)."""
+    args = seq_node_args()
+    if compute_dtype is not None:
+        args["compute_dtype"] = compute_dtype
+    from coinstac_dinunet_tpu_torch.models import SeqTrainer, SyntheticSeqDataset
+
+    meter = RoundMeter(fa)
+    eng = meter.engine_cls()(workdir, n_sites=N_SITES, trainer_cls=SeqTrainer,
+                             dataset_cls=SyntheticSeqDataset, device=dev, task_id=SEQ_TASK, **args)
+    make_seq_files(eng)
+    for kern in fa.KERNELS:
+        kern.launches = 0
+    meter.start()
+    t0 = time.perf_counter()
+    eng.run()
+    wall = time.perf_counter() - t0
+    if not eng.success:
+        raise AssertionError("12a: no SUCCESS")
+    faults = vec_flash_counts(meter)
+    if faults:
+        raise AssertionError("12a:\n  " + "\n  ".join(faults))
+    check_vec_outputs(eng, workdir)
+    return {"logs": {k: eng.cache[k] for k in (*SEQ_LOGS, "global_test_metrics")},
+            "wall_s": wall, "rounds": meter.rounds,
+            "launches": dict(zip(FLASH_SOURCES, (k.launches for k in fa.KERNELS)))}
+
+
+def run_vectorized_path(dev, workdir, seq_path):
+    """Path 8 (phase 12): 12a, path 2's function through the vectorized
+    plane, held to path 2's logs (or, if bfloat16 on the folded batch
+    cannot meet the tolerance, the distance reported and a float32 rerun of
+    both that must); 12b, ``VEC_SITES`` sites at path 2's width with the
+    kill plan, a spare slot's join and the quorum: SUCCESS, the planned
+    deaths, the join, K2-K4 per round independent of the sites; its round
+    times, throughput, peak memory and a profiled round."""
+    import torch
+
+    from coinstac_dinunet_tpu_torch.models import SeqTrainer, SyntheticSeqDataset
+    from coinstac_dinunet_tpu_torch.resilience import chaos
+
+    fa = importlib.import_module("coinstac_dinunet_tpu_torch.ops.flash_attention")
+    out = {}
+    same = run_vec_same_function(dev, os.path.join(workdir, "12a"), fa)
+    want = {**seq_path["logs"], "global_test_metrics": seq_path["global_test_log"]}
+    out["12a"] = {**same, "distance": log_distance(same["logs"], want)}
+    if out["12a"]["distance"] > VEC_LOG_ATOL:
+        # the float32 rerun of both (TF32 is off since phase 1)
+        serial = run_seq_path(dev, os.path.join(workdir, "12a_f32_serial"),
+                              compute_dtype="float32")
+        rerun = run_vec_same_function(dev, os.path.join(workdir, "12a_f32"), fa,
+                                      compute_dtype="float32")
+        want32 = {**serial["logs"], "global_test_metrics": serial["global_test_log"]}
+        out["12a_float32"] = {"distance": log_distance(rerun["logs"], want32),
+                              "logs": rerun["logs"], "serial_logs": want32}
+        if out["12a_float32"]["distance"] > VEC_LOG_ATOL:
+            raise AssertionError(
+                f"12a: logs {out['12a']['distance']:.3e} from path 2's in bfloat16 and "
+                f"{out['12a_float32']['distance']:.3e} in float32, tolerance {VEC_LOG_ATOL}")
+
+    # ---- 12b: the scaled run
+    plan = chaos.fraction_kill_plan(VEC_SITES, VEC_KILL_FRACTION, round=VEC_KILL_ROUND, seed=1)
+    planned = {f["site"] for f in plan["faults"]}
+    spare = f"site_{VEC_SITES}"
+    plan["faults"].append({"kind": "join", "round": VEC_JOIN_ROUND, "site": spare})
+    meter = RoundMeter(fa, profile_round=VEC_PROFILED_ROUND)
+    wd = os.path.join(workdir, "12b")
+    eng = meter.engine_cls()(wd, n_sites=VEC_SITES, trainer_cls=SeqTrainer,
+                             dataset_cls=SyntheticSeqDataset, device=dev, task_id=SEQ_TASK,
+                             fault_plan=plan, site_quorum=VEC_QUORUM, profile=True,
+                             **seq_node_args())
+    make_seq_files(eng, VEC_SUBJECTS)  # every slot, the spare included
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for kern in fa.KERNELS:
+        kern.launches = 0
+    meter.start()
+    t0 = time.perf_counter()
+    eng.run()
+    wall = time.perf_counter() - t0
+    launches = dict(zip(FLASH_SOURCES, (k.launches for k in fa.KERNELS)))
+    peak = torch.cuda.max_memory_allocated()
+    faults = vec_flash_counts(meter)
+    if not eng.success:
+        faults.append("no SUCCESS")
+    if eng.dead_sites != planned:
+        faults.append(f"dead sites {sorted(eng.dead_sites)}, planned {sorted(planned)}")
+    with open(os.path.join(wd, "telemetry.engine.jsonl")) as f:
+        lane = [json.loads(line) for line in f]
+    joins = [e for e in lane if e["name"] == "membership:join"]
+    if [(e["site"], e["round"]) for e in joins] != [(spare, VEC_JOIN_ROUND)]:
+        faults.append(f"membership:join records {[(e['site'], e['round']) for e in joins]}")
+    if eng.capacity != VEC_SITES + 1 or eng.spare_sites:
+        faults.append(f"capacity {eng.capacity}, spare slots left {eng.spare_sites}")
+    # steady: the full-batch rounds after the join, the profiled one aside.
+    # Loaders start with the epoch, as in the JAX package: the spare's
+    # rides masked until the next one, the dead sites' run on masked, so
+    # a full batch is the 14 live sites' 16 rows each of 17 x 16
+    live_rows = (VEC_SITES - len(planned)) * SEQ_ARGS["batch_size"]
+    steady = [r for r in meter.rounds if r["round"] > VEC_JOIN_ROUND
+              and r["samples"] == live_rows and not r["profiled"]]
+    if len(steady) < VEC_MIN_STEADY:
+        faults.append(f"{len(steady)} full-batch rounds after the join, want "
+                      f">= {VEC_MIN_STEADY}")
+    if meter.profile is None or meter.rounds[VEC_PROFILED_ROUND - 1]["samples"] != live_rows:
+        faults.append(f"round {VEC_PROFILED_ROUND} not profiled at a full batch")
+    if faults:
+        raise AssertionError("12b:\n  " + "\n  ".join(faults))
+    metrics = check_vec_outputs(eng, wd)
+    steady_ids = {r["round"] for r in steady}
+    # the lane's round r runs from round r's hook to round r+1's: round r's
+    # step and round r+1's loading, so both rounds must be steady ones
+    lane_ids = {r for r in steady_ids if r + 1 in steady_ids}
+    out["12b"] = {
+        "sites": VEC_SITES, "capacity": eng.capacity, "dead_sites": sorted(eng.dead_sites),
+        "joined": spare, "rounds": meter.rounds, "wall_s": wall, "launches": launches,
+        "steady_rounds": sorted(steady_ids),
+        "steady_round_s": _spread([r["wall_s"] for r in steady]),
+        "steady_step_s": _spread([r["step_s"] for r in steady]),
+        "steady_samples_per_s": _spread([r["samples"] / r["wall_s"] for r in steady]),
+        "rounds_per_sec": [e["value"] for e in lane if e["name"] == "rounds_per_sec"],
+        "sites_per_sec": [e["value"] for e in lane if e["name"] == "sites_per_sec"],
+        "steady_rounds_per_sec": _spread([e["value"] for e in lane if e["name"] ==
+                                          "rounds_per_sec" and e["round"] in lane_ids]),
+        "steady_sites_per_sec": _spread([e["value"] for e in lane if e["name"] ==
+                                         "sites_per_sec" and e["round"] in lane_ids]),
+        "engine_round_s": [e["dur"] for e in lane if e["name"] == "engine:round"],
+        "max_memory_allocated_bytes": peak, "profile": meter.profile,
+        "global_test_metrics": metrics,
+    }
+    return out
+
+
+def log_vectorized_path(path, smi):
+    a, b = path["12a"], path["12b"]
+    want, k = vec_flash_per_round()
+    log(f"  K2/K3/K4 expected {want} launches each a gradient round "
+        f"(num_layers {SEQ_ARGS['num_layers']} x k {k})")
+    log(f"  12a: path 2's configuration "
+        f"({N_SITES} sites folded into one batch) to SUCCESS in {a['wall_s']:.3f} s; logs "
+        f"{a['distance']:.3e} from path 2's (tolerance {VEC_LOG_ATOL}); launches "
+        f"{a['launches']} | {smi}")
+    if "12a_float32" in path:
+        log(f"  bfloat16 missed the tolerance; float32 rerun of both (TF32 off): logs "
+            f"{path['12a_float32']['distance']:.3e} apart")
+    log("  12a rounds (wall/step s, samples, K2/K3/K4): " + " ".join(
+        f"r{r['round']}:{r['wall_s']:.3f}/{r['step_s']:.3f},{r['samples']},"
+        f"{'/'.join(map(str, r['launches']))}" for r in a["rounds"]))
+    log(f"  12b: {b['sites']} sites of {VEC_SUBJECTS} subjects + 1 spare slot "
+        f"(capacity {b['capacity']}) to SUCCESS in "
+        f"{b['wall_s']:.3f} s; dead {b['dead_sites']} (quorum {VEC_QUORUM}), {b['joined']} "
+        f"joined at round {VEC_JOIN_ROUND}; launches {b['launches']}; "
+        f"torch.cuda.max_memory_allocated {b['max_memory_allocated_bytes'] / 2 ** 30:.3f} GiB | {smi}")
+    log("  12b rounds (wall/step s, unmasked samples of folded rows, K2/K3/K4; * profiled): "
+        + " ".join(f"r{r['round']}{'*' if r['profiled'] else ''}:{r['wall_s']:.3f}/"
+                   f"{r['step_s']:.3f},{r['samples']}/{r['folded_rows']},"
+                   f"{'/'.join(map(str, r['launches']))}" for r in b["rounds"]))
+    log(f"  steady rounds {b['steady_rounds']} (full batch, after the join, not profiled):")
+    for key in ("steady_round_s", "steady_step_s", "steady_samples_per_s",
+                "steady_rounds_per_sec", "steady_sites_per_sec"):
+        d = b[key]
+        log(f"    {key}: median {d['median']:.4f}, range {d['min']:.4f}-{d['max']:.4f} "
+            f"(n={d['n']})")
+    log("  engine lane: engine:round s " + " ".join(f"{x:.4f}" for x in b["engine_round_s"])
+        + "; rounds_per_sec " + " ".join(f"{x:.4f}" for x in b["rounds_per_sec"])
+        + "; sites_per_sec " + " ".join(f"{x:.3f}" for x in b["sites_per_sec"]))
+    log(f"  global test metrics {b['global_test_metrics']}")
+    log_profiles([b["profile"]])
+
+
 def profiled_round(eng):
     """One engine round under ``torch.profiler``: the round's host wall
     time, the device time its kernels took, the idle share, and the
@@ -1998,6 +2321,13 @@ def profiled_round(eng):
         site_outs, _ = eng.step_round()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    return site_outs, {"round": eng.rounds, **profile_summary(prof, wall)}
+
+
+def profile_summary(prof, wall):
+    """A finished ``torch.profiler`` trace of ``wall`` seconds: the device
+    time its kernels took, the idle share, the device-to-host copies, the
+    top device operations and the port's own kernels."""
     from torch.autograd import DeviceType
 
     rows = []
@@ -2018,8 +2348,8 @@ def profiled_round(eng):
     # the port's own kernels, whatever their rank: device time per launch
     ours = [{"name": k[:120], "device_ms": us / 1e3, "count": c, "ms_per_launch": us / 1e3 / c}
             for us, k, c in rows if any(n in k for n in PORT_KERNEL_NAMES)]
-    return site_outs, {
-        "round": eng.rounds, "wall_s_profiled": wall, "device_busy_s": busy_s,
+    return {
+        "wall_s_profiled": wall, "device_busy_s": busy_s,
         "device_idle_share": max(0.0, 1.0 - busy_s / wall),
         "d2h_copies": sum(c for _, c in d2h), "d2h_ms": sum(us for us, _ in d2h) / 1e3,
         "top_device_ops": [{"name": k[:120], "device_ms": us / 1e3, "count": c}
@@ -2205,6 +2535,12 @@ def main():
         async_path = run_async_chaos_path(dev, wd)
     log_async_chaos_path(async_path, smi)
 
+    log(f"[12 main path 8: sequence, site-vectorized] {N_SITES} sites, then {VEC_SITES} + 1 "
+        f"spare | {smi}")
+    with tempfile.TemporaryDirectory() as wd:
+        vec_path = run_vectorized_path(dev, wd, seq_path)
+    log_vectorized_path(vec_path, smi)
+
     k1["launches_by_path"] = {"vbm_dsgd": main_path["launches"],
                               "vbm_pretrain_powersgd": psgd_path["launches"],
                               "seq_rankdad": dad_path["k1_launches"],
@@ -2214,11 +2550,13 @@ def main():
                                     "seq_rankdad": dad_path["launches"][kern["name"]],
                                     "seq_fresh_process": fresh_path["launches"][kern["name"]],
                                     "seq_daemon": daemon_path["launches"][kern["name"]],
-                                    "seq_async_chaos": async_path["launches"][kern["name"]]}
+                                    "seq_async_chaos": async_path["launches"][kern["name"]],
+                                    "seq_vectorized": vec_path["12b"]["launches"][kern["name"]]}
     kernels = [k1, *k234]
     report.update(main_path=main_path, seq_path=seq_path, powersgd_path=psgd_path,
                   rankdad_path=dad_path, fresh_process_path=fresh_path,
-                  daemon_path=daemon_path, async_chaos_path=async_path, device=kind,
+                  daemon_path=daemon_path, async_chaos_path=async_path,
+                  vectorized_path=vec_path, device=kind,
                   power=smi, kernels=kernels)
     out_dir = os.path.join(HERE, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)

@@ -4,9 +4,10 @@ The phase/mode/key strings below ARE the wire protocol between site nodes
 and the aggregator, so every value is identical to the JAX package's
 ``coinstac_dinunet_tpu/config/keys.py``.  This is the subset the lockstep
 dSGD path, the invocation retries, the daemon engine, the engine's
-telemetry lane, quorum and the staleness-bounded async rounds use; the
-vocabularies of the features the port does not
-carry yet (membership, the live ops plane's knobs and verdicts, analysis
+telemetry lane, quorum, the staleness-bounded async rounds and the
+site-vectorized federation use (its membership events among them); the
+vocabularies of the features the port does not carry yet (the roster
+protocol's cache keys, the live ops plane's knobs and verdicts, analysis
 tiers) stay in the JAX package until their slice lands (``ROADMAP.md``
 Queue 1).
 """
@@ -150,8 +151,13 @@ class Metric:
     """Metric names of the telemetry ``metric`` records the port writes:
     ``SITE_STALENESS`` is a site's lag in rounds behind the aggregator's
     ``wire_round`` (the async engine per delivery and stand-in, the
-    aggregator's window check per accepted stale echo)."""
+    aggregator's window check per accepted stale echo);
+    ``ROUNDS_PER_SEC`` and ``SITES_PER_SEC`` are the site-vectorized
+    engine's throughput per round (one over the round's wall time, and the
+    live members over it)."""
 
+    ROUNDS_PER_SEC = "rounds_per_sec"
+    SITES_PER_SEC = "sites_per_sec"
     SITE_STALENESS = "site_staleness"
 
 
@@ -165,15 +171,30 @@ class Federation:
     - ``ASYNC_POOL`` — the engine's invocation pool size;
     - ``ASYNC_DISCOUNT`` — ``gamma``: the reducer weighs a contribution
       ``j`` rounds stale by ``gamma**j`` (default 0.5);
+    - ``SITE_SHARDS`` — the number of cards the site-vectorized
+      federation's stacked site axis shards over (``federation/vector.py``;
+      one card: 1, a request for more is refused);
     - ``RUN_AHEAD`` and ``REDUCE_FANIN`` — run-ahead pipelining and the
       k-ary tree fan-in, which the port refuses (``ROADMAP.md`` Queue 1).
     """
 
     REDUCE_FANIN = "reduce_fanin"
+    SITE_SHARDS = "site_shards"
     ASYNC_STALENESS = "async_staleness"
     ASYNC_POOL = "async_invoke_pool"
     ASYNC_DISCOUNT = "async_stale_discount"
     RUN_AHEAD = "run_ahead"
+
+
+class Membership:
+    """Elastic-membership events: one roster transition each, carrying the
+    new roster epoch and member count.  The site-vectorized engine writes
+    them to its telemetry lane (``federation/engine.py``); the roster
+    protocol of the serial engines is still to port."""
+
+    EVENT_JOIN = "membership:join"
+    EVENT_LEAVE = "membership:leave"
+    EVENT_REJOIN = "membership:rejoin"
 
 
 class AggEngine(_StrEnum):

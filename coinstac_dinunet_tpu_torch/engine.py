@@ -1,5 +1,6 @@
-"""Federation engines (in-process simulator, fresh process per invocation)
-+ single-site runner.
+"""Federation engines (in-process simulator, fresh process per invocation,
+the lifecycle of the planes that run every site in one step) + single-site
+runner.
 
 Port of the JAX package's ``engine.py``: :class:`InProcessEngine` runs N
 site nodes and one aggregator in one process, relaying each node's output
@@ -47,14 +48,25 @@ Directory layout per site ``i`` under ``workdir`` (as in the JAX package)::
     remote_base/site_<i> site's transferDirectory == aggregator's inbox
     remote_xfer          aggregator's transferDirectory (broadcast outbox)
 
-The daemon engine (warm workers) is ``federation/daemon.py``.  Not ported
-yet, and refused (``ROADMAP.md`` Queue 1: the other engines and their
-options): run-ahead pipelining, elastic membership (``add_site``,
-``remove_site``, the join/leave/rejoin faults), the mesh and
-site-vectorized engines.
+:class:`MeshEngine` is the host lifecycle of the planes that run every
+site in one step (folds, lockstep epochs, validation, checkpoints, the
+fold test, the score CSV, the results zip, resume); its one plane in the
+port is the site-vectorized federation, whose engine
+(``federation/engine.py``) also carries elastic membership on its roster
+mask.  The daemon engine (warm workers) is ``federation/daemon.py``.
+
+Not ported yet, and refused by the serial engines (``ROADMAP.md`` Queue 1:
+the other engines and their options): run-ahead pipelining, elastic
+membership (``add_site``, ``remove_site``, the join/leave/rejoin faults).
+``MeshEngine``'s own per-rank plane, ``MeshFederation``, and its sequence-
+and tensor-parallel variants need a card per site (``ROADMAP.md`` Queue 1:
+Multiple devices).
 """
+import datetime
 import json
+import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -64,8 +76,10 @@ from collections import deque
 from concurrent.futures import FIRST_COMPLETED, ThreadPoolExecutor
 from concurrent.futures import wait as futures_wait
 
-from . import config, telemetry
-from .config.keys import Federation, Live, Metric, Mode, Phase
+import numpy as np
+
+from . import config, telemetry, utils
+from .config.keys import Federation, Key, Live, Metric, Mode, Phase
 from .data import COINNDataHandle
 from .nodes import COINNLocal, COINNRemote
 from .nodes.local import refuse_unported
@@ -74,8 +88,10 @@ from .resilience.chaos import MEMBERSHIP_KINDS, ChaosSession
 from .resilience.retry import RetryExhausted, RetryPolicy
 from .trainer import COINNTrainer
 from .utils import clean_recursive, logger
+from .utils.utils import performance_improved_, stop_training_
 
 _UNPORTED = "(ROADMAP.md Queue 1: the other engines and their options)"
+_MULTI = "(ROADMAP.md Queue 1: Multiple devices)"
 
 
 class InvokeTimeout(RuntimeError):
@@ -869,6 +885,493 @@ class SubprocessEngine(InProcessEngine):
         self.remote_cache = res.get("cache", {})
         self.success = bool(res.get("success"))
         return res["output"]
+
+
+class MeshEngine:
+    """The federated lifecycle of the mesh and site-vectorized planes, on
+    the host: fold rotation, lockstep epochs, the validation cadence, the
+    exact cross-site count merge of metrics, best checkpoints, early stop,
+    the per-fold test, the global score CSV and the results zip — the
+    aggregator's state machine without its wire — while every training
+    round is one call of a federation plane (``_build_federation``) over
+    all sites, and evaluation one call per batch index.
+
+    Same per-site data layout and splits, loader order (seeded by ``(seed,
+    epoch)``), lockstep ``target_batches`` padding, best/early-stop
+    decisions and score artifacts as :class:`InProcessEngine`.  A
+    ``pretrain_args`` pretrain runs on the site with the most training
+    data, and every site adopts its best weights from the wire checkpoint
+    it wrote, as after the broadcast.  Sparse test mode (``load_sparse``)
+    tests per site on the host with the same count merge.  An epoch-barrier
+    autosave and ``.mesh_resume.json`` make a crashed run resumable
+    (``resume``).
+
+    The JAX package's own plane here, ``MeshFederation`` (one device rank
+    per site, with its sequence- and tensor-parallel variants), needs as
+    many cards as sites and is refused; the site-vectorized engine
+    (``federation/engine.py``) overrides ``_build_federation``.  Also
+    refused: the telemetry capture wrap around a round
+    (``capture_on_anomaly``)."""
+
+    def __init__(self, workdir, n_sites, trainer_cls=COINNTrainer,
+                 dataset_cls=None, datahandle_cls=COINNDataHandle,
+                 devices=None, devices_per_site=None, site_args=None, device=None,
+                 **args):
+        self.device = config.resolve_device(device)
+        if devices is not None or devices_per_site is not None:
+            raise NotImplementedError(
+                f"devices/devices_per_site place sites on several cards, which is not "
+                f"ported yet {_MULTI}"
+            )
+        self.workdir = str(workdir)
+        self.n_sites = int(n_sites)
+        self.trainer_cls = trainer_cls
+        self.dataset_cls = dataset_cls
+        self.datahandle_cls = datahandle_cls
+        self.site_args = site_args or {}
+
+        self.cache = dict(COINNLocal._ARG_DEFAULTS)
+        self.cache.update(args)
+        if self.cache.get("seed") is None:
+            self.cache["seed"] = config.current_seed
+        for chan in (self.cache, *self.site_args.values()):
+            if chan.get("capture_on_anomaly") or (chan.get("health") or {}).get(
+                    "capture_pending"):
+                raise NotImplementedError(
+                    "the telemetry capture wrap around a round is not ported yet "
+                    "(ROADMAP.md Queue 1: Telemetry and tools)"
+                )
+
+        self.site_ids = [f"site_{i}" for i in range(self.n_sites)]
+        self.site_states = {}
+        for s in self.site_ids:
+            base = os.path.join(self.workdir, s)
+            outd = os.path.join(base, "out")
+            for d in (base, outd):
+                os.makedirs(d, exist_ok=True)
+            self.site_states[s] = {
+                "baseDirectory": base, "outputDirectory": outd, "clientId": s,
+            }
+        self.remote_out_dir = os.path.join(self.workdir, "remote_out")
+        os.makedirs(self.remote_out_dir, exist_ok=True)
+        self.site_caches = {}
+        self.success = False
+        self.results_zip = None
+        self._trainer = None
+        # sites left out of every later round (their train batches and eval
+        # loaders degrade to fully-masked placeholders, the path a site
+        # without data takes); the site-vectorized engine fills it
+        self.dead_sites = set()
+
+    def _site_loads(self, s):
+        """Whether site ``s`` gets a live loader this epoch or evaluation
+        (else the fully-masked placeholder stream); the site-vectorized
+        engine adds its roster."""
+        return s not in self.dead_sites
+
+    def site_data_dir(self, site_id, data_dir=None):
+        d = os.path.join(
+            self.site_states[site_id]["baseDirectory"],
+            data_dir or self.cache.get("data_dir", "data"),
+        )
+        os.makedirs(d, exist_ok=True)
+        return d
+
+    # ------------------------------------------------------------- lifecycle
+    def run(self):
+        """Drive every fold to completion; sets ``success`` at the end."""
+        handles = {}
+        for s in self.site_ids:
+            scache = dict(self.cache)
+            scache.update(self.site_args.get(s, {}))
+            self.site_caches[s] = scache
+            h = self.datahandle_cls(
+                cache=scache, state=self.site_states[s],
+                dataset_cls=self.dataset_cls,
+                dataloader_args=scache.get("dataloader_args"),
+            )
+            h.prepare_data()
+            handles[s] = h
+        rc = self.cache
+        rc["num_folds"] = len(next(iter(self.site_caches.values()))["splits"])
+        rc[Key.GLOBAL_TEST_SERIALIZABLE.value] = []
+        # resume only from the record of an interrupted run: a completed
+        # run removed its record, so its fold checkpoints never replay
+        self._resuming = bool(rc.get("resume")) and os.path.exists(self._run_state_path())
+        done_folds = (self._load_run_state().get("completed_folds", {})
+                      if self._resuming else {})
+        self._write_run_state_marker()
+        for fold in range(int(rc["num_folds"])):
+            if str(fold) in done_folds:
+                rc[Key.GLOBAL_TEST_SERIALIZABLE.value].append(done_folds[str(fold)])
+                continue
+            self._run_fold(str(fold), handles)
+        self._finish()
+        return self
+
+    # ------------------------------------------------------- mid-run resume
+    def _run_state_path(self):
+        return os.path.join(self.workdir, ".mesh_resume.json")
+
+    def _load_run_state(self):
+        try:
+            with open(self._run_state_path()) as f:
+                return json.load(f)
+        except (OSError, ValueError):
+            return {}
+
+    def _write_run_state(self, run_state):
+        utils.atomic_write(self._run_state_path(), json.dumps(run_state).encode())
+
+    def _write_run_state_marker(self):
+        """A fresh (not resuming) run resets the record, so a stale record
+        of a crashed run never leaks fold results into a later resume."""
+        if not getattr(self, "_resuming", False) or not os.path.exists(
+                self._run_state_path()):
+            self._write_run_state({"completed_folds": {}})
+
+    def _record_fold_done(self, split_ix, payload):
+        run_state = self._load_run_state()
+        run_state.setdefault("completed_folds", {})[str(split_ix)] = payload
+        self._write_run_state(run_state)
+
+    def _epoch_autosave(self, trainer, fed, epoch):
+        """The fold's resume point at the epoch barrier: models, optimizers,
+        generator, score logs and the plane's state.  Cadence from
+        ``cache['autosave_epochs']`` (0 disables)."""
+        rc = self.cache
+        every = int(rc.get("autosave_epochs", 1) or 0)
+        if every <= 0 or int(epoch) % every != 0:
+            return
+        extra = {
+            "epoch": int(epoch),
+            "train_log": rc[Key.TRAIN_LOG.value],
+            "validation_log": rc[Key.VALIDATION_LOG.value],
+            "best_val_epoch": rc.get("best_val_epoch", 0),
+            "best_val_score": rc.get("best_val_score"),
+            "fed": fed.serialize_comm_state(),
+        }
+        trainer.save_checkpoint(name=rc["latest_nn_state"], extra=extra)
+
+    def _try_fold_resume(self, trainer, fed):
+        """Restart the fold from its latest epoch-barrier autosave; returns
+        the epochs completed (0: a fresh fold).  An unreadable autosave
+        (a crash mid-write) restarts the fold fresh."""
+        rc = self.cache
+        path = trainer.checkpoint_path(rc["latest_nn_state"])
+        if not (getattr(self, "_resuming", False) and os.path.exists(path)):
+            return 0
+        try:
+            trainer.load_checkpoint(full_path=path)
+        except Exception as exc:  # noqa: BLE001 — any decode failure
+            # load_checkpoint reads the whole file before it touches a
+            # model, so the fresh seeded init from _run_fold is intact
+            logger.warn(f"MeshEngine: unreadable autosave {path} ({exc}); "
+                        "restarting the fold fresh")
+            return 0
+        extra = getattr(trainer, "last_checkpoint_extra", {})
+        rc[Key.TRAIN_LOG.value] = [list(r) for r in extra.get("train_log", [])]
+        rc[Key.VALIDATION_LOG.value] = [list(r) for r in extra.get("validation_log", [])]
+        rc["best_val_epoch"] = int(extra.get("best_val_epoch", 0))
+        rc["best_val_score"] = extra.get("best_val_score")
+        fed.restore_comm_state(dict(extra.get("fed", {})))
+        epoch = int(extra.get("epoch", 0))
+        logger.info(f"MeshEngine: resuming fold {rc['split_ix']} from epoch {epoch}",
+                    rc.get("verbose", True))
+        return epoch
+
+    def _run_fold(self, split_ix, handles):
+        rc = self.cache
+        for s in self.site_ids:
+            sc = self.site_caches[s]
+            sc["split_ix"] = split_ix
+            sc["split_file"] = sc["splits"][split_ix]
+        log_dir = os.path.join(self.remote_out_dir, str(rc["task_id"]), f"fold_{split_ix}")
+        os.makedirs(log_dir, exist_ok=True)
+        rc.update(log_dir=log_dir, split_ix=split_ix, epoch=0,
+                  best_val_epoch=0, best_val_score=None)
+        rc[Key.TRAIN_LOG.value] = []
+        rc[Key.VALIDATION_LOG.value] = []
+        rc[Key.TEST_METRICS.value] = []
+        tag = f"{rc['task_id']}-{split_ix}"
+        rc["best_nn_state"] = f"best.{tag}.ckpt"
+        rc["latest_nn_state"] = f"latest.{tag}.ckpt"
+
+        trainer = self.trainer_cls(
+            cache=rc, input={}, state={"outputDirectory": self.remote_out_dir},
+            data_handle=None, device=self.device,
+        )
+        trainer.init_nn()
+        self._trainer = trainer
+        self._mesh_pretrain(trainer, handles)
+        fed = self._build_federation(rc)
+        self._last_fed = fed
+        self._run_fold_loop(split_ix, handles, trainer, fed, rc)
+
+    def _build_federation(self, rc):
+        """This fold's federation plane — the hook the site-vectorized
+        engine overrides.  The JAX package's per-rank ``MeshFederation``
+        and its sequence- and tensor-parallel variants need a card per
+        site (or per site and shard)."""
+        sp = int(rc.get("sequence_parallel", 1) or 1)
+        tp = int(rc.get("tensor_parallel", 1) or 1)
+        plane = ("SeqMeshFederation (sequence_parallel)" if sp > 1 else
+                 "TPMeshFederation (tensor_parallel)" if tp > 1 else "MeshFederation")
+        raise NotImplementedError(
+            f"{plane} runs one device rank per site and is not ported yet {_MULTI}; "
+            "the site-vectorized engine runs every site on one card"
+        )
+
+    def _recorder(self):
+        """The engine's telemetry lane (``telemetry.engine.jsonl``), on
+        with ``profile``/``telemetry`` in the engine's or a site's args."""
+        return _engine_recorder(self, [self.cache, *self.site_args.values()])
+
+    def _round_hook(self, site_batches):
+        """The per-round boundary before the plane's step; the
+        site-vectorized engine injects faults and masks sites here."""
+        return site_batches
+
+    def _run_fold_loop(self, split_ix, handles, trainer, fed, rc):
+        log_dir = rc["log_dir"]
+        bs = int(rc.get("batch_size", 16))
+        train_sets = {s: handles[s].get_train_dataset() for s in self.site_ids}
+        if not any(len(ds) for ds in train_sets.values()):
+            raise ValueError(f"fold {split_ix}: every site's train dataset is empty")
+        # lockstep epochs: every site pads to the largest batch count (the
+        # aggregator's target_batches broadcast)
+        target_batches = max(
+            (math.ceil(len(ds) / bs) for ds in train_sets.values() if len(ds)), default=1,
+        )
+        k = max(int(rc.get("local_iterations", 1)), 1)
+        epochs = int(rc.get("epochs", 1))
+        val_every = max(int(rc.get("validation_epochs", 1)), 1)
+        ep_averages, ep_metrics = trainer.new_averages(), trainer.new_metrics()
+        epoch = self._try_fold_resume(trainer, fed)
+        # the resume point may already meet the stop condition (a crash
+        # after the last barrier, before the fold test finished)
+        fold_complete = epoch >= epochs or (epoch > 0 and stop_training_(epoch, rc))
+        while not fold_complete:
+            epoch += 1
+            rc["epoch"] = epoch
+            # the loader's epoch is 0-based, as the node's cursor has it; a
+            # site without train data (or off the roster) rides a
+            # fully-masked placeholder stream and contributes nothing
+            iters = [
+                (iter(handles[s].get_loader(
+                    "train", dataset=train_sets[s], shuffle=True,
+                    seed=int(rc.get("seed", 0)), epoch=epoch - 1,
+                    target_batches=target_batches,
+                )) if len(train_sets[s]) and self._site_loads(s) else None)
+                for s in self.site_ids
+            ]
+            done = 0
+            while done < target_batches:
+                take = min(k, target_batches - done)
+                site_batches = [
+                    ([next(it) for _ in range(take)] if it is not None else None)
+                    for it in iters
+                ]
+                template = next(b for b in site_batches if b is not None)
+                for i, b in enumerate(site_batches):
+                    if b is None:
+                        site_batches[i] = [
+                            {**tb, "_mask": np.zeros_like(np.asarray(tb["_mask"]))}
+                            for tb in template
+                        ]
+                aux = fed.train_step(self._round_hook(site_batches))
+                trainer.fold_train_outputs(aux, ep_averages, ep_metrics)
+                done += take
+            if epoch % val_every != 0:
+                # no stop check off the validation cadence: the aggregator
+                # judges the epoch limit at the validation barrier only
+                continue
+            # ---- epoch barrier (the aggregator's VALIDATION_WAITING)
+            rc[Key.TRAIN_LOG.value].append([*ep_averages.get(), *ep_metrics.get()])
+            ep_averages, ep_metrics = trainer.new_averages(), trainer.new_metrics()
+            v_avg, v_met = self._mesh_eval(fed, handles, "validation")
+            rc[Key.VALIDATION_LOG.value].append([*v_avg.get(), *v_met.get()])
+            # a missing monitor metric fails loudly, as on the aggregator
+            score = v_met.extract(rc.get("monitor_metric", "f1"))
+            if performance_improved_(epoch, score, rc):
+                trainer.save_checkpoint(name=rc["best_nn_state"])
+            self._epoch_autosave(trainer, fed, epoch)
+            if epoch >= epochs or stop_training_(epoch, rc):
+                break
+
+        # ---- fold test with the best models (the sites' test_distributed)
+        if os.path.exists(trainer.checkpoint_path(rc["best_nn_state"])):
+            trainer.load_checkpoint(name=rc["best_nn_state"])
+        t_avg, t_met = self._mesh_eval(fed, handles, "test")
+        rc[Key.TEST_METRICS.value].append([*t_avg.get(), *t_met.get()])
+        fold_payload = {"averages": t_avg.serialize(), "metrics": t_met.serialize()}
+        rc[Key.GLOBAL_TEST_SERIALIZABLE.value].append(fold_payload)
+        self._record_fold_done(split_ix, clean_recursive(fold_payload))
+        utils.save_scores(rc, log_dir=log_dir, file_keys=[Key.TEST_METRICS.value])
+        utils.save_cache(rc, {"outputDirectory": log_dir})
+
+    # --------------------------------------------------------------- pretrain
+    def _mesh_pretrain(self, trainer, handles):
+        """The designated-site pretrain with the file transport's meaning:
+        the site with the most training data trains alone for
+        ``pretrain_args['epochs']``, writing its best weights as a wire
+        checkpoint into a transfer directory; then every site's state is a
+        fresh init with those weights and a fresh optimizer, as after the
+        broadcast load."""
+        rc = self.cache
+        p_args = dict(rc.get("pretrain_args") or {})
+        if int(p_args.get("epochs", 0) or 0) <= 0:
+            return False
+        sizes = {s: len(handles[s].get_train_dataset()) for s in self.site_ids}
+        designated = max(sizes, key=sizes.get)
+        xfer = os.path.join(self.workdir, "pretrain_xfer")
+        os.makedirs(xfer, exist_ok=True)
+
+        # overlay pretrain_args; shield the fold's logs and early-stop
+        # state, the resume flag and the checkpoint names (train_local's
+        # final autosave must not overwrite the fold's resume point)
+        shield = set(p_args) | {
+            "pretrain", "weights_file", "autosave_epochs", "resume",
+            "latest_nn_state", "best_nn_state",
+            Key.TRAIN_LOG.value, Key.VALIDATION_LOG.value,
+            "best_val_epoch", "best_val_score", "epoch", "cursor",
+        }
+        saved = {k: rc.get(k) for k in shield}
+        rc.update(p_args)
+        rc.update(pretrain=True, weights_file=None, autosave_epochs=0, resume=False,
+                  latest_nn_state=f"pretrain.latest.{rc['task_id']}.ckpt",
+                  best_nn_state=f"pretrain.best.{rc['task_id']}.ckpt")
+        rc[Key.TRAIN_LOG.value] = []
+        rc[Key.VALIDATION_LOG.value] = []
+        rc.update(best_val_epoch=0, best_val_score=None)
+        old_state, old_handle = trainer.state, trainer.data_handle
+        trainer.state = dict(old_state, transferDirectory=xfer)
+        trainer.data_handle = handles[designated]
+        try:
+            trainer.train_local(
+                handles[designated].get_train_dataset(),
+                handles[designated].get_validation_dataset(),
+            )
+        finally:
+            trainer.state, trainer.data_handle = old_state, old_handle
+            wfile = rc.get("weights_file")
+            for key, v in saved.items():
+                if v is None:
+                    # absent before the pretrain: removed, so that
+                    # `.get(key, default)` still finds its default
+                    rc.pop(key, None)
+                else:
+                    rc[key] = v
+        # the broadcast's adoption: a fresh init plus the weights
+        trainer.init_nn()
+        if wfile and os.path.exists(os.path.join(xfer, wfile)):
+            trainer.load_checkpoint(full_path=os.path.join(xfer, wfile),
+                                    load_optimizer=False, allow_torch=False)
+        logger.info(
+            f"MeshEngine: pretrain at {designated} "
+            f"({'adopted ' + wfile if wfile else 'no improvement'})",
+            rc.get("verbose", True),
+        )
+        return True
+
+    # ------------------------------------------------------------- evaluation
+    def _mesh_eval(self, fed, handles, which):
+        """Evaluation reduced over the sites: per-site loaders padded to
+        one length, one plane call per batch index."""
+        if which == "test" and bool(self.cache.get("load_sparse")):
+            return self._host_test_sparse(handles)
+        trainer = self._trainer
+        bs = int(self.cache.get("batch_size", 16))
+        datasets = {
+            s: (handles[s].get_validation_dataset() if which == "validation"
+                else handles[s].get_test_dataset())
+            for s in self.site_ids
+        }
+        nb = max((math.ceil(len(ds) / bs) for ds in datasets.values() if len(ds)),
+                 default=0)
+        metrics, averages = trainer.new_metrics(), trainer.new_averages()
+        if nb == 0:
+            return averages, metrics
+        loaders = {
+            s: (iter(handles[s].get_loader(which, dataset=datasets[s], shuffle=False,
+                                           target_batches=nb))
+                if len(datasets[s]) and self._site_loads(s) else None)
+            for s in self.site_ids
+        }
+        for _ in range(nb):
+            batches = [(next(loaders[s]) if loaders[s] is not None else None)
+                       for s in self.site_ids]
+            template = next(b for b in batches if b is not None)
+            filled = []
+            for b in batches:
+                if b is None:  # no data, or off the roster: fully masked
+                    b = dict(template)
+                    b["_mask"] = np.zeros_like(np.asarray(template["_mask"]))
+                filled.append(b)
+            m_state, a_state = fed.eval_step(filled)
+            if m_state is not None:
+                metrics.update(m_state)
+            averages.update(a_state)
+        return averages, metrics
+
+    def _host_test_sparse(self, handles):
+        """The fold test over per-subject datasets (``load_sparse``), per
+        site on the host with the exact cross-site count merge, and
+        per-subject ``save_predictions`` when asked (the JAX package's
+        ``_host_eval`` folded into its one caller)."""
+        trainer = self._trainer
+        metrics, averages = trainer.new_metrics(), trainer.new_averages()
+        save_pred = bool(self.cache.get("save_predictions"))
+        shared_state = trainer.state
+        try:
+            for s in self.site_ids:
+                trainer.data_handle = handles[s]
+                # the site's own state during its evaluation: user hooks
+                # (save_predictions) see the site's directories, as on the
+                # file transport
+                trainer.state = self.site_states[s]
+                ds = handles[s].get_test_dataset(load_sparse=True)
+                ds = ds if isinstance(ds, list) else [ds]
+                if not any(len(d) for d in ds):
+                    continue
+                a, m = trainer.evaluation(Mode.TEST, ds, save_pred=save_pred)
+                metrics.accumulate(m)
+                averages.accumulate(a)
+        finally:
+            trainer.data_handle = None
+            trainer.state = shared_state
+        return averages, metrics
+
+    # ---------------------------------------------------------------- wrap-up
+    def _finish(self):
+        """All folds done: reduce the fold scores, write the CSV, zip the
+        results (the aggregator's ``_send_global_scores``)."""
+        trainer = self._trainer
+        if trainer is None:
+            # every fold replayed from the run-state record (a resume after
+            # a crash inside _finish): the metric shells need no model
+            trainer = self.trainer_cls(
+                cache=self.cache, input={}, state={"outputDirectory": self.remote_out_dir},
+                data_handle=None, device=self.device,
+            )
+        rc = self.cache
+        pairs = rc[Key.GLOBAL_TEST_SERIALIZABLE.value]
+        averages = trainer.new_averages().reduce_sites([p["averages"] for p in pairs])
+        metrics = trainer.new_metrics().reduce_sites([p["metrics"] for p in pairs])
+        rc["global_test_metrics"] = [[*averages.get(), *metrics.get()]]
+        task_dir = os.path.join(self.remote_out_dir, str(rc["task_id"]))
+        utils.save_scores(rc, log_dir=task_dir, file_keys=["global_test_metrics"])
+        stamp = "_".join(str(datetime.datetime.now()).split(" "))
+        zip_name = f"{rc['task_id']}_{rc.get('agg_engine')}_{stamp}"
+        shutil.make_archive(os.path.join(self.workdir, zip_name), "zip", task_dir)
+        self.results_zip = f"{zip_name}.zip"
+        # the run completed: remove the resume record, so that a later run
+        # in this workdir never replays this run's fold results
+        try:
+            os.remove(self._run_state_path())
+        except OSError:
+            pass
+        self.success = True
 
 
 class SiteRunner:

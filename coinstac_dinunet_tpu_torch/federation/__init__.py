@@ -9,11 +9,27 @@ Port of the JAX package's ``federation/``.  So far:
   contract untouched; chaos fault plans (its ``worker_kill`` drill
   included), site quorum and staleness-bounded async rounds, whose pool
   drives several workers at once.
+- :mod:`.vector` — :class:`SiteVectorizedFederation` and
+  :func:`resolve_site_shards`: every simulated site's local step and the
+  cross-site reduce as one forward and one backward per micro-batch over
+  the card, the site axis folded into the batch axis.
+- :mod:`.engine` — :class:`SiteVectorizedEngine`: the
+  :class:`~..engine.MeshEngine` lifecycle over that plane, with chaos
+  kills, the site quorum and elastic membership on a fixed-capacity roster
+  mask.
 
-The site-vectorized federation, its engine, elastic membership and
-run-ahead pipelining are still to port (``ROADMAP.md`` Queue 1: the other engines and their
-options).
+Still to port (``ROADMAP.md`` Queue 1: the other engines and their
+options): run-ahead pipelining and the roster protocol of the serial
+engines (``membership.py``); sharding the site axis over several cards
+waits for Multiple devices.
 """
 from .daemon import DaemonEngine  # noqa: F401
+from .engine import SiteVectorizedEngine  # noqa: F401
+from .vector import SiteVectorizedFederation, resolve_site_shards  # noqa: F401
 
-__all__ = ["DaemonEngine"]
+__all__ = [
+    "DaemonEngine",
+    "SiteVectorizedEngine",
+    "SiteVectorizedFederation",
+    "resolve_site_shards",
+]

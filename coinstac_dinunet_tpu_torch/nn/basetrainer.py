@@ -301,12 +301,21 @@ class NNTrainer:
         a_state = averages_shell.update_state(averages_shell.empty_state(), vals, n)
         return m_state, a_state
 
-    def compute_grads(self, batches):
+    @staticmethod
+    def _own_loss(it, batch):
+        """The default ``loss_fn`` of ``compute_grads``: the iteration's loss,
+        for the backward and for the log."""
+        return it["loss"], it["loss"].detach()
+
+    def compute_grads(self, batches, loss_fn=None):
         """Mean gradients over the ``k`` device micro-batches: each batch's
         gradient accumulates into ``.grad`` and the sum is divided by ``k``
-        (the JAX package's ``gsum / k``).  Returns ``(grads, aux)`` —
+        (the JAX package's ``gsum / k``).  ``loss_fn(it, batch)`` returns
+        the scalar the backward takes and the loss value to log (default:
+        the iteration's ``loss`` for both).  Returns ``(grads, aux)`` —
         ``grads`` is ``{model: {param name: gradient}}``; ``aux`` holds the
-        round's metric/average states and mean loss."""
+        round's metric/average states and the mean of the logged losses."""
+        loss_fn = loss_fn or self._own_loss
         for m in self.nn.values():
             m.zero_grad(set_to_none=True)
         metrics_shell, averages_shell = self.new_metrics(), self.new_averages()
@@ -315,13 +324,14 @@ class NNTrainer:
         for batch in batches:
             with self._autocast():
                 it = self.iteration(batch, self.generator)
-            it["loss"].backward()
+            loss, logged = loss_fn(it, batch)
+            loss.backward()
             with torch.no_grad():
                 m_state, a_state = self._step_outputs(it, batch, metrics_shell,
                                                       averages_shell)
             msum = m_state if msum is None else {k: msum[k] + m_state[k] for k in msum}
             asum = a_state if asum is None else {k: asum[k] + a_state[k] for k in asum}
-            losses.append(it["loss"].detach())
+            losses.append(logged)
         k = len(batches)
         grads = {}
         for name, m in self.nn.items():
@@ -344,9 +354,9 @@ class NNTrainer:
             self.optimizer[name].step()
         self.step += 1
 
-    def train_step(self, batches):
+    def train_step(self, batches, loss_fn=None):
         """compute_grads + the optimizer step (the local training path)."""
-        _, aux = self.compute_grads(batches)
+        _, aux = self.compute_grads(batches, loss_fn)
         for opt in self.optimizer.values():
             opt.step()
         self.step += 1

@@ -34,7 +34,9 @@ its last output ONE round later (the dropped-site-reappears scenario).
 mid-invocation or between rounds): the expected outcome is a
 ``worker:restart``, never a dead site; the serial engines without workers
 never query it.  ``join``, ``leave`` and ``rejoin`` are elastic-membership
-operations: plans holding them validate, and the port's engines refuse
+operations, which :meth:`ChaosSession.membership_ops` hands to the engine
+at their round: the site-vectorized engine (``federation/engine.py``)
+applies them to its roster mask; the serial engines refuse a plan holding
 them (``ROADMAP.md`` Queue 1: the other engines and their options).
 
 Optional per-fault keys: ``times`` (firings before the fault heals;
@@ -220,8 +222,8 @@ def churn_plan(n_sites, fraction, first_round=2, rounds=4, seed=0, min_active_fr
     founding roster, rejoins re-admit left sites (a join when none has
     left), and the active roster never drops below ``min_active_frac`` of
     the founding size (a leave becomes a join there).  Returns a plan
-    dict; the port's engines refuse its operations (elastic membership is
-    not ported)."""
+    dict; the site-vectorized engine applies its operations and the serial
+    engines refuse them."""
     n_sites = int(n_sites)
     if not 0.0 < float(fraction) < 1.0:
         raise ValueError(
@@ -296,6 +298,9 @@ class _NullChaos:
 
     def worker_fault(self, rnd, site, rec, when="invoke"):
         return None
+
+    def membership_ops(self, rnd, rec):
+        return ()
 
     def reappear_deliveries(self, rnd, rec):
         return ()
@@ -401,6 +406,20 @@ class ChaosSession:
             self._fire(fault, rec, when=fault.when)
             return fault
         return None
+
+    def membership_ops(self, rnd, rec):
+        """The elastic-membership operations pinned to this round, in plan
+        order: ``[(kind, site), ...]`` with kind join, leave or rejoin.  The
+        engine acts on them; each fires exactly once."""
+        ops = []
+        for fault in self.faults:
+            if fault.kind not in MEMBERSHIP_KINDS:
+                continue
+            if not (fault.matches(rnd) and fault.can_fire()):
+                continue
+            self._fire(fault, rec)
+            ops.append((fault.kind, fault.site))
+        return ops
 
     def reappear_deliveries(self, rnd, rec):
         """Sites whose reappear redelivery is due this round; each delivers

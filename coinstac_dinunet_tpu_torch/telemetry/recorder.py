@@ -12,7 +12,9 @@ What the port wires so far is the ENGINE lane: ``telemetry.engine.jsonl``
 in the engine's workdir, written by ``engine.py`` (rounds, invocations,
 the relay, heartbeats, invoke retries and timeouts, chaos injections and
 heals, site deaths, async stand-ins) and by ``federation/daemon.py``
-(worker start, restart, shutdown, frames).  Deep layers reach the ambient
+(worker start, restart, shutdown, frames) and by
+``federation/engine.py`` (the site-vectorized engine's rounds, throughput
+metrics, heartbeats, membership events, site deaths and quorum).  Deep layers reach the ambient
 recorder through :func:`get_active` (the aggregator's quorum and window
 decisions, the reducer's staleness discount); the engine makes its lane
 the ambient recorder around the aggregator's invocation.  An aggregator in
@@ -102,6 +104,9 @@ class _NullRecorder:
 
     def span(self, name, cat="phase", **attrs):
         return _NULL_SPAN
+
+    def record_span(self, name, t0, dur, cat="phase", **attrs):
+        pass
 
     def event(self, name, cat="event", **attrs):
         pass
@@ -255,6 +260,12 @@ class Recorder:
     def span(self, name, cat="phase", **attrs):
         """Context manager measuring one section as a span record."""
         return _Span(self, name, cat, attrs)
+
+    def record_span(self, name, t0, dur, cat="phase", **attrs):
+        """Emit an already-measured span (start wall clock and duration),
+        for a section whose bounds are known only afterwards: the
+        site-vectorized engine's round, measured hook to hook."""
+        self._end_span(name, cat, float(t0), float(dur), attrs)
 
     def _end_span(self, name, cat, t0, dt, attrs, failed=False):
         rec = {"v": SCHEMA_VERSION, "kind": "span", "name": name, "cat": cat,

@@ -59,6 +59,39 @@ def test_daemon_and_telemetry_modules_import_no_jax():
     assert out.stdout.strip().splitlines()[-1] == "BAD []"
 
 
+def test_vectorized_federation_modules_import_no_jax():
+    """The site-vectorized federation's modules and ``MeshEngine``'s, alone
+    in a fresh interpreter: nothing of JAX, msgpack or the JAX package."""
+    code = textwrap.dedent("""
+        import importlib, sys
+        for name in ("federation.vector", "federation.engine", "engine", "metrics.loss"):
+            importlib.import_module("coinstac_dinunet_tpu_torch." + name)
+        from coinstac_dinunet_tpu_torch.federation import (
+            SiteVectorizedEngine, SiteVectorizedFederation, resolve_site_shards)
+        from coinstac_dinunet_tpu_torch.engine import MeshEngine
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "msgpack")
+                     or m == "coinstac_dinunet_tpu" or m.startswith("coinstac_dinunet_tpu."))
+        print("BAD", bad)
+    """)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env=dict(os.environ, PYTHONPATH=REPO), cwd=REPO, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "BAD []"
+
+
+def test_vectorized_engines_need_a_card_unless_given_cpu(tmp_path, monkeypatch):
+    from coinstac_dinunet_tpu_torch.engine import MeshEngine
+    from coinstac_dinunet_tpu_torch.federation import SiteVectorizedEngine
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for cls in (MeshEngine, SiteVectorizedEngine):
+        for dev in (None, "cuda"):
+            with pytest.raises(RuntimeError, match="CUDA"):
+                cls(tmp_path / cls.__name__, n_sites=2, device=dev)
+        assert cls(tmp_path / cls.__name__, n_sites=2, device="cpu").device == torch.device("cpu")
+
+
 def test_daemon_worker_without_a_script_prints_its_usage():
     out = subprocess.run(
         [sys.executable, "-m", "coinstac_dinunet_tpu_torch.federation.daemon"],
