@@ -152,7 +152,30 @@ Phases, in order; any failure exits non-zero before the last line:
    round's ``rounds_per_sec``, ``sites_per_sec`` and memory sample, the
    ``fed_step`` samples/s, no anomaly; the wall and steady round times of
    both (10a's first gradient round holds the process's first launches on
-   the card).
+   the card);
+15. main path 11 — the other metrics and data: path 1's VBM configuration
+   reading NIfTI files (``NiftiVBMDataset``) written on SPM's standard-space
+   grid (91 x 109 x 91, center-cropped to 64^3), half float32 ``.nii.gz``,
+   half int16 ``.nii`` with a header slope, 64 labelled subjects and one
+   unlabelled stray file a site.  11a: 3 classes (``ConfusionMatrix``)
+   after a one-epoch local pretrain on site_0 through ``device_prefetch``
+   (``prefetch_batches=2``): SUCCESS, each site indexing exactly its 64
+   labelled files, K1 once per payload over 23 leaves in every gradient
+   round, every log row loss + P, R, F1 and accuracy, the reduced test
+   matrix summing to the test subjects, the broadcast load bit-equal, and
+   the pretrainer's weights bit-equal to a rerun with
+   ``prefetch_batches=0`` (cuDNN's deterministic algorithms for both).
+   11b: ``monitor_metric="auc"`` on the binary labels
+   (``labels_file``): every validation and the global test AUC in (0, 1],
+   the global test AUC within 1e-4 of this script's rank-sum AUC over the
+   (probability, label) pairs the aggregator received, K1 as in 11a.
+   11c: path 8's 12a configuration with the AUC through
+   ``SiteVectorizedEngine`` against ``InProcessEngine``: the four logs
+   within 2e-3 (bfloat16, or a float32 rerun of both), the train-log AUC
+   above 0, K2-K4 in every gradient round.  Printed: the data's writing
+   time, the host ms to read a batch of 16 volumes of each kind, the
+   pretrain epoch with ``prefetch_batches`` 0 and 2 in turns, 11a's
+   gradient rounds and a profiled one, the wall times of 11a-11c.
 
 Then one JSON line ``{"kernels": [...]}``, the ``nvidia-smi`` name/power
 line, and the last line ``{"ok": true, "device": {...}}``.  Per-shape
@@ -889,10 +912,11 @@ def run_main_path(dev, workdir):
     }
 
 
-def run_seq_path(dev, workdir, compute_dtype=None):
+def run_seq_path(dev, workdir, compute_dtype=None, extra=None):
     """Federated dSGD of the width-128 sequence transformer on 4096-step
     sequences to SUCCESS; K2–K4 launched in every gradient round.
-    ``compute_dtype`` replaces path 2's bfloat16 (phase 12a's rerun)."""
+    ``compute_dtype`` replaces path 2's bfloat16 (phase 12a's rerun);
+    ``extra`` adds to the node arguments (phase 15c's AUC)."""
     import json as _json
 
     import torch
@@ -904,7 +928,8 @@ def run_seq_path(dev, workdir, compute_dtype=None):
     eng = InProcessEngine(
         workdir, n_sites=N_SITES, trainer_cls=SeqTrainer, dataset_cls=SyntheticSeqDataset,
         device=dev, task_id=SEQ_TASK,
-        **{**seq_node_args(), **({"compute_dtype": compute_dtype} if compute_dtype else {})},
+        **{**seq_node_args(), **({"compute_dtype": compute_dtype} if compute_dtype else {}),
+           **(extra or {})},
     )
     make_seq_files(eng)
 
@@ -2174,11 +2199,12 @@ def log_distance(got, want):
                for k in want)
 
 
-def run_vec_same_function(dev, workdir, fa, compute_dtype=None):
+def run_vec_same_function(dev, workdir, fa, compute_dtype=None, extra=None):
     """12a: path 2's configuration through ``SiteVectorizedEngine`` (both
     sites' steps in one folded batch): its logs against path 2's.  With
-    ``compute_dtype`` both runs take that dtype (the float32 rerun)."""
-    args = seq_node_args()
+    ``compute_dtype`` both runs take that dtype (the float32 rerun);
+    ``extra`` adds to the node arguments (phase 15c's AUC)."""
+    args = {**seq_node_args(), **(extra or {})}
     if compute_dtype is not None:
         args["compute_dtype"] = compute_dtype
     from coinstac_dinunet_tpu_torch.models import SeqTrainer, SyntheticSeqDataset
@@ -3189,6 +3215,414 @@ def log_health_paths(path, vec, smi):
         f"utilization {b['hbm_utilization']} of {b['mem_get_info_total']}")
 
 
+# ---- path 11 (phase 15): the other metrics and data.  The VBM gray-matter
+# maps as a deployment holds them: one NIfTI file per subject on SPM's
+# standard-space grid (MNI 2 mm, 91 x 109 x 91), which NiftiVBMDataset
+# center-crops to the model's 64^3 on every axis; half float32 .nii.gz,
+# half int16 .nii whose header scales them (scl_slope != 1, patched at
+# byte 112 as tests/test_nifti.py does); a class offset on the mean of a
+# central region (a whole-volume offset would not survive the per-subject
+# z-score); one unlabelled stray file a site
+NIFTI_TASK = "vbm_nifti"
+NIFTI_GRID = (91, 109, 91)
+NIFTI_SUBJECTS = 64
+NIFTI_CLASSES = 3
+NIFTI_REGION = 24  # the edge of the central cube that carries the class offset
+NIFTI_CLASS_OFFSET = 0.5
+NIFTI_INT16_SCALING = (2.5e-4, 0.5)  # scl_slope, scl_inter
+NIFTI_PREFETCH_TURNS = 3
+NIFTI_AUC_ATOL = 1e-4
+NIFTI_NODE_ARGS = dict(
+    task_id=NIFTI_TASK, data_dir="data", input_shape=[64, 64, 64], model_width=WIDTH,
+    batch_size=VBM_BATCH, epochs=1, split_ratio=[0.75, 0.125, 0.125], precision_bits=8,
+    compute_dtype="bfloat16", seed=7, patience=100,
+)
+AUC_NODE_ARGS = dict(monitor_metric="auc", log_header="loss|auc")
+
+
+def _write_subject(path, vol, int16):
+    import struct
+
+    import numpy as np
+
+    from coinstac_dinunet_tpu_torch.data.nifti import save_nifti
+
+    if not int16:
+        save_nifti(path, vol)
+        return
+    slope, inter = NIFTI_INT16_SCALING
+    save_nifti(path, np.round((vol - inter) / slope).astype(np.int16))
+    with open(path, "r+b") as f:
+        f.seek(112)
+        f.write(struct.pack("<2f", slope, inter))
+
+
+def write_nifti_sites(root, sites):
+    """Each site's directory under ``root``: ``NIFTI_SUBJECTS`` labelled
+    volumes (label ``i % 3``; even ``i`` float32 ``.nii.gz``, odd ``i``
+    int16 ``.nii``), one stray ``.nii.gz``, ``labels.csv`` (3 classes) and
+    ``labels_binary.csv`` (label >= 1).  Written by 8 threads (zlib
+    releases the GIL); returns the seconds and bytes."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    t0 = time.perf_counter()
+    jobs = []
+    c = [(n - NIFTI_REGION) // 2 for n in NIFTI_GRID]
+    region = tuple(slice(a, a + NIFTI_REGION) for a in c)
+    for k, s in enumerate(sites):
+        d = os.path.join(root, s)
+        os.makedirs(d)
+        rng = np.random.default_rng(1000 + k)
+        rows3, rows2 = [], []
+        for i in range(NIFTI_SUBJECTS):
+            y = i % NIFTI_CLASSES
+            vol = rng.normal(size=NIFTI_GRID).astype(np.float32)
+            vol[region] += NIFTI_CLASS_OFFSET * y
+            name = f"{s}_sub{i:03d}" + (".nii" if i % 2 else ".nii.gz")
+            jobs.append((os.path.join(d, name), vol, bool(i % 2)))
+            rows3.append(f"{name},{y}")
+            rows2.append(f"{name},{int(y >= 1)}")
+        jobs.append((os.path.join(d, "stray_scan.nii.gz"),
+                     rng.normal(size=NIFTI_GRID).astype(np.float32), False))
+        for fname, rows in (("labels.csv", rows3), ("labels_binary.csv", rows2)):
+            with open(os.path.join(d, fname), "w") as f:
+                f.write("filename,label\n" + "\n".join(rows) + "\n")
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(lambda j: _write_subject(*j), jobs))
+    size = sum(os.path.getsize(os.path.join(root, s, f)) for s in sites
+               for f in os.listdir(os.path.join(root, s)))
+    return time.perf_counter() - t0, size
+
+
+def make_nifti_engine(dev, workdir, data_root, **args):
+    """Path 11's engine over the files under ``data_root`` (linked into
+    each site's data directory), not yet run."""
+    from coinstac_dinunet_tpu_torch import InProcessEngine
+    from coinstac_dinunet_tpu_torch.models import NiftiVBMDataset, VBMTrainer
+
+    eng = InProcessEngine(workdir, n_sites=N_SITES, trainer_cls=VBMTrainer,
+                          dataset_cls=NiftiVBMDataset, device=dev,
+                          **{**NIFTI_NODE_ARGS, **args})
+    for s in eng.site_ids:
+        src = os.path.join(data_root, s)
+        for f in os.listdir(src):
+            os.symlink(os.path.join(src, f), os.path.join(eng.site_data_dir(s), f))
+    return eng
+
+
+def _weights_leaves(eng, site):
+    """The leaves of the wire checkpoint ``site`` advertised (its best
+    pretrain weights)."""
+    from coinstac_dinunet_tpu_torch.utils import flax_msgpack
+
+    path = os.path.join(eng.site_states[site]["transferDirectory"],
+                        eng.site_caches[site]["weights_file"])
+    with open(path, "rb") as f:
+        return _flat_leaves(flax_msgpack.restore(f.read())["models"])
+
+
+def run_nifti_engine(eng, profile=False, stop_after_pretrain=False):
+    """Step a path-11 engine to SUCCESS: K1 once per payload over all 23
+    leaves in every gradient round (path 1's check); the pretrain's
+    weights read as soon as the pretrainer advertises them, and every
+    site's load of the broadcast checked bit for bit; with ``profile``
+    the second gradient round under ``torch.profiler``."""
+    import torch
+
+    from coinstac_dinunet_tpu_torch.ops import quantize as q
+
+    q.KERNEL.launches = 0
+    q.KERNEL.segments = 0
+    grad_rounds, rounds, prof, pretrain = 0, [], None, None
+    want = N_SITES + 1, (N_SITES + 1) * VBM_LEAVES
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while not eng.success and eng.rounds < 60:
+        broadcast = eng.site_inputs[eng.site_ids[0]].get("pretrained_weights")
+        before = q.KERNEL.launches, q.KERNEL.segments
+        profiled = profile and prof is None and grad_rounds == 1
+        tr = time.perf_counter()
+        if profiled:
+            site_outs, p = profiled_round(eng)
+        else:
+            site_outs, _ = eng.step_round()
+            torch.cuda.synchronize()
+        dt = time.perf_counter() - tr
+        grew = q.KERNEL.launches - before[0], q.KERNEL.segments - before[1]
+        grad = all(o.get("reduce") for o in site_outs.values())
+        rounds.append({"round": eng.rounds, "s": dt, "gradient": grad, "profiled": profiled,
+                       "launches": grew[0], "segments": grew[1]})
+        if grad:
+            grad_rounds += 1
+            if grew != want:
+                raise AssertionError(
+                    f"round {eng.rounds}: K1 launched {grew[0]} times over {grew[1]} "
+                    f"segments, expected {want[0]} launches over {want[1]} segments")
+            if profiled:
+                prof = p
+        if pretrain is None:
+            pre = [s for s in eng.site_ids if eng.site_caches[s].get("pretrain")
+                   and eng.site_caches[s].get("weights_file")]
+            if pre:
+                pretrain = {"site": pre[0], "round": eng.rounds,
+                            "leaves": _weights_leaves(eng, pre[0])}
+                if stop_after_pretrain:
+                    break
+        if broadcast:
+            check_pretrain_load(eng)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if not stop_after_pretrain and not eng.success:
+        raise AssertionError(f"no SUCCESS after {eng.rounds} rounds")
+    if not stop_after_pretrain and (grad_rounds == 0 or q.KERNEL.launches == 0):
+        raise AssertionError("the NIfTI path shipped no gradients through K1")
+    return {"rounds": rounds, "grad_rounds": grad_rounds, "wall_s": wall,
+            "launches": q.KERNEL.launches, "segments": q.KERNEL.segments,
+            "profile": prof, "pretrain": pretrain}
+
+
+def _indexed(eng, site, split=None, **cache):
+    """The subjects ``site``'s dataset indexes from its split file (one
+    split or all three)."""
+    from coinstac_dinunet_tpu_torch.models import NiftiVBMDataset
+
+    with open(os.path.join(eng.site_states[site]["outputDirectory"], NIFTI_TASK, "splits",
+                           "SPLIT.json")) as f:
+        splits = json.load(f)
+    ds = NiftiVBMDataset()
+    files = [f for k, v in splits.items() if split in (None, k) for f in v]
+    ds.add(files, cache={**NIFTI_NODE_ARGS, **cache}, state=eng.site_states[site])
+    return [f for _, f in ds.indices]
+
+
+def rank_sum_auc(probs, labels):
+    """The pairwise (Mann-Whitney) AUC, a tie counting one half."""
+    import numpy as np
+
+    probs, labels = np.asarray(probs, np.float64), np.asarray(labels, np.float64)
+    pos, neg = probs[labels > 0.5], probs[labels <= 0.5]
+    wins = (pos[:, None] > neg[None, :]).sum() + 0.5 * (pos[:, None] == neg[None, :]).sum()
+    return float(wins) / (len(pos) * len(neg))
+
+
+def time_volume_reads(site_dir):
+    """Host milliseconds to read one batch of 16 volumes of each file kind:
+    the read (and gunzip) alone, and the dataset's whole ``__getitem__``
+    (read, parse, scale, crop, z-score).  The files were just written: the
+    page cache holds them."""
+    from coinstac_dinunet_tpu_torch.data import nifti
+    from coinstac_dinunet_tpu_torch.models import NiftiVBMDataset
+
+    ds = NiftiVBMDataset()
+    ds.add(sorted(os.listdir(site_dir)), cache={"input_shape": [64, 64, 64], "data_dir": ""},
+           state={"baseDirectory": site_dir})
+    out = {}
+    for kind, ext in (("float32 .nii.gz", ".nii.gz"), ("int16 .nii, scaled", ".nii")):
+        ix = [i for i, (_, f) in enumerate(ds.indices) if f.endswith(ext)][:VBM_BATCH]
+        for _ in range(2):  # the second pass is the one kept
+            t0 = time.perf_counter()
+            for i in ix:
+                nifti._read_bytes(os.path.join(site_dir, ds.indices[i][1]))
+            t1 = time.perf_counter()
+            for i in ix:
+                ds[i]
+            t2 = time.perf_counter()
+        out[kind] = {"volumes": len(ix), "read_ms": (t1 - t0) * 1e3,
+                     "getitem_ms": (t2 - t1) * 1e3,
+                     "parse_crop_zscore_ms": (t2 - t1 - (t1 - t0)) * 1e3}
+    return out
+
+
+def time_pretrain_epochs(dev, workdir, site_dir):
+    """The pretrain's epoch alone (``train_local``, one epoch, no
+    validation) on one site's files with ``prefetch_batches`` 0 and 2 in
+    turns, after one warm-up epoch; a fresh trainer each turn."""
+    import torch
+
+    from coinstac_dinunet_tpu_torch.data import COINNDataHandle
+    from coinstac_dinunet_tpu_torch.models import NiftiVBMDataset, VBMTrainer
+
+    times = {0: [], 2: []}
+    order = [2] + [p for _ in range(NIFTI_PREFETCH_TURNS) for p in (0, 2)]
+    for turn, prefetch in enumerate(order):
+        root = os.path.join(workdir, f"turn{turn}")
+        os.makedirs(os.path.join(root, "xfer"))
+        os.symlink(site_dir, os.path.join(root, "data"))
+        cache = {**NIFTI_NODE_ARGS, "num_classes": NIFTI_CLASSES, "validation_epochs": 2,
+                 "autosave_epochs": 0, "prefetch_batches": prefetch, "verbose": False,
+                 "log_dir": os.path.join(root, "logs")}
+        state = {"baseDirectory": root, "outputDirectory": os.path.join(root, "out"),
+                 "transferDirectory": os.path.join(root, "xfer"), "clientId": "site_0"}
+        handle = COINNDataHandle(cache=cache, state=state, dataset_cls=NiftiVBMDataset)
+        handle.prepare_data()
+        cache["split_ix"] = 0
+        trainer = VBMTrainer(cache=cache, state=state, data_handle=handle, device=dev)
+        trainer.init_nn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.train_local()
+        torch.cuda.synchronize()
+        if turn:
+            times[prefetch].append(time.perf_counter() - t0)
+    return times
+
+
+def run_nifti_path(dev, workdir):
+    """Path 11 (phase 15): 11a the 3-class NIfTI pipeline with a local
+    pretrain (prefetch on, bit-equal to a rerun with it off), 11b the AUC
+    over the file wire, 11c the AUC on the vectorized plane against the
+    file wire through K2-K4; and the host's costs."""
+    import numpy as np
+    import torch
+
+    from coinstac_dinunet_tpu_torch.config.keys import Key
+    from coinstac_dinunet_tpu_torch.metrics import AUCROCMetrics, ConfusionMatrix
+
+    out = {}
+    data = os.path.join(workdir, "nifti")
+    sites = [f"site_{i}" for i in range(N_SITES)]
+    write_s, write_bytes = write_nifti_sites(data, sites)
+    out["data"] = {"write_s": write_s, "bytes": write_bytes, "grid": NIFTI_GRID,
+                   "files_per_site": len(os.listdir(os.path.join(data, sites[0])))}
+    out["read_batch_ms"] = time_volume_reads(os.path.join(data, sites[0]))
+    faults = []
+
+    # ---- 11a: 3 classes, a pretrain with prefetch on; cuDNN's
+    # deterministic algorithms, so that the rerun can be held bit for bit
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        eng = make_nifti_engine(dev, os.path.join(workdir, "11a"), data,
+                                num_classes=NIFTI_CLASSES, prefetch_batches=2,
+                                pretrain_args={"epochs": 1})
+        a = run_nifti_engine(eng, profile=True)
+        rerun = make_nifti_engine(dev, os.path.join(workdir, "11a_rerun"), data,
+                                  num_classes=NIFTI_CLASSES, prefetch_batches=0,
+                                  pretrain_args={"epochs": 1})
+        r = run_nifti_engine(rerun, stop_after_pretrain=True)
+        out["pretrain_epoch_s"] = time_pretrain_epochs(dev, os.path.join(workdir, "turns"),
+                                                       os.path.join(data, sites[0]))
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    metrics = check_outputs(eng, os.path.join(workdir, "11a"))
+    if a["pretrain"] is None or r["pretrain"] is None:
+        faults.append("11a: no pretrain weights advertised")
+    else:
+        pa, pr = a["pretrain"]["leaves"], r["pretrain"]["leaves"]
+        if [k for k, _ in pa] != [k for k, _ in pr] or not all(
+                np.array_equal(x, y) for (_, x), (_, y) in zip(pa, pr)):
+            faults.append("11a: the pretrainer's weights with prefetch_batches=2 differ from "
+                          "the rerun's with prefetch_batches=0")
+    for s in sites:
+        indexed = _indexed(eng, s)
+        if len(indexed) != NIFTI_SUBJECTS or len(set(indexed)) != NIFTI_SUBJECTS or \
+                any("stray" in f for f in indexed):
+            faults.append(f"11a: {s} indexed {len(indexed)} files, want its "
+                          f"{NIFTI_SUBJECTS} labelled ones")
+    rows = {k: eng.remote_cache[k] for k in ("train_log", "validation_log", "test_metrics",
+                                             "global_test_metrics")}
+    if not all(len(row) == 5 and all(np.isfinite(row)) for v in rows.values() for row in v):
+        faults.append(f"11a: log rows are not loss + P, R, F1, accuracy: {rows}")
+    matrix = ConfusionMatrix.reduce_sites(
+        [p["metrics"] for p in eng.remote_cache[Key.GLOBAL_TEST_SERIALIZABLE.value]]).matrix
+    n_test = sum(len(_indexed(eng, s, "test")) for s in sites)
+    if matrix.shape != (NIFTI_CLASSES,) * 2 or matrix.sum() != n_test:
+        faults.append(f"11a: the reduced test matrix {matrix.tolist()} does not sum to the "
+                      f"{n_test} test subjects")
+    steady = [x["s"] for x in a["rounds"] if x["gradient"] and not x["profiled"]][1:]
+    out["11a"] = {**{k: v for k, v in a.items() if k != "pretrain"},
+                  "pretrain_site": a["pretrain"] and a["pretrain"]["site"],
+                  "pretrain_round": a["pretrain"] and a["pretrain"]["round"],
+                  "pretrain_leaves_held": a["pretrain"] and len(a["pretrain"]["leaves"]),
+                  "steady_grad_round_s": steady, "test_matrix": matrix.tolist(),
+                  "logs": rows, "global_test_metrics": metrics}
+
+    # ---- 11b: the AUC over the file wire
+    eng = make_nifti_engine(dev, os.path.join(workdir, "11b"), data, num_classes=2,
+                            labels_file="labels_binary.csv", **AUC_NODE_ARGS)
+    b = run_nifti_engine(eng)
+    check_outputs(eng, os.path.join(workdir, "11b"))
+    pairs = [p["metrics"] for p in eng.remote_cache[Key.GLOBAL_TEST_SERIALIZABLE.value]]
+    labels = np.concatenate([np.asarray(m[0]) for m in pairs])
+    probs = np.concatenate([np.asarray(m[1]) for m in pairs])
+    mine = rank_sum_auc(probs, labels)
+    val_auc = [row[-1] for row in eng.remote_cache["validation_log"]]
+    test_auc = eng.remote_cache["global_test_metrics"][0][-1]
+    if not all(0.0 < v <= 1.0 for v in [*val_auc, test_auc]):
+        faults.append(f"11b: AUC outside (0, 1]: validation {val_auc}, test {test_auc}")
+    if abs(test_auc - mine) > NIFTI_AUC_ATOL or \
+            AUCROCMetrics.reduce_sites(pairs).auc != test_auc:
+        faults.append(f"11b: global test AUC {test_auc}, the pairs' rank-sum AUC {mine}")
+    out["11b"] = {**{k: v for k, v in b.items() if k != "pretrain"}, "validation_auc": val_auc,
+                  "global_test_auc": test_auc, "pairs_auc": mine, "pairs": len(labels)}
+
+    # ---- 11c: the AUC on the vectorized plane against the file wire
+    fa = importlib.import_module("coinstac_dinunet_tpu_torch.ops.flash_attention")
+    c = {}
+    for dtype in (None, "float32"):
+        serial = run_seq_path(dev, os.path.join(workdir, f"11c_serial_{dtype}"),
+                              compute_dtype=dtype, extra=AUC_NODE_ARGS)
+        vec = run_vec_same_function(dev, os.path.join(workdir, f"11c_vec_{dtype}"), fa,
+                                    compute_dtype=dtype, extra=AUC_NODE_ARGS)
+        want = {**serial["logs"], "global_test_metrics": serial["global_test_log"]}
+        c[dtype or "bfloat16"] = {
+            "distance": log_distance(vec["logs"], want), "serial_wall_s": serial["wall_s"],
+            "vec_wall_s": vec["wall_s"], "serial_launches": serial["launches"],
+            "vec_launches": vec["launches"], "vec_logs": vec["logs"], "serial_logs": want}
+        if dtype is None:
+            out["11c_launches"] = {k: serial["launches"][k] + vec["launches"][k]
+                                   for k in FLASH_SOURCES}
+        if min(row[-1] for row in vec["logs"]["train_log"]) <= 0.0:
+            faults.append(f"11c ({dtype or 'bfloat16'}): a train-log AUC is not above 0: "
+                          f"{vec['logs']['train_log']}")
+        if c[dtype or "bfloat16"]["distance"] <= VEC_LOG_ATOL:
+            break
+    else:
+        faults.append(f"11c: logs {c['bfloat16']['distance']:.3e} apart in bfloat16 and "
+                      f"{c['float32']['distance']:.3e} in float32, tolerance {VEC_LOG_ATOL}")
+    out["11c"] = c
+    if faults:
+        raise AssertionError("path 11:\n  " + "\n  ".join(faults))
+    return out
+
+
+def log_nifti_path(path, smi):
+    d, a, b = path["data"], path["11a"], path["11b"]
+    log(f"  data: {2 * NIFTI_SUBJECTS} labelled subjects + {N_SITES} strays on the "
+        f"{'x'.join(map(str, d['grid']))} grid, {d['bytes']} bytes written in "
+        f"{d['write_s']:.3f} s (apart from the runs)")
+    for kind, t in path["read_batch_ms"].items():
+        log(f"  host ms to read a batch of {t['volumes']} {kind}: {t['getitem_ms']:.2f} "
+            f"(read{' + gunzip' if 'gz' in kind else ''} {t['read_ms']:.2f}, parse + scale + "
+            f"crop + z-score {t['parse_crop_zscore_ms']:.2f})")
+    pe = path["pretrain_epoch_s"]
+    log("  pretrain epoch s, prefetch_batches 0 / 2 in turns: " + ", ".join(
+        f"{x:.3f} / {y:.3f}" for x, y in zip(pe[0], pe[2])))
+    grads = [x for x in a["rounds"] if x["gradient"]]
+    log(f"  11a: {len(a['rounds'])} rounds ({a['grad_rounds']} with gradients) to SUCCESS in "
+        f"{a['wall_s']:.3f} s; pretrain on {a['pretrain_site']} in round "
+        f"{a['pretrain_round']}, its {a['pretrain_leaves_held']} leaves bit-equal to the "
+        f"prefetch_batches=0 rerun; K1 launches {a['launches']} over {a['segments']} "
+        f"segments; test matrix {a['test_matrix']} | {smi}")
+    log("  11a gradient rounds s: " + " ".join(
+        f"{x['s']:.3f}{'(profiled)' if x['profiled'] else ''}" for x in grads)
+        + f"; steady {' '.join(f'{t:.4f}' for t in a['steady_grad_round_s'])}")
+    if a["profile"]:
+        log_profiles([a["profile"]])
+    log(f"  11b: AUC over the file wire, {len(b['rounds'])} rounds to SUCCESS in "
+        f"{b['wall_s']:.3f} s; validation AUC {b['validation_auc']}, global test AUC "
+        f"{b['global_test_auc']} vs {b['pairs_auc']:.6f} from the {b['pairs']} pairs; K1 "
+        f"launches {b['launches']} | {smi}")
+    for dtype, c in path["11c"].items():
+        log(f"  11c ({dtype}): AUC on the vectorized plane {c['vec_wall_s']:.3f} s, file wire "
+            f"{c['serial_wall_s']:.3f} s, logs {c['distance']:.3e} apart (tolerance "
+            f"{VEC_LOG_ATOL}); launches vectorized {c['vec_launches']}, file wire "
+            f"{c['serial_launches']}")
+
+
+
 def profiled_round(eng):
     """One engine round under ``torch.profiler``: the round's host wall
     time, the device time its kernels took, the idle share, and the
@@ -3441,12 +3875,21 @@ def main():
         drain_path = run_drain_path(dev, wd)
     log_membership_path(mem_path, drain_path, smi)
 
+    log(f"[15 main path 11: VBM on NIfTI files, ConfusionMatrix, AUC, device prefetch] "
+        f"{N_SITES} sites x {NIFTI_SUBJECTS} subjects on the {'x'.join(map(str, NIFTI_GRID))} "
+        f"grid | {smi}")
+    with tempfile.TemporaryDirectory() as wd:
+        nifti_path = run_nifti_path(dev, wd)
+    log_nifti_path(nifti_path, smi)
+
     k1["launches_by_path"] = {"vbm_dsgd": main_path["launches"],
                               "vbm_pretrain_powersgd": psgd_path["launches"],
                               "seq_rankdad": dad_path["k1_launches"],
                               "seq_async_chaos": async_path["k1_launches"],
                               "seq_membership_run_ahead": mem_path["k1_launches"],
-                              "seq_health_quarantine": health_path["k1_launches"]}
+                              "seq_health_quarantine": health_path["k1_launches"],
+                              "vbm_nifti_metrics": (nifti_path["11a"]["launches"]
+                                                    + nifti_path["11b"]["launches"])}
     for kern in k234:
         kern["launches_by_path"] = {"seq_dsgd": seq_path["launches"][kern["name"]],
                                     "seq_rankdad": dad_path["launches"][kern["name"]],
@@ -3456,14 +3899,15 @@ def main():
                                     "seq_vectorized": vec_path["12b"]["launches"][kern["name"]],
                                     "seq_membership_run_ahead": mem_path["launches"][kern["name"]],
                                     "seq_health_quarantine": health_path["launches"][kern["name"]],
-                                    "seq_health_vectorized": health_vec["launches"][kern["name"]]}
+                                    "seq_health_vectorized": health_vec["launches"][kern["name"]],
+                                    "vbm_nifti_metrics": nifti_path["11c_launches"][kern["name"]]}
     kernels = [k1, *k234]
     report.update(main_path=main_path, seq_path=seq_path, powersgd_path=psgd_path,
                   rankdad_path=dad_path, fresh_process_path=fresh_path,
                   daemon_path=daemon_path, async_chaos_path=async_path,
                   vectorized_path=vec_path, membership_path=mem_path,
                   drain_path=drain_path, health_path=health_path,
-                  health_vectorized_path=health_vec, device=kind,
+                  health_vectorized_path=health_vec, nifti_path=nifti_path, device=kind,
                   power=smi, kernels=kernels)
     out_dir = os.path.join(HERE, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)

@@ -8,14 +8,13 @@ points (:class:`InProcessEngine`, :class:`SiteRunner`, the trainers) run on
 ``cuda`` unless given ``device="cpu"``.  The hand-written Hopper kernels
 live in ``csrc/`` and build at first use (``ops/_cuda.py``).
 
-This slice carries the lockstep dSGD path of the VBM 3-D CNN with the int8
-wire codec; ``ROADMAP.md`` lists what is still to port.
+``ROADMAP.md`` lists what is still to port.
 """
 from . import config
 from .config.keys import AggEngine, Key, LocalWire, Mode, Phase, RemoteWire
 from .data import COINNDataHandle, COINNDataLoader, COINNDataset
 from .engine import InProcessEngine, SiteRunner, load_inputspec
-from .metrics import COINNAverages, Prf1a
+from .metrics import AUCROCMetrics, COINNAverages, COINNMetrics, ConfusionMatrix, Prf1a
 from .nn import NNTrainer
 from .nodes import COINNLocal, COINNRemote
 from .parallel import COINNLearner, COINNReducer
@@ -26,7 +25,7 @@ __all__ = [
     "AggEngine", "Key", "LocalWire", "Mode", "Phase", "RemoteWire",
     "COINNDataset", "COINNDataHandle", "COINNDataLoader",
     "InProcessEngine", "SiteRunner", "load_inputspec",
-    "COINNAverages", "Prf1a",
+    "COINNMetrics", "COINNAverages", "Prf1a", "ConfusionMatrix", "AUCROCMetrics",
     "NNTrainer", "COINNTrainer",
     "COINNLocal", "COINNRemote",
     "COINNLearner", "COINNReducer",

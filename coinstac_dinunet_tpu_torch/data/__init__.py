@@ -3,6 +3,7 @@ from .data import (
     COINNDataLoader,
     COINNDataset,
     EmptyDataHandle,
+    device_prefetch,
     safe_collate,
     to_device,
 )
@@ -19,6 +20,7 @@ __all__ = [
     "COINNDataLoader",
     "EmptyDataHandle",
     "safe_collate",
+    "device_prefetch",
     "to_device",
     "create_k_fold_splits",
     "create_ratio_split",

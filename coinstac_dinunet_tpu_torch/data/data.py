@@ -6,15 +6,19 @@ dict-of-arrays with static shapes: the tail batch is padded to
 site can be padded to the same number of batches for lockstep epochs, and
 shuffling is numpy's, seeded by (seed, epoch), so both packages draw the
 same batches.  :func:`to_device` moves a batch to the card through pinned
-memory.  The JAX package's ``device_prefetch`` thread waits for a later
-slice (``ROADMAP.md``).
+memory; :func:`device_prefetch` does it from a thread a few batches ahead,
+on a copy stream of its own.
 """
+import contextlib
 import math
 import os
+import queue
+import threading
 
 import numpy as np
 import torch
 
+from .. import config
 from ..config.keys import Mode
 from . import datautils
 
@@ -32,16 +36,96 @@ def safe_collate(samples):
 def to_device(batch, device, cast=None):
     """A numpy batch dict as torch tensors on ``device``; float ``inputs``
     are cast to ``cast`` on the host first (half the bytes to copy at
-    bfloat16).  Copies to the card go through pinned memory."""
+    bfloat16).  Copies to the card go through pinned memory; a tensor
+    already on ``device`` is taken as it is (no copy)."""
     out = {}
     for k, v in batch.items():
-        t = torch.from_numpy(np.ascontiguousarray(v))
+        t = v if isinstance(v, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(v))
         if cast is not None and k == "inputs" and t.is_floating_point():
             t = t.to(cast)
-        if device.type == "cuda":
+        if device.type == "cuda" and not t.is_cuda:
             t = t.pin_memory().to(device, non_blocking=True)
         out[k] = t
     return out
+
+
+_PREFETCH_END = object()
+
+
+def device_prefetch(iterator, size=2, sharding=None, device=None, cast=None):
+    """Yield ``iterator``'s host batches as device batches
+    (:func:`to_device` with ``cast``), a producer thread staying ``size``
+    batches ahead so that reading a batch and its copy overlap the
+    consumer's work on the previous one.
+
+    On the card the thread copies on a ``torch.cuda.Stream`` of its own
+    and records an event after each batch; the consumer's current stream
+    waits on that event, and every tensor is marked used by that stream
+    (``record_stream``) so the caching allocator does not hand its memory
+    out again while the consumer's work may still read it.  On the CPU the
+    same thread runs with no stream.  ``size <= 0`` is a plain
+    pass-through of the host batches; an exception in the producer is
+    raised again in the consumer; a consumer that stops early (an error, a
+    ``break``) stops the producer at its next batch.  ``sharding`` (the
+    JAX package's placement over several devices) is refused."""
+    if sharding is not None:
+        raise NotImplementedError(
+            "device_prefetch(sharding=...): batches placed over several devices are not "
+            "ported yet (ROADMAP.md Queue 1: Multiple devices)"
+        )
+    if int(size) <= 0:
+        yield from iterator
+        return
+    dev = config.resolve_device(device)
+    q = queue.Queue(maxsize=int(size))
+    stop = threading.Event()
+
+    def _put(item):
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def _producer():
+        try:
+            on_card = dev.type == "cuda"
+            with torch.cuda.device(dev) if on_card else contextlib.nullcontext():
+                stream = torch.cuda.Stream(dev) if on_card else None
+                for batch in iterator:
+                    if stream is None:
+                        item = (to_device(batch, dev, cast), None)
+                    else:
+                        with torch.cuda.stream(stream):
+                            placed = to_device(batch, dev, cast)
+                            done = torch.cuda.Event()
+                            done.record(stream)
+                        item = (placed, done)
+                    if not _put(item):
+                        return
+            _put(_PREFETCH_END)
+        except BaseException as exc:  # noqa: BLE001 — raised again by the consumer
+            _put(exc)
+
+    threading.Thread(target=_producer, name="coinn-prefetch", daemon=True).start()
+    try:
+        while True:
+            item = q.get()
+            if item is _PREFETCH_END:
+                break
+            if isinstance(item, BaseException):
+                raise item
+            batch, done = item
+            if done is not None:
+                stream = torch.cuda.current_stream(dev)
+                stream.wait_event(done)
+                for t in batch.values():
+                    t.record_stream(stream)
+            yield batch
+    finally:
+        stop.set()
 
 
 class COINNDataset:

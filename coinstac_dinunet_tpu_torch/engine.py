@@ -1861,20 +1861,38 @@ class MeshEngine:
                     b = dict(template)
                     b["_mask"] = np.zeros_like(np.asarray(template["_mask"]))
                 filled.append(b)
-            m_state, a_state = fed.eval_step(filled)
+            m_state, a_state, hs = fed.eval_step(filled)
             if m_state is not None:
                 metrics.update(m_state)
+            elif hs is not None:
+                trainer.add_host_scores(metrics, hs)
+            elif not metrics.jit_safe:
+                # a host-side metric, but the iteration gives no pred/true
+                # to feed it: the exact per-site host evaluation instead
+                return self._host_eval(handles, which)
             averages.update(a_state)
         return averages, metrics
 
     def _host_test_sparse(self, handles):
-        """The fold test over per-subject datasets (``load_sparse``), per
-        site on the host with the exact cross-site count merge, and
-        per-subject ``save_predictions`` when asked (the JAX package's
-        ``_host_eval`` folded into its one caller)."""
+        """The fold test over per-subject datasets (``load_sparse``), with
+        per-subject ``save_predictions`` when asked."""
+        return self._host_eval(
+            handles, "test",
+            datasets_fn=lambda h: h.get_test_dataset(load_sparse=True),
+            save_pred=bool(self.cache.get("save_predictions")),
+        )
+
+    def _host_eval(self, handles, which, datasets_fn=None, save_pred=False):
+        """Per-site evaluation on the host with the exact cross-site merge:
+        the sparse test, and the fallback for a host-side metric the plane
+        cannot feed.  ``datasets_fn(handle)`` picks the site's dataset (or
+        a list of them)."""
         trainer = self._trainer
         metrics, averages = trainer.new_metrics(), trainer.new_averages()
-        save_pred = bool(self.cache.get("save_predictions"))
+        mode = Mode.VALIDATION if which == "validation" else Mode.TEST
+        if datasets_fn is None:
+            datasets_fn = ((lambda h: h.get_validation_dataset()) if which == "validation"
+                           else (lambda h: h.get_test_dataset()))
         shared_state = trainer.state
         try:
             for s in self.site_ids:
@@ -1883,11 +1901,11 @@ class MeshEngine:
                 # (save_predictions) see the site's directories, as on the
                 # file transport
                 trainer.state = self.site_states[s]
-                ds = handles[s].get_test_dataset(load_sparse=True)
+                ds = datasets_fn(handles[s])
                 ds = ds if isinstance(ds, list) else [ds]
                 if not any(len(d) for d in ds):
                     continue
-                a, m = trainer.evaluation(Mode.TEST, ds, save_pred=save_pred)
+                a, m = trainer.evaluation(mode, ds, save_pred=save_pred)
                 metrics.accumulate(m)
                 averages.accumulate(a)
         finally:

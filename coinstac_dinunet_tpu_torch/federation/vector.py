@@ -28,7 +28,8 @@ the trainer's ``iteration`` (``"sample_loss"``, which
 ``metrics.classification_outputs`` returns).  The round's metric and
 average states are the folded batch's, which equal the JAX package's sums
 over sites; its ``loss`` is ``Σ_s L_s / S`` averaged over the ``k``
-micro-batches, as in JAX.
+micro-batches, as in JAX.  A metric that accumulates on the host (the
+AUC) gets the round's and each evaluation batch's scores instead.
 
 Where the port differs (``PERF.md`` "Port faults"):
 
@@ -142,7 +143,10 @@ class SiteVectorizedFederation:
         site → list of k host micro-batches): the trainer's step over the
         folded micro-batches, each backward on ``Σ_s coef_s·L_s``, so the
         optimizer steps once on the participation-weighted mean gradient.
-        Returns the round's ``{"metrics", "averages", "loss"}``."""
+        Returns the round's ``{"metrics", "averages", "loss"}``, and for a
+        host-side metric ``"host_scores"`` (``metrics`` None): ``k`` rows
+        of the folded ``S·B`` samples, where the JAX plane gathers ``S·k``
+        rows of ``B``; the AUC does not depend on the order."""
         batches = self.stack_site_batches(site_batches)
         masks = [self._site_mask(b) for b in batches]
         # participation: a site with no unmasked sample in any of its k
@@ -172,11 +176,16 @@ class SiteVectorizedFederation:
     # ------------------------------------------------------------- evaluation
     def eval_step(self, site_batches):
         """Evaluation over one host batch per site, reduced over the sites:
-        ``(metric state, average state)``.  (The JAX package also returns
-        host scores for metrics that cannot accumulate on the device; the
-        port's metrics all can.)"""
-        m_state, a_state, _ = self.trainer.eval_step(self._fold(site_batches))
-        return m_state, a_state
+        ``(metric state, average state, host scores)``.  For a metric that
+        accumulates on the host (``jit_safe = False``: the AUC) the metric
+        state is None and the host scores are the folded batch's
+        ``{"score", "true", "mask"}`` (``S·B`` rows, site-major, as the JAX
+        plane gathers them); else (or without ``pred``/``true``) they are
+        None."""
+        batch = self._fold(site_batches)
+        m_state, a_state, it = self.trainer.eval_step(batch)
+        hs = None if m_state is not None else self.trainer.host_scores_payload(it, batch)
+        return m_state, a_state, hs
 
     # ----------------------------------------------------------------- resume
     def serialize_comm_state(self):

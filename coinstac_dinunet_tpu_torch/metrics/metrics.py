@@ -1,13 +1,17 @@
 """Metrics: count accumulators with exact cross-site reduction.
 
-Port of the JAX package's ``metrics/metrics.py`` (``COINNAverages`` and
-``Prf1a``).  A metric's raw statistics are a small dict of float64 numpy
-values on the host; ``update_state`` computes one batch's float32 deltas as
-torch tensors on the batch's device (inside the step), and ``update`` folds
-them into the host totals.  ``serialize()`` ships raw counts in the JAX
-package's leaf order (keys sorted), so ``serialize()``/``reduce_sites()``
-give the same JSON in both packages.  ``ConfusionMatrix`` and the AUC metric
-wait for a later slice (``ROADMAP.md``).
+Port of the JAX package's ``metrics/metrics.py`` (``COINNAverages``,
+``Prf1a``, ``ConfusionMatrix``, ``AUCROCMetrics`` and ``new_metrics``).  A
+metric's raw statistics are a small dict of float64 numpy values on the
+host; for a count metric (``jit_safe``) ``update_state`` computes one
+batch's float32 deltas as torch tensors on the batch's device (inside the
+step), and ``update`` folds them into the host totals.  The AUC metric
+(``jit_safe = False``) keeps variable-length (probability, label) arrays on
+the host: the trainer carries its scores out of the step
+(``NNTrainer.host_scores_payload``) and feeds them here.  ``serialize()``
+ships raw values in the JAX package's leaf order (keys sorted: the AUC
+payload is ``[labels, probs]``), so ``serialize()``/``reduce_sites()`` give
+the same JSON in both packages.
 """
 import numpy as np
 import torch
@@ -24,6 +28,9 @@ def _round(x):
 class COINNMetrics:
     """Base contract: ``empty_state``/``update_state`` + the host API
     (``add/accumulate/update/reset/get/extract/serialize/reduce_sites``)."""
+
+    monitor = None  # attribute name used for early-stopping extraction
+    jit_safe = True  # False: a host-side state of data-dependent shape
 
     def __init__(self):
         self.state = self.empty_state()
@@ -100,6 +107,8 @@ def _to_host_f64(state):
 class COINNAverages(COINNMetrics):
     """K simultaneous (sum, count) averages."""
 
+    monitor = "average"
+
     def __init__(self, num_averages=1):
         self.num_averages = int(num_averages)
         super().__init__()
@@ -168,6 +177,8 @@ class COINNAverages(COINNMetrics):
 class Prf1a(COINNMetrics):
     """Binary precision/recall/F1/accuracy/IoU from TP/FP/TN/FN counts."""
 
+    monitor = "f1"
+
     @staticmethod
     def empty_state():
         return {"tp": np.float64(0), "fp": np.float64(0),
@@ -222,11 +233,156 @@ class Prf1a(COINNMetrics):
         return self.prfa()
 
 
+class ConfusionMatrix(COINNMetrics):
+    """Multi-class K×K confusion matrix (row = true class, column =
+    predicted) with per-class and macro P/R/F1."""
+
+    monitor = "f1"
+
+    def __init__(self, num_classes=2):
+        self.num_classes = int(num_classes)
+        super().__init__()
+
+    def empty_state(self):
+        return {"matrix": np.zeros((self.num_classes, self.num_classes), dtype=np.float64)}
+
+    @staticmethod
+    def update_state(state, pred, true, mask=None):
+        """One flat weighted scatter-add of ``true·k + pred`` in float32 on
+        the batch's device (exact integer counts below 2^24)."""
+        k = int(np.shape(state["matrix"])[0])
+        pred = torch.as_tensor(pred).reshape(-1).long()
+        true = torch.as_tensor(true, device=pred.device).reshape(-1).long()
+        w = (torch.ones(pred.shape, dtype=torch.float32, device=pred.device) if mask is None
+             else torch.as_tensor(mask, device=pred.device).reshape(-1).to(torch.float32))
+        counts = torch.zeros(k * k, dtype=torch.float32, device=pred.device)
+        counts.index_add_(0, true * k + pred, w)
+        matrix = counts.reshape(k, k)
+        base = state["matrix"]
+        # a host state of zeros (the step's empty state) adds nothing: no
+        # copy to the card, which would wait for it
+        if isinstance(base, torch.Tensor) or np.any(base):
+            matrix = torch.as_tensor(base, dtype=torch.float32, device=pred.device) + matrix
+        return {"matrix": matrix}
+
+    @property
+    def matrix(self):
+        return np.asarray(self.state["matrix"])
+
+    def _per_class(self):
+        m = self.matrix
+        tp = np.diag(m)
+        fp = m.sum(axis=0) - tp  # predicted as c but not c
+        fn = m.sum(axis=1) - tp  # c but predicted otherwise
+        precision = tp / np.maximum(tp + fp, _EPS)
+        recall = tp / np.maximum(tp + fn, _EPS)
+        f1 = 2 * precision * recall / np.maximum(precision + recall, _EPS)
+        return precision, recall, f1
+
+    @property
+    def precision(self):
+        return _round(self._per_class()[0].mean())
+
+    @property
+    def recall(self):
+        return _round(self._per_class()[1].mean())
+
+    @property
+    def f1(self):
+        return _round(self._per_class()[2].mean())
+
+    @property
+    def accuracy(self):
+        m = self.matrix
+        return _round(np.diag(m).sum() / max(m.sum(), _EPS))
+
+    def get(self):
+        # Prf1a's column order, so a log's header does not depend on the
+        # number of classes
+        return [self.precision, self.recall, self.f1, self.accuracy]
+
+    def new(self):
+        return ConfusionMatrix(self.num_classes)
+
+    @classmethod
+    def reduce_sites(cls, site_payloads):
+        if not site_payloads:
+            return cls()
+        merged = None
+        for payload in site_payloads:
+            mat = np.asarray(payload[0], dtype=np.float64)
+            m = cls(num_classes=mat.shape[0])
+            m.state = {"matrix": mat}
+            merged = m if merged is None else merged.accumulate(m)
+        return merged
+
+
+def _host_f64(x):
+    """A tensor (on any device) or array-like as a flat float64 numpy
+    array: one device-to-host copy for a card tensor."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().to("cpu", torch.float64).numpy().reshape(-1)
+    return np.asarray(x, dtype=np.float64).reshape(-1)
+
+
+class AUCROCMetrics(COINNMetrics):
+    """Binary AUC-ROC over accumulated (probability, label) pairs; the wire
+    ships the raw pairs, so the aggregator computes the exact global AUC."""
+
+    monitor = "auc"
+    jit_safe = False  # variable-length prob/label arrays, kept on the host
+
+    @staticmethod
+    def empty_state():
+        return {"probs": np.zeros((0,), np.float64), "labels": np.zeros((0,), np.float64)}
+
+    @staticmethod
+    def update_state(state, probs, labels, mask=None):
+        probs, labels = _host_f64(probs), _host_f64(labels)
+        if mask is not None:
+            keep = _host_f64(mask) > 0
+            probs, labels = probs[keep], labels[keep]
+        return {
+            "probs": np.concatenate([state["probs"], probs]),
+            "labels": np.concatenate([state["labels"], labels]),
+        }
+
+    @staticmethod
+    def merge_states(a, b):
+        return {
+            "probs": np.concatenate([np.asarray(a["probs"]), np.asarray(b["probs"])]),
+            "labels": np.concatenate([np.asarray(a["labels"]), np.asarray(b["labels"])]),
+        }
+
+    @property
+    def auc(self):
+        probs, labels = self.state["probs"], self.state["labels"]
+        n_pos = float((labels > 0.5).sum())
+        n_neg = float(len(labels) - n_pos)
+        if n_pos == 0 or n_neg == 0:
+            return 0.0
+        # rank-sum (Mann-Whitney) AUC, tied scores sharing their mean rank
+        order = np.argsort(probs, kind="mergesort")
+        ranks = np.empty(len(probs), dtype=np.float64)
+        sorted_p = probs[order]
+        i = 0
+        while i < len(sorted_p):
+            j = i
+            while j + 1 < len(sorted_p) and sorted_p[j + 1] == sorted_p[i]:
+                j += 1
+            ranks[order[i : j + 1]] = 0.5 * (i + j) + 1.0
+            i = j + 1
+        pos_rank_sum = ranks[labels > 0.5].sum()
+        return _round((pos_rank_sum - n_pos * (n_pos + 1) / 2) / (n_pos * n_neg))
+
+    def get(self):
+        return [self.auc]
+
+
 def new_metrics(num_classes=2, binary_as_auc=False):
-    """Metric factory by task shape: binary → :class:`Prf1a`."""
-    if num_classes <= 2 and not binary_as_auc:
-        return Prf1a()
-    raise NotImplementedError(
-        "ConfusionMatrix (num_classes > 2) and AUC metrics are not ported "
-        "yet (ROADMAP.md Queue 1: the other metrics and data)"
-    )
+    """Metric factory by task shape: binary → :class:`Prf1a` (or
+    :class:`AUCROCMetrics` with ``binary_as_auc``), more classes →
+    :class:`ConfusionMatrix`."""
+    if num_classes <= 2:
+        return AUCROCMetrics() if binary_as_auc else Prf1a()
+    return ConfusionMatrix(num_classes)

@@ -1,4 +1,4 @@
-from .cnn3d import SyntheticVBMDataset, VBM3DNet, VBMTrainer, fit_volume
+from .cnn3d import NiftiVBMDataset, SyntheticVBMDataset, VBM3DNet, VBMTrainer, fit_volume
 from .mlp import FSVDataset, FSVNet, FSVTrainer
 from .transformer import (
     MultiHeadSelfAttention,
@@ -10,7 +10,7 @@ from .transformer import (
 )
 
 __all__ = [
-    "VBM3DNet", "SyntheticVBMDataset", "VBMTrainer", "fit_volume",
+    "VBM3DNet", "SyntheticVBMDataset", "NiftiVBMDataset", "VBMTrainer", "fit_volume",
     "FSVNet", "FSVDataset", "FSVTrainer",
     "TPDense", "MultiHeadSelfAttention", "TransformerBlock", "SeqClassifier",
     "SyntheticSeqDataset", "SeqTrainer",

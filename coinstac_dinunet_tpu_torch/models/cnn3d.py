@@ -24,16 +24,23 @@ choices were TPU-specific the port computes the same function plainly:
 - **Precision.** Under bfloat16 autocast the convolutions run in bfloat16;
   the pooled features, the dense head, the logits and the loss are
   float32, as in the JAX model.
+
+Data: :class:`SyntheticVBMDataset` (volumes keyed by file name) and
+:class:`NiftiVBMDataset` (NIfTI files and a labels CSV).
 """
+import csv
+import os
+
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ..data import COINNDataset
+from ..data.nifti import load_nifti
 from ..metrics import classification_outputs
 from ..trainer import COINNTrainer
-from ..utils import parse_shape, stable_file_id
+from ..utils import logger, parse_shape, stable_file_id
 
 
 def _same_pad(x, k, stride):
@@ -160,6 +167,53 @@ def fit_volume(arr, shape):
             src.append(slice(0, a)); dst.append(slice(o, o + a))
     out[tuple(dst)] = arr[tuple(src)]
     return out
+
+
+class NiftiVBMDataset(COINNDataset):
+    """The real-data VBM input: one ``.nii``/``.nii.gz`` gray-matter map per
+    subject and a labels CSV (``filename,label`` rows;
+    ``cache['labels_file']``, default ``labels.csv``) in the data
+    directory, as a COINSTAC VBM deployment holds them.
+
+    - ``load_index`` indexes only volumes with a label; a stray file is
+      skipped with a warning;
+    - ``__getitem__`` reads the volume (:func:`..data.nifti.load_nifti`)
+      and center-crops or zero-pads it to ``cache['input_shape']``;
+    - each volume is z-scored on its own unless ``cache['normalize']`` is
+      falsy (sites store their maps in different intensity scales).
+
+    ``NNTrainer.train_local`` reads these batches ahead of the step
+    (:func:`..data.device_prefetch`).
+    """
+
+    def _labels(self):
+        if "_nifti_labels" not in self.__dict__:
+            table = {}
+            path = os.path.join(self.path(), str(self.cache.get("labels_file", "labels.csv")))
+            with open(path) as f:
+                for row in csv.reader(f):
+                    if len(row) >= 2 and row[1].strip().lstrip("-").isdigit():
+                        table[row[0].strip()] = int(row[1])
+            self._nifti_labels = table
+        return self._nifti_labels
+
+    def load_index(self, dataset_name, file):
+        if not str(file).endswith((".nii", ".nii.gz")):
+            return
+        if str(file) not in self._labels():
+            logger.warn(f"{file}: no label in labels.csv; skipped")
+            return
+        self.indices.append([dataset_name, file])
+
+    def __getitem__(self, ix):
+        _, file = self.indices[ix]
+        shape = parse_shape(self.cache.get("input_shape"), (32, 32, 32))
+        x = load_nifti(os.path.join(self.path(), str(file)), dtype=np.float32)
+        x = fit_volume(np.squeeze(x), shape)
+        if self.cache.get("normalize", True):
+            x = (x - x.mean()) / max(float(x.std()), 1e-6)
+        return {"inputs": x.astype(np.float32),
+                "labels": np.int32(self._labels()[str(file)])}
 
 
 class VBMTrainer(COINNTrainer):

@@ -38,10 +38,20 @@ when the watchdog armed one.  The first step a freshly built model takes
 records memory but no throughput (its time holds the first launches, not
 a step), the JAX package's rule for the round that compiled its step.
 
+A metric that cannot accumulate on the card (``jit_safe = False``: the
+AUC's variable-length arrays) gets no device state: the step carries the
+micro-batches' scores out as ``aux["host_scores"]`` (``prob`` over
+``pred``, ``true``, the mask; :meth:`NNTrainer.host_scores_payload`) and
+``aux["metrics"]`` is None; :meth:`NNTrainer.fold_train_outputs` and
+:meth:`NNTrainer.evaluation` bring them to the host in one copy a round or
+a batch.  ``train_local`` feeds its epochs through
+:func:`..data.device_prefetch` (``cache['prefetch_batches']``, default 2;
+0 turns it off).
+
 User subclasses implement ``_init_nn_model`` (fill ``self.nn``) and
 ``iteration(batch, generator=None)`` returning at least ``{"loss": ...}``
-(plus optional ``pred``/``true``/``averages``); ``generator`` is None when
-not training.
+(plus optional ``pred``/``prob``/``true``/``averages``); ``generator`` is
+None when not training.
 """
 import contextlib
 import io
@@ -53,7 +63,7 @@ import torch
 
 from .. import config, interop
 from ..config.keys import Mode
-from ..data import to_device
+from ..data import device_prefetch, to_device
 from ..metrics import COINNAverages, Prf1a
 from ..telemetry import capture as _capture
 from ..telemetry import health as _health
@@ -355,7 +365,8 @@ class NNTrainer:
 
     def _stack_batches(self, batches):
         """Host batches → device batches (the list of ``k`` micro-batches
-        one round consumes)."""
+        one round consumes); a batch already on the device (from
+        :func:`..data.device_prefetch`) is taken as it is."""
         cast = self._input_cast_dtype()
         return [to_device(b, self.device, cast) for b in batches]
 
@@ -363,7 +374,7 @@ class NNTrainer:
         """Metric/average state deltas of one micro-batch, on the device."""
         mask = batch.get("_mask")
         m_state = None
-        if "pred" in it and "true" in it:
+        if "pred" in it and "true" in it and metrics_shell.jit_safe:
             m_state = metrics_shell.update_state(
                 metrics_shell.empty_state(), it["pred"], it["true"], mask)
         vals = it.get("averages", it["loss"].detach())
@@ -371,6 +382,32 @@ class NNTrainer:
              else torch.tensor(float(next(iter(batch.values())).shape[0])))
         a_state = averages_shell.update_state(averages_shell.empty_state(), vals, n)
         return m_state, a_state
+
+    @staticmethod
+    def host_scores_payload(it, batch):
+        """``{"score", "true", "mask"}`` float32 tensors of one micro-batch
+        for a host-side metric (``score`` prefers the calibrated ``prob``
+        over the argmax ``pred``), or None when the iteration has no
+        ``pred``/``true``."""
+        if "pred" not in it or "true" not in it:
+            return None
+        true = it["true"].detach().to(torch.float32)
+        mask = batch.get("_mask")
+        return {
+            "score": it.get("prob", it["pred"]).detach().to(torch.float32),
+            "true": true,
+            "mask": (torch.ones_like(true) if mask is None
+                     else torch.as_tensor(mask, device=true.device).to(torch.float32)),
+        }
+
+    @staticmethod
+    def add_host_scores(metrics, hs):
+        """Feed ``host_scores`` (``{"score", "true", "mask"}``, any shapes)
+        to a host-side metric in one device-to-host copy."""
+        parts = [hs[k].reshape(-1) for k in ("score", "true", "mask")]
+        flat = torch.cat(parts).cpu().numpy()
+        score, true, mask = np.split(flat, np.cumsum([p.numel() for p in parts])[:2])
+        metrics.add(score, true, mask=mask)
 
     @staticmethod
     def _own_loss(it, batch):
@@ -446,8 +483,11 @@ class NNTrainer:
         for m in self.nn.values():
             m.zero_grad(set_to_none=True)
         metrics_shell, averages_shell = self.new_metrics(), self.new_averages()
+        # a host-side metric (AUC) accumulates no device state: its scores
+        # leave the step as aux["host_scores"]
+        collect_host = not metrics_shell.jit_safe
         msum = asum = None
-        losses = []
+        losses, scores = [], []
         for batch in batches:
             with self._autocast():
                 it = self.iteration(batch, self.generator)
@@ -456,7 +496,12 @@ class NNTrainer:
             with torch.no_grad():
                 m_state, a_state = self._step_outputs(it, batch, metrics_shell,
                                                       averages_shell)
-            msum = m_state if msum is None else {k: msum[k] + m_state[k] for k in msum}
+                if collect_host:
+                    hs = self.host_scores_payload(it, batch)
+                    if hs is not None:
+                        scores.append(hs)
+            if m_state is not None:
+                msum = m_state if msum is None else {k: msum[k] + m_state[k] for k in msum}
             asum = a_state if asum is None else {k: asum[k] + a_state[k] for k in asum}
             losses.append(logged)
         k = len(batches)
@@ -470,6 +515,10 @@ class NNTrainer:
                 grads[name][pname] = p.grad
         aux = {"metrics": msum, "averages": asum,
                "loss": torch.stack(losses).mean()}
+        if scores:
+            # (k, ...) per key, the micro-batch axis first, as in JAX
+            aux["host_scores"] = {key: torch.stack([hs[key] for hs in scores])
+                                  for key in scores[0]}
         return grads, aux
 
     def apply_grads(self, grads):
@@ -515,12 +564,16 @@ class NNTrainer:
     def training_iteration_local(self, batches):
         return self.train_step(self._stack_batches(batches))
 
-    @staticmethod
-    def fold_train_outputs(aux, ep_averages, ep_metrics):
-        """Fold one round's aux into the epoch accumulators."""
+    @classmethod
+    def fold_train_outputs(cls, aux, ep_averages, ep_metrics):
+        """Fold one round's aux into the epoch accumulators: the device
+        states of a count metric, the carried-out ``host_scores`` of a
+        host-side one."""
         ep_averages.update(aux["averages"])
         if aux.get("metrics") is not None:
             ep_metrics.update(aux["metrics"])
+        elif "host_scores" in aux:
+            cls.add_host_scores(ep_metrics, aux["host_scores"])
 
     def evaluation(self, mode=Mode.VALIDATION, dataset_list=None, save_pred=False):
         """No-grad loop over one or more datasets with mask-weighted metrics."""
@@ -542,6 +595,11 @@ class NNTrainer:
                 m_state, a_state, it = self.eval_step(batch)
                 if m_state is not None:
                     ds_metrics.update(m_state)
+                elif not ds_metrics.jit_safe:
+                    # a host-side metric (AUC) ranks the probabilities
+                    hs = self.host_scores_payload(it, batch)
+                    if hs is not None:
+                        self.add_host_scores(ds_metrics, hs)
                 ds_averages.update(a_state)
                 if save_pred and "pred" in it:
                     predictions.append(
@@ -588,8 +646,14 @@ class NNTrainer:
                 "train", dataset=train_dataset, shuffle=True,
                 seed=int(cache.get("seed", 0)), epoch=epoch, drop_last=False,
             )
+            # a thread stays a few batches ahead: reading, casting and the
+            # copy to the device overlap the step on the previous batch
+            batches = device_prefetch(
+                iter(loader), size=int(cache.get("prefetch_batches", 2)),
+                device=self.device, cast=self._input_cast_dtype(),
+            )
             batch_buf = []
-            for i, batch in enumerate(loader):
+            for i, batch in enumerate(batches):
                 batch_buf.append(batch)
                 if len(batch_buf) == local_iterations:
                     aux = self.training_iteration_local(batch_buf)

@@ -295,7 +295,8 @@ class DADLearner(COINNLearner):
             averages = self.cache["_ep_averages"] = self.trainer.new_averages()
             self.cache["_ep_metrics"] = self.trainer.new_metrics()
         averages.add(it["loss"].detach(), max(n, 1.0))
-        if "pred" in it and "true" in it:
+        # a host-side metric (AUC) takes no train scores here, as in JAX
+        if self.cache["_ep_metrics"].jit_safe and "pred" in it and "true" in it:
             self.cache["_ep_metrics"].add(it["pred"], it["true"], mask=batch.get("_mask"))
 
     def step(self):

@@ -93,7 +93,8 @@ class COINNTrainer(NNTrainer):
         }
 
     def new_metrics(self):
-        """Binary → Prf1a (the other task shapes wait for their slice)."""
+        """Metric for the task shape: binary → Prf1a (AUCROCMetrics when
+        ``monitor_metric == 'auc'``), more classes → ConfusionMatrix."""
         num_classes = int(self.cache.get("num_classes", 2))
         as_auc = self.cache.get("monitor_metric") == "auc"
         return _metric_factory(num_classes, binary_as_auc=as_auc)

@@ -82,6 +82,30 @@ def test_vectorized_federation_modules_import_no_jax():
     assert out.stdout.strip().splitlines()[-1] == "BAD []"
 
 
+def test_metrics_and_data_modules_import_no_jax():
+    """The other metrics and data (the NIfTI reader, the prefetch thread,
+    ``NiftiVBMDataset``, ``ConfusionMatrix`` and the AUC metric), alone in
+    a fresh interpreter: nothing of JAX, msgpack or the JAX package, and
+    nibabel only if it is there."""
+    code = textwrap.dedent("""
+        import importlib, sys
+        for name in ("data.nifti", "data.data", "metrics.metrics", "models.cnn3d"):
+            importlib.import_module("coinstac_dinunet_tpu_torch." + name)
+        from coinstac_dinunet_tpu_torch.data import device_prefetch
+        from coinstac_dinunet_tpu_torch.data.nifti import load_nifti, save_nifti
+        from coinstac_dinunet_tpu_torch.metrics import AUCROCMetrics, ConfusionMatrix
+        from coinstac_dinunet_tpu_torch.models import NiftiVBMDataset
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "msgpack")
+                     or m == "coinstac_dinunet_tpu" or m.startswith("coinstac_dinunet_tpu."))
+        print("BAD", bad)
+    """)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env=dict(os.environ, PYTHONPATH=REPO), cwd=REPO, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "BAD []"
+
+
 def test_vectorized_engines_need_a_card_unless_given_cpu(tmp_path, monkeypatch):
     from coinstac_dinunet_tpu_torch.engine import MeshEngine
     from coinstac_dinunet_tpu_torch.federation import SiteVectorizedEngine
@@ -105,18 +129,20 @@ def test_daemon_worker_without_a_script_prints_its_usage():
 
 def test_entry_scripts_import_no_jax(tmp_path):
     """The example entry scripts (``examples/*/{local,remote}.py``, which
-    COINSTAC runs as ``python local.py``) load from any directory without
-    the package installed, and pull in nothing of JAX either."""
+    COINSTAC runs as ``python local.py``, and ``vbm_nifti/run_sim.py``)
+    load from any directory without the package installed, and pull in
+    nothing of JAX either."""
     scripts = sorted(glob.glob(os.path.join(REPO, "coinstac_dinunet_tpu_torch", "examples",
                                             "*", "*.py")))
-    assert len(scripts) == 6, scripts
+    assert len(scripts) == 9, scripts
     code = textwrap.dedent("""
-        import importlib.util, sys
+        import importlib.util, os, sys
         for i, path in enumerate(sys.argv[1:]):
             spec = importlib.util.spec_from_file_location(f"entry{i}", path)
             mod = importlib.util.module_from_spec(spec)
             spec.loader.exec_module(mod)
-            assert callable(mod.compute), path
+            entry = "main" if os.path.basename(path) == "run_sim.py" else "compute"
+            assert callable(getattr(mod, entry)), path
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "msgpack")
                      or m == "coinstac_dinunet_tpu" or m.startswith("coinstac_dinunet_tpu."))
@@ -181,8 +207,13 @@ def test_unported_options_are_refused(tmp_path):
     for key, value in (("site_quorum", 1), ("async_staleness", 1), ("async_invoke_pool", 2),
                        ("async_stale_discount", 0.5), ("run_ahead", 1), ("reduce_fanin", 2)):
         assert COINNLocal(cache={}, device="cpu", **{key: value}).cache[key] == value
+    # carried since the other metrics and data were ported; batches placed
+    # over several devices are refused
+    assert isinstance(port.metrics.new_metrics(num_classes=3), port.metrics.ConfusionMatrix)
+    assert isinstance(port.metrics.new_metrics(2, binary_as_auc=True),
+                      port.metrics.AUCROCMetrics)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        port.metrics.new_metrics(num_classes=3)
+        next(port.data.device_prefetch(iter([{}]), size=2, sharding="site"))
 
 
 def test_every_aggregation_engine_is_carried():
