@@ -177,6 +177,24 @@ Phases, in order; any failure exits non-zero before the last line:
    pretrain epoch with ``prefetch_batches`` 0 and 2 in turns, 11a's
    gradient rounds and a profiled one, the wall times of 11a-11c.
 
+16. main path 12 — the FLOP count and the telemetry tools, run right
+   after phase 14 (its lanes).  16a: one ``grads`` step of path 1's VBM
+   (width 16, 64^3, batch 16) and one of path 2's transformer (T 4096,
+   batch 16), bfloat16, each a fresh trainer's first step with telemetry
+   on, so counted (``record_jit_cost``): each count equals the closed form
+   of ``models/flops.py``, K2, K3 and K4 launched during the transformer's
+   counted step, ``perf:backend`` names the card at 989 TFLOP/s, and the
+   next step's ``mfu`` lies in (0, 1); GFLOP a step and the attention share
+   printed.  16b: phase 14's lanes through the port's tools: ``python -m
+   coinstac_dinunet_tpu_torch.telemetry`` writes the summary and a Chrome
+   trace naming every node's lane, ``doctor`` markdown and JSON whose
+   roofline names the card at 989 TFLOP/s and whose first verdict is
+   site_2's (critical), every site's lane with ``achieved_tflops`` and
+   ``mfu`` for ``grads`` and 10b's for ``fed_step``, each ``mfu`` in (0, 1);
+   one ``watch`` snapshot with ``--serve``, and ``/metrics`` and ``/healthz``
+   served on 127.0.0.1 and scraped, show ``mfu``; the medians of the steady
+   samples printed.
+
 Then one JSON line ``{"kernels": [...]}``, the ``nvidia-smi`` name/power
 line, and the last line ``{"ok": true, "device": {...}}``.  Per-shape
 numbers go to ``chiprun_out/chip_smoke.json``.
@@ -3215,6 +3233,227 @@ def log_health_paths(path, vec, smi):
         f"utilization {b['hbm_utilization']} of {b['mem_get_info_total']}")
 
 
+# ---- path 12 (phase 16): the FLOP count on the card, and the telemetry
+# tools over phase 14's lanes.  12a counts one grads step of path 1's VBM
+# and one of path 2's transformer through the trainer (telemetry on, as a
+# user runs it) and holds each count to the closed form of models/flops.py,
+# the function the CPU tests hold; 12b reads path 10's lanes with the
+# port's CLI, doctor, live plane and exporter
+FLOP_PEAK_TFLOPS = 989.0  # the table's entry for the H100 SXM, dense bf16
+FLOP_LANES = ("site_0", "site_1", "site_2", "remote", "engine")
+
+
+def run_flop_count_path(dev, workdir):
+    """Path 12a (phase 16): a fresh trainer's first ``compute_grads`` runs
+    under the FLOP counter (``record_jit_cost``); its count must equal the
+    closed form, with K2, K3 and K4 launched during the transformer's
+    counted step (the count saw their operators, not plain products); a
+    second step gives the ``achieved_tflops``/``mfu`` sample; the lane holds
+    one ``jit_cost`` and a ``perf:backend`` naming the card at its peak."""
+    import numpy as np
+    import torch
+
+    from coinstac_dinunet_tpu_torch import telemetry
+    from coinstac_dinunet_tpu_torch.models import SeqTrainer, VBMTrainer
+    from coinstac_dinunet_tpu_torch.models import flops as closed
+
+    fa = importlib.import_module("coinstac_dinunet_tpu_torch.ops.flash_attention")
+    rng = np.random.default_rng(7)
+    seq = {k: SEQ_ARGS[k] for k in ("d_model", "num_heads", "num_layers", "num_features",
+                                    "num_classes", "max_len", "compute_dtype")}
+    t, f, b = SEQ_ARGS["seq_len"], SEQ_ARGS["num_features"], SEQ_ARGS["batch_size"]
+    cases = {
+        "vbm": (VBMTrainer, dict(input_shape=[64, 64, 64], model_width=WIDTH,
+                                 compute_dtype="bfloat16"), (VBM_BATCH, 64, 64, 64),
+                closed.vbm_grads_flops(VBM_BATCH, (64, 64, 64), WIDTH, 2), 0),
+        "seq": (SeqTrainer, seq, (b, t, f),
+                closed.seq_grads_flops(b, t, f, seq["d_model"], seq["num_heads"],
+                                       seq["num_layers"], seq["num_classes"]),
+                closed.seq_attention_flops(b, t, seq["d_model"], seq["num_heads"],
+                                           seq["num_layers"])),
+    }
+    out, faults = {}, []
+    for name, (cls, args, shape, want, attention) in cases.items():
+        torch.cuda.empty_cache()
+        lane_dir = os.path.join(workdir, name)
+        cache = {**args, "seed": 7, "profile": True}
+        trainer = cls(cache=cache, state={"outputDirectory": lane_dir}, device=dev).init_nn()
+        host = {"inputs": rng.normal(size=shape).astype(np.float32),
+                "labels": rng.integers(0, 2, shape[0]).astype(np.int32),
+                "_mask": np.ones(shape[0], np.float32)}
+        batches = trainer._stack_batches([host])
+        rec = telemetry.Recorder(name, cache=cache, out_dir=lane_dir)
+        for kern in fa.KERNELS:
+            kern.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with telemetry.activate(rec):
+            trainer.compute_grads(batches)  # the counted step
+        torch.cuda.synchronize()
+        counted_s = time.perf_counter() - t0
+        launches = dict(zip(FLASH_SOURCES, (k.launches for k in fa.KERNELS)))
+        with telemetry.activate(rec):
+            trainer.compute_grads(batches)  # timed: the series' sample
+        rec.flush()
+        lane = _read_jsonl(rec.path())
+        costs = [e for e in lane if e.get("name") == "jit_cost"]
+        backend = [e for e in lane if e.get("name") == "perf:backend"]
+        series = {e["name"]: e["value"] for e in lane if e.get("kind") == "metric"
+                  and e["name"] in ("achieved_tflops", "mfu", "samples_per_sec")}
+        got = trainer.cache.get("_perf_flops", {}).get("grads")
+        if got is None or int(got) != want or [int(e["flops"]) for e in costs] != [want]:
+            faults.append(f"{name}: counted {got}, jit_cost {costs}, closed form {want}")
+        if name == "seq" and min(launches.values()) == 0:
+            faults.append(f"{name}: K2-K4 launches during the counted step {launches}")
+        if [(e.get("device_kind"), e.get("peak_tflops"), e.get("peak_source")) for e in backend] \
+                != [(torch.cuda.get_device_name(dev), FLOP_PEAK_TFLOPS, "table")]:
+            faults.append(f"{name}: perf:backend {backend}")
+        if not 0.0 < series.get("mfu", 0.0) < 1.0:
+            faults.append(f"{name}: the second step's series {series}")
+        out[name] = {"flops": int(got or 0), "closed_form": want, "attention_flops": attention,
+                     "attention_share": attention / want, "launches": launches,
+                     "counted_step_s": counted_s, **series}
+        del trainer, batches
+    if faults:
+        raise AssertionError("path 12a:\n  " + "\n  ".join(faults))
+    return out
+
+
+def _tool_series(events, name, fn):
+    """``{node: [values]}`` of the metric series ``name`` of step ``fn``."""
+    by = {}
+    for e in events:
+        if e.get("kind") == "metric" and e["name"] == name and e.get("fn") == fn:
+            by.setdefault(e["node"], []).append(e["value"])
+    return by
+
+
+def run_tools_path(dev, health_wd, vec_wd, workdir):
+    """Path 12b (phase 16): path 10's lanes (10a: 3 sites, the NaN round;
+    10b: the site-vectorized plane) read with the port's tools.  The CLI as
+    ``python -m`` writes the summary and a Chrome trace naming every lane;
+    ``doctor`` writes markdown and JSON whose roofline names the card at its
+    peak and whose first verdict is site_2's; every site's lane holds
+    ``achieved_tflops`` and ``mfu`` for ``grads`` and 10b's for
+    ``fed_step``, each ``mfu`` in (0, 1); one ``watch`` snapshot, and
+    ``/metrics`` and ``/healthz`` served on 127.0.0.1 and scraped, show
+    ``mfu``."""
+    import urllib.request
+
+    import torch
+
+    from coinstac_dinunet_tpu_torch.telemetry.__main__ import main as cli
+    from coinstac_dinunet_tpu_torch.telemetry.collect import load_events
+    from coinstac_dinunet_tpu_torch.telemetry.live import LiveState, Tailer
+    from coinstac_dinunet_tpu_torch.telemetry.serve import OpsServer
+
+    kind = torch.cuda.get_device_name(dev)
+    faults = []
+    paths = {k: os.path.join(workdir, k) for k in ("trace.json", "summary.json", "doctor.json",
+                                                   "doctor.md", "vec.json", "board.txt",
+                                                   "healthz.json", "metrics.prom")}
+    env = dict(os.environ, PYTHONPATH=HERE + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "coinstac_dinunet_tpu_torch.telemetry",
+                           health_wd, "--trace", paths["trace.json"], "--summary-json",
+                           paths["summary.json"]], capture_output=True, text=True, env=env,
+                          timeout=600)
+    cli_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"path 12b: the CLI exited {proc.returncode}: {proc.stderr[-2000:]}")
+    with open(paths["trace.json"]) as f:
+        trace = json.load(f)
+    named = {e["args"]["name"] for e in trace["traceEvents"]
+             if e.get("ph") == "M" and e.get("name") == "process_name"}
+    if not set(FLOP_LANES) <= named:
+        faults.append(f"the trace's lanes {sorted(named)}")
+    rcs = [cli(["doctor", health_wd, "--quiet", "--json", paths["doctor.json"],
+                "--markdown", paths["doctor.md"]]),
+           cli(["doctor", vec_wd, "--quiet", "--json", paths["vec.json"]]),
+           cli(["watch", health_wd, "--quiet", "--serve", "0", "--snapshot", paths["board.txt"],
+                "--json", paths["healthz.json"], "--metrics-out", paths["metrics.prom"]])]
+    if rcs != [0, 0, 0]:
+        faults.append(f"doctor, doctor (10b), watch exit codes {rcs}")
+    with open(paths["doctor.json"]) as f:
+        report = json.load(f)
+    with open(paths["doctor.md"]) as f:
+        md = f.read()
+    with open(paths["vec.json"]) as f:
+        vec_report = json.load(f)
+    for tag, rep in (("10a", report), ("10b", vec_report)):
+        backend = (rep.get("roofline") or {}).get("backend") or {}
+        if (backend.get("device_kind"), backend.get("peak_tflops")) != (kind, FLOP_PEAK_TFLOPS):
+            faults.append(f"{tag}: the roofline's backend {backend}")
+    if kind not in md or f"{FLOP_PEAK_TFLOPS:g}" not in md:
+        faults.append("the markdown's roofline names neither the card nor its peak")
+    top = report["verdicts"][0] if report["verdicts"] else {}
+    if top.get("severity") != "critical" or HEALTH_NAN_SITE not in top.get("cause", ""):
+        faults.append(f"the first verdict {top}")
+    events, vec_events = load_events(health_wd), load_events(vec_wd)
+    tflops, mfu = (_tool_series(events, n, "grads") for n in ("achieved_tflops", "mfu"))
+    grads = {s: (tflops.get(s), mfu.get(s)) for s in ("site_0", "site_1", "site_2")}
+    fed = tuple(_tool_series(vec_events, n, "fed_step").get("engine")
+                for n in ("achieved_tflops", "mfu"))
+    for who, (tflops, mfu) in [*grads.items(), ("10b fed_step", fed)]:
+        if not tflops or not mfu or not all(0.0 < m < 1.0 for m in mfu):
+            faults.append(f"{who}: achieved_tflops {tflops}, mfu {mfu}")
+    with open(paths["metrics.prom"]) as f:
+        prom = f.read()
+    with open(paths["board.txt"]) as f:
+        board = f.read()
+    if "coinstac_dinunet_mfu " not in prom or "site_2" not in board:
+        faults.append("the watch snapshot's /metrics scrape or board lacks mfu or site_2")
+    # the exporter over a live state of the same lanes, scraped over HTTP
+    state = LiveState()
+    state.ingest(Tailer(health_wd).poll())
+    server = OpsServer(state.snapshot, port=0)
+    try:
+        with urllib.request.urlopen(server.url("/metrics"), timeout=30) as resp:
+            scraped = resp.read().decode()
+        with urllib.request.urlopen(server.url("/healthz"), timeout=30) as resp:
+            healthz = json.loads(resp.read().decode())
+    finally:
+        server.close()
+    if "coinstac_dinunet_mfu " not in scraped or not healthz.get("mfu"):
+        faults.append(f"/metrics or /healthz without mfu: healthz {sorted(healthz)}")
+    if faults:
+        raise AssertionError("path 12b:\n  " + "\n  ".join(faults))
+    out_dir = os.path.join(HERE, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "doctor_health_path.md"), "w") as f:
+        f.write(md)
+    steady_grads = [v for s in grads.values() for v in s[0][1:]]
+    steady_mfu = [v for s in grads.values() for v in s[1][1:]]
+    return {"cli_s": cli_s, "trace_lanes": sorted(named), "trace_events": len(trace["traceEvents"]),
+            "roofline": report["roofline"]["backend"], "first_verdict": top["cause"],
+            "grads": grads, "fed_step": fed,
+            "steady_grads_tflops": _spread(steady_grads), "steady_grads_mfu": _spread(steady_mfu),
+            "fed_step_tflops": _spread(fed[0][1:]), "fed_step_mfu": _spread(fed[1][1:]),
+            "healthz_mfu": healthz.get("mfu"), "summary_lines": proc.stdout.count("\n")}
+
+
+def log_flop_tools_paths(count, tools, smi):
+    for name, c in count.items():
+        log(f"  12a {name}: {c['flops']} FLOP a grads step = the closed form ({c['flops'] / 1e9:.3f} "
+            f"GFLOP; attention {c['attention_share']:.4f} of it); K2-K4 launches during the count "
+            f"{c['launches']}; counted step {c['counted_step_s']:.3f} s; the next step "
+            f"{c.get('achieved_tflops', 0.0):.3f} TFLOP/s, mfu {c.get('mfu', 0.0):.5f}, "
+            f"{c.get('samples_per_sec', 0.0):.2f} samples/s | {smi}")
+    t = tools
+    log(f"  12b: CLI summary + trace in {t['cli_s']:.2f} s ({t['trace_events']} trace events, "
+        f"lanes {t['trace_lanes']}); roofline {t['roofline']}; first verdict: {t['first_verdict']}")
+    for s, (tflops, mfu) in t["grads"].items():
+        log(f"  12b {s} grads achieved_tflops {[round(v, 3) for v in tflops]}, mfu "
+            f"{[round(v, 5) for v in mfu]}")
+    log(f"  12b 10b fed_step achieved_tflops {[round(v, 3) for v in t['fed_step'][0]]}, mfu "
+        f"{[round(v, 5) for v in t['fed_step'][1]]}")
+    for key in ("steady_grads_tflops", "steady_grads_mfu", "fed_step_tflops", "fed_step_mfu"):
+        st = t[key]
+        if st:
+            log(f"  12b {key} (after each lane's first sample): median {st['median']:.5f} "
+                f"({st['min']:.5f}-{st['max']:.5f}, n {st['n']}) | {smi}")
+
+
 # ---- path 11 (phase 15): the other metrics and data.  The VBM gray-matter
 # maps as a deployment holds them: one NIfTI file per subject on SPM's
 # standard-space grid (MNI 2 mm, 91 x 109 x 91), which NiftiVBMDataset
@@ -3725,11 +3964,19 @@ def main():
     log(f"[14 main path 10: sequence, health layer, quarantine and capture] "
         f"{HEALTH_SITES} sites through the tree, then the site-vectorized plane; run "
         f"right after the build | {smi}")
-    with tempfile.TemporaryDirectory() as wd:
-        health_path = run_health_path(dev, wd)
-    with tempfile.TemporaryDirectory() as wd:
-        health_vec = run_health_vectorized_path(dev, wd)
-    log_health_paths(health_path, health_vec, smi)
+    with tempfile.TemporaryDirectory() as health_wd, tempfile.TemporaryDirectory() as vec_wd:
+        health_path = run_health_path(dev, health_wd)
+        health_vec = run_health_vectorized_path(dev, vec_wd)
+        log_health_paths(health_path, health_vec, smi)
+        # phase 16 reads phase 14's lanes
+        log(f"[16 main path 12: the FLOP count and the telemetry tools] one counted grads "
+            f"step of paths 1 and 2's models, then the CLI, doctor, watch and /metrics over "
+            f"phase 14's lanes | {smi}")
+        with tempfile.TemporaryDirectory() as wd:
+            flop_path = run_flop_count_path(dev, wd)
+        with tempfile.TemporaryDirectory() as wd:
+            tools_path = run_tools_path(dev, health_wd, vec_wd, wd)
+    log_flop_tools_paths(flop_path, tools_path, smi)
 
     log("[3 kernels] K1 quantize_int8 against its plain version")
     k1 = check_quantize(dev, report)
@@ -3900,6 +4147,7 @@ def main():
                                     "seq_membership_run_ahead": mem_path["launches"][kern["name"]],
                                     "seq_health_quarantine": health_path["launches"][kern["name"]],
                                     "seq_health_vectorized": health_vec["launches"][kern["name"]],
+                                    "seq_flop_count": flop_path["seq"]["launches"][kern["name"]],
                                     "vbm_nifti_metrics": nifti_path["11c_launches"][kern["name"]]}
     kernels = [k1, *k234]
     report.update(main_path=main_path, seq_path=seq_path, powersgd_path=psgd_path,
@@ -3907,7 +4155,8 @@ def main():
                   daemon_path=daemon_path, async_chaos_path=async_path,
                   vectorized_path=vec_path, membership_path=mem_path,
                   drain_path=drain_path, health_path=health_path,
-                  health_vectorized_path=health_vec, nifti_path=nifti_path, device=kind,
+                  health_vectorized_path=health_vec, nifti_path=nifti_path,
+                  flop_count_path=flop_path, tools_path=tools_path, device=kind,
                   power=smi, kernels=kernels)
     out_dir = os.path.join(HERE, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)

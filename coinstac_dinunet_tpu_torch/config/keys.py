@@ -122,11 +122,45 @@ class Retry:
 
 
 class Live:
-    """Event names the live ops plane keys on: ``HEARTBEAT`` is the event
-    the serial engines write to their telemetry lane per completed node
-    invocation."""
+    """Vocabulary of the live ops plane (``telemetry/live.py``,
+    ``telemetry/serve.py``), the JAX package's strings.
+
+    Event name: ``HEARTBEAT``, the ``engine:heartbeat`` event the engines
+    write per node invocation (the site-vectorized engine: one per round
+    with the alive count); the tailer keys site liveness on it.
+
+    Cache keys: ``FLUSH_INTERVAL`` (seconds between the recorder's
+    auto-flushes, default 5; 0 flushes by size only), ``SILENCE_AFTER``
+    (seconds of a site's heartbeat silence before the silence verdict,
+    default 30), ``ROUND_OUTLIER`` (multiple of the rolling median round
+    that fires the outlier verdict, default 4), ``MFU_COLLAPSE`` (fraction
+    of the MFU EMA below which a sample fires the collapse verdict, default
+    0.3), ``RETRY_STORM``/``RETRY_WINDOW`` (wire retries per rolling window
+    of seconds, default 10 per 30 s), ``QUORUM_HEADROOM`` (members above
+    the quorum need below which the erosion verdict fires).
+
+    In-flight verdict kinds (edge-triggered, the doctor's verdict shape;
+    each also a Prometheus ``verdicts_total{kind=...}`` label): ``VERDICT_*``.
+    ``PROM_PREFIX`` prefixes every exported Prometheus metric name.
+    """
 
     HEARTBEAT = "engine:heartbeat"
+    FLUSH_INTERVAL = "telemetry_flush_interval_s"
+    SILENCE_AFTER = "watch_silence_after_s"
+    ROUND_OUTLIER = "watch_round_outlier"
+    MFU_COLLAPSE = "watch_mfu_collapse"
+    RETRY_STORM = "watch_retry_storm"
+    RETRY_WINDOW = "watch_retry_window_s"
+    #: members above the quorum need below which quorum_erosion fires
+    QUORUM_HEADROOM = "watch_quorum_headroom"
+    PROM_PREFIX = "coinstac_dinunet"
+    VERDICT_SILENCE = "heartbeat_silence"
+    VERDICT_ROUND_OUTLIER = "round_duration_outlier"
+    VERDICT_MFU_COLLAPSE = "mfu_collapse"
+    VERDICT_RETRY_STORM = "wire_retry_storm"
+    VERDICT_STALENESS = "staleness_exceeded"
+    VERDICT_PIPELINE = "pipeline_stall"
+    VERDICT_QUORUM_EROSION = "quorum_erosion"
 
 
 class Daemon:

@@ -37,14 +37,15 @@ Where the port differs (``PERF.md`` "Port faults"):
   identical under dSGD by construction and applies row 0's update, which
   is the same update;
 - one dropout generator over the folded batch, where JAX derives one
-  stream per site;
-- no XLA cost record of the round (``jit_cost``): the port has no FLOP
-  count of its steps.
+  stream per site.
 
-With the engine's lane bound (``recorder``), each round but the plane's
-first (its first launches) is timed after a fence: a ``samples_per_sec``
-sample of the ``fed_step`` (the folded rows of its ``k`` micro-batches),
-as in the JAX package.
+With the engine's lane bound (``recorder``), the plane's first round, and
+any round on new batch shapes, runs under the FLOP counter: a ``jit_cost``
+of the whole S-site ``fed_step`` (``telemetry/perf.py``), where the JAX
+plane builds its executable.  Every other round is timed after a fence: the
+``samples_per_sec``, ``achieved_tflops`` and ``mfu`` samples of the
+``fed_step`` (the folded rows of its ``k`` micro-batches), as in the JAX
+package.
 """
 import numpy as np
 import torch
@@ -104,7 +105,8 @@ class SiteVectorizedFederation:
         self.rounds_done = 0
         # the perf sink: the engine binds its lane here
         self.recorder = NULL_RECORDER
-        self._stepped = False
+        # the batch shapes of the last counted round (telemetry on only)
+        self._counted_shapes = None
 
     # ---------------------------------------------------------- site folding
     def _fold(self, site_batches):
@@ -163,13 +165,22 @@ class SiteVectorizedFederation:
 
         rec = self.recorder
         timer = _perf.StepTimer() if rec.enabled else None
-        aux = self.trainer.train_step(batches, loss_fn=site_weighted_loss)
-        if timer is not None and self._stepped:
+        shapes = self.trainer._batch_shapes(batches) if rec.enabled else None
+        counted = shapes is not None and shapes != self._counted_shapes
+        if counted:
+            # the whole S-site round, as the JAX plane's jit_cost
+            aux, _ = _perf.record_jit_cost(
+                self.trainer.cache, "fed_step", self.trainer.train_step,
+                (batches, site_weighted_loss), recorder=rec, device=self.trainer.device)
+            self._counted_shapes = shapes
+        else:
+            aux = self.trainer.train_step(batches, loss_fn=site_weighted_loss)
+        if timer is not None and not counted:
+            # fenced wall time, skipped on the counted round
             self.trainer._fence()
             rows = sum(int(b["_mask"].shape[0]) for b in batches)
             timer.done(self.trainer.cache, "fed_step", rows, recorder=rec,
                        device=self.trainer.device)
-        self._stepped = True
         self.rounds_done += 1
         return aux
 

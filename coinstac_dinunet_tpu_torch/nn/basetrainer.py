@@ -441,18 +441,38 @@ class NNTrainer:
             for st in opt.state.values():
                 yield from (v for v in st.values() if isinstance(v, torch.Tensor))
 
-    def _perf_round_end(self, timer, key, batches, rec):
-        """Per-round perf bookkeeping after the step's fence: the
-        ``samples_per_sec`` series (``k`` micro-batches of the padded
-        batch size), except on a freshly built model's first step, and one
-        device-memory sample."""
+    @staticmethod
+    def _batch_shapes(batches):
+        """The shapes a step's micro-batches give it: what a compiled JAX
+        step keys its executable on."""
+        return tuple(tuple((name, tuple(t.shape)) for name, t in sorted(b.items())
+                           if isinstance(t, torch.Tensor)) for b in batches)
+
+    def _counted_step(self, key, batches, rec, fn, *args):
+        """``fn(*args)``, counted (:func:`~..telemetry.perf.record_jit_cost`)
+        on a freshly built model's first ``key`` step and on one whose batch
+        shapes changed — where the JAX package builds the step's executable.
+        Returns ``(out, counted)``; telemetry off, nothing is counted."""
+        shapes = self._batch_shapes(batches) if rec.enabled else None
         models = list(self.nn.values())
-        if all(getattr(m, "_coinn_stepped", False) for m in models):
+        if shapes is None or all(getattr(m, "_coinn_counted", {}).get(key) == shapes
+                                 for m in models):
+            return fn(*args), False
+        out, _ = _perf.record_jit_cost(self.cache, key, fn, args, recorder=rec,
+                                       device=self.device)
+        for m in models:
+            m._coinn_counted = {**getattr(m, "_coinn_counted", {}), key: shapes}
+        return out, True
+
+    def _perf_round_end(self, timer, key, batches, rec, counted):
+        """Per-round perf bookkeeping after the step's fence: the
+        ``samples_per_sec``/``achieved_tflops``/``mfu`` series (``k``
+        micro-batches of the padded batch size), except on a counted step,
+        whose wall time holds the counter's, and one device-memory sample."""
+        if not counted:
             rows = next(iter(batches[0].values())).shape[0]
             timer.done(self.cache, key, len(batches) * int(rows), recorder=rec,
                        device=self.device)
-        for m in models:
-            m._coinn_stepped = True
         _perf.sample_device_memory(self.cache, recorder=rec, device=self.device,
                                    census=self._memory_census)
 
@@ -464,17 +484,19 @@ class NNTrainer:
         the iteration's ``loss`` for both).  Returns ``(grads, aux)`` —
         ``grads`` is ``{model: {param name: gradient}}``; ``aux`` holds the
         round's metric/average states and the mean of the logged losses.
-        With telemetry on, the gradient-health series (whose norm is the
-        host fence), the round's perf samples and the armed capture."""
+        With telemetry on, the step's FLOP count (first step and new
+        shapes), the gradient-health series (whose norm is the host fence),
+        the round's perf samples and the armed capture."""
         rec = _telemetry()
         rec.count("grad_steps")
         timer = _perf.StepTimer() if rec.enabled else None
         with self._captured(rec):
-            grads, aux = self._grads(batches, loss_fn)
+            (grads, aux), counted = self._counted_step("grads", batches, rec, self._grads,
+                                                       batches, loss_fn)
             if rec.enabled:
                 _health.record_grad_health(self.cache, grads, aux, recorder=rec)
         if timer is not None:
-            self._perf_round_end(timer, "grads", batches, rec)
+            self._perf_round_end(timer, "grads", batches, rec, counted)
         return grads, aux
 
     def _grads(self, batches, loss_fn=None):
@@ -536,20 +558,27 @@ class NNTrainer:
 
     def train_step(self, batches, loss_fn=None):
         """compute_grads + the optimizer step (the local training path);
-        with telemetry on, timed after a fence and under the armed capture,
-        without the gradient-health series (as in the JAX package)."""
+        with telemetry on, counted as :meth:`compute_grads` is, timed after
+        a fence and under the armed capture, without the gradient-health
+        series (as in the JAX package)."""
         rec = _telemetry()
         rec.count("train_steps")
         timer = _perf.StepTimer() if rec.enabled else None
         with self._captured(rec):
-            _, aux = self._grads(batches, loss_fn)
-            for opt in self.optimizer.values():
-                opt.step()
-            self.step += 1
+            aux, counted = self._counted_step("train", batches, rec, self._train,
+                                              batches, loss_fn)
             if timer is not None:
                 self._fence()
         if timer is not None:
-            self._perf_round_end(timer, "train", batches, rec)
+            self._perf_round_end(timer, "train", batches, rec, counted)
+        return aux
+
+    def _train(self, batches, loss_fn=None):
+        """:meth:`train_step` without its telemetry."""
+        _, aux = self._grads(batches, loss_fn)
+        for opt in self.optimizer.values():
+            opt.step()
+        self.step += 1
         return aux
 
     def eval_step(self, batch):

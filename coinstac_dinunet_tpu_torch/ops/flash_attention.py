@@ -35,6 +35,13 @@ both (the ``g_lse`` term of ``ds = p·(dp − Δ + g_lse)``).  The cast of
 ``out`` to the input dtype happens outside it, as in the JAX package, and
 ``Δ = Σ g_out·out`` is a plain reduction on the float32 ``out``.
 
+Each direction runs as an operator of its own, ``torch.ops.coinn.flash_fwd``
+and ``torch.ops.coinn.flash_bwd``, with a formula for
+``torch.utils.flop_counter``: a ``FlopCounterMode`` counts a call's model
+FLOPs from its shapes (:func:`attention_flops`) and none of the plain
+version's products inside it, so the count of a step is the same on the
+card, where the counter cannot see the kernels, and on the CPU.
+
 There is no ``impl`` switch: the device of the tensors decides.  A value of
 ``attn_impl`` carried over from a JAX configuration (``'pallas'``,
 ``'xla'``, ...) is refused by the model, never mapped to the plain version.
@@ -43,6 +50,7 @@ import ctypes
 import math
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from ._cuda import CudaKernel
 
@@ -312,14 +320,55 @@ def _dispatch(t, cuda_fn, plain_fn):
     raise ValueError(f"flash attention: unsupported device {t.device}")
 
 
+def attention_flops(bh, tq, tk, d, backward=False):
+    """Model FLOPs of one attention call over ``bh`` (batch × heads) rows:
+    the forward's two products, ``4·BH·Tq·Tk·d`` (K2), or the backward's
+    four, ``8·BH·Tq·Tk·d`` (K3 + K4).  The full ``Tq × Tk`` rectangle
+    whatever the masks (no causal halving), and no recompute of ``S`` in
+    the backward: the work of the function, not of one schedule."""
+    return (8 if backward else 4) * int(bh) * int(tq) * int(tk) * int(d)
+
+
+# The two directions as operators of their own (``torch.ops.coinn``): a
+# ``FlopCounterMode`` counts each call once from its shapes (the formulas
+# below) and does not descend into it, so the count is the same whether the
+# call launched K2–K4 (invisible to the counter) or ran the plain version's
+# products on the CPU.
+@torch.library.custom_op("coinn::flash_fwd", mutates_args=())
+def _flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_offset: int,
+                  k_offset: int, kv_len: int, causal: bool,
+                  scale: float) -> tuple[torch.Tensor, torch.Tensor]:
+    fwd = _dispatch(q, flash_forward_cuda, flash_forward_plain)
+    return fwd(q, k, v, q_offset, k_offset, kv_len, causal, scale)
+
+
+@torch.library.custom_op("coinn::flash_bwd", mutates_args=())
+def _flash_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+                  lse: torch.Tensor, g_out: torch.Tensor, g_lse: torch.Tensor,
+                  q_offset: int, k_offset: int, kv_len: int, causal: bool,
+                  scale: float) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    bwd = _dispatch(q, flash_backward_cuda, flash_backward_plain)
+    return bwd(q, k, v, out, lse, g_out, g_lse, q_offset, k_offset, kv_len, causal, scale)
+
+
+@register_flop_formula(torch.ops.coinn.flash_fwd)
+def _flash_fwd_flops(q_shape, k_shape, *args, **kwargs):
+    return attention_flops(q_shape[0], q_shape[1], k_shape[1], q_shape[2])
+
+
+@register_flop_formula(torch.ops.coinn.flash_bwd)
+def _flash_bwd_flops(q_shape, k_shape, *args, **kwargs):
+    return attention_flops(q_shape[0], q_shape[1], k_shape[1], q_shape[2], backward=True)
+
+
 class FlashAttention(torch.autograd.Function):
     """``(q, k, v)`` of shape ``(BH, T, d)`` → float32 ``(out, lse)``, with
     the positions as int32 scalars and a cotangent for both outputs."""
 
     @staticmethod
     def forward(ctx, q, k, v, q_offset, k_offset, kv_len, causal, scale):
-        fwd = _dispatch(q, flash_forward_cuda, flash_forward_plain)
-        out, lse = fwd(q, k, v, q_offset, k_offset, kv_len, causal, scale)
+        out, lse = torch.ops.coinn.flash_fwd(q, k, v, q_offset, k_offset, kv_len,
+                                             causal, scale)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.args = (q_offset, k_offset, kv_len, causal, scale)
         ctx.set_materialize_grads(False)  # an unused output's cotangent is None
@@ -332,8 +381,7 @@ class FlashAttention(torch.autograd.Function):
             g_out = torch.zeros_like(out)
         if g_lse is None:
             g_lse = torch.zeros_like(lse)
-        bwd = _dispatch(q, flash_backward_cuda, flash_backward_plain)
-        dq, dk, dv = bwd(q, k, v, out, lse, g_out, g_lse, *ctx.args)
+        dq, dk, dv = torch.ops.coinn.flash_bwd(q, k, v, out, lse, g_out, g_lse, *ctx.args)
         return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype),
                 None, None, None, None, None)
 

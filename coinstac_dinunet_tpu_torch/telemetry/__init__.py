@@ -6,11 +6,20 @@ schema v1, ``SCHEMA_VERSION``), :meth:`Recorder.for_node` for the node
 lanes; the ambient recorder stack (:func:`activate`, :func:`get_active`);
 the health layer: :class:`Watchdog` and its detectors
 (:mod:`.watchdog`), the health series (:mod:`.health`), the perf samples
+and the FLOP count behind the ``achieved_tflops`` and ``mfu`` series
 (:mod:`.perf`) and the anomaly-triggered profiler capture
-(:mod:`.capture`).  The collector, the live ops plane, the doctor and the
-exporters are still to port (``ROADMAP.md`` Queue 1: Telemetry and
-tools); the JAX package's ``telemetry.collect.load_events``, ``summarize``
-and ``doctor.build_report`` read the port's lanes.
+(:mod:`.capture`).  The tools read the lanes of either package:
+
+- :mod:`.collect` — every node's JSONL merged into one timeline, the
+  summary table and the Perfetto/Chrome-trace export;
+- :mod:`.doctor` — the postmortem report (anomaly timeline, per-site
+  divergence, roofline and MFU/memory floors, ranked verdicts);
+- :mod:`.live` — the live ops plane: rotation- and crash-safe incremental
+  tailing into a federation-wide state with edge-triggered verdicts;
+- :mod:`.serve` — Prometheus ``/metrics`` and ``/healthz`` over the live
+  state on 127.0.0.1;
+- the CLI, ``python -m coinstac_dinunet_tpu_torch.telemetry <workdir>
+  [--trace t.json]``, ``... doctor <workdir>`` and ``... watch <workdir>``.
 """
 from . import capture, health, perf  # noqa: F401
 from .recorder import (  # noqa: F401

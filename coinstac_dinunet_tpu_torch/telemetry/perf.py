@@ -1,14 +1,23 @@
-"""Perf recorder — per-round samples/s and device-memory series (PyTorch
-port).
+"""Perf recorder — the FLOP count of a step, per-round utilization and
+the device-memory series (PyTorch port).
 
 Port of the JAX package's ``telemetry/perf.py``, as a layer on the
 :class:`~.recorder.Recorder`:
 
+- :func:`step_cost` and :func:`step_flops` — the model FLOPs of one call of
+  a step, with a typed failure reason (:data:`COST_UNAVAILABLE`,
+  ``count_failed: ...``) instead of a silent ``None``.
+- :func:`record_jit_cost` — the trainers call it on the step they leave out
+  of the throughput series (a model's first step, or one on new batch
+  shapes: where the JAX package builds an executable): a ``jit_cost`` event
+  and the FLOPs under ``cache['_perf_flops'][key]``, one ``perf:backend``
+  event per recorder with the roofline constants.
 - :func:`record_step_perf` and :class:`StepTimer` — the per-round
-  ``samples_per_sec`` series of a step from its fenced wall time, and a
-  JSON-able rollup under ``cache['health']['perf']`` that rides the
-  ``HEALTH`` wire keys, so the aggregator sees every site's throughput
-  (and refreshes ``cache['site_capacity']`` from it).
+  ``samples_per_sec``, ``achieved_tflops`` and ``mfu`` series of a step from
+  its fenced wall time, and a JSON-able rollup under
+  ``cache['health']['perf']`` that rides the ``HEALTH`` wire keys, so the
+  aggregator sees every site's throughput (and refreshes
+  ``cache['site_capacity']`` from it).
 - :func:`sample_device_memory` — one device-memory sample a round: the
   ``hbm_in_use_bytes``/``hbm_peak_bytes``/``hbm_limit_bytes`` series and
   ``hbm_utilization`` when a limit is known, feeding the watchdog's leak
@@ -16,6 +25,19 @@ Port of the JAX package's ``telemetry/perf.py``, as a layer on the
 - :data:`PEAK_TFLOPS_BY_DEVICE_KIND` and :func:`resolve_peak_flops` — the
   peak table (the H100 SXM's dense bf16 rate), ``cache['peak_tflops']``
   overriding it.
+
+What the count counts: ``torch.utils.flop_counter.FlopCounterMode`` over
+one real call of the step (no extra step is run), so the products the call
+dispatches, forward and backward (matrix products and convolutions, every
+multiply-add of the padded operands), plus the attention operators, which
+it counts from their shapes (``ops/flash_attention.py``,
+:func:`~..ops.flash_attention.attention_flops`) on the card and on the CPU
+alike.  Elementwise work, norms and the optimizer's update count nothing.
+XLA's cost analysis, which the JAX package reads, counts the
+multiply-adds on unpadded inputs only, adds elementwise operations and sees
+no Pallas call: the two packages' counts of one step differ by that much
+(``PERF.md``, "Port faults").  The counter gives no byte count, so
+``jit_cost`` carries no ``bytes_accessed``.
 
 What the memory series count: on the card, PyTorch's caching allocator
 (``torch.cuda.memory_stats``: ``allocated_bytes.all.current`` and
@@ -28,27 +50,26 @@ trainer's parameters, gradients and optimizer state: the port's
 counterpart of ``jax.live_arrays()``), over ``cache['memory_limit_bytes']``
 when set.
 
-Not ported: ``step_cost``, ``step_flops`` and ``record_jit_cost`` (XLA's
-cost analysis).  The port has no FLOP count of its steps, so the
-``achieved_tflops`` and ``mfu`` series stay unrecorded, as the JAX package
-leaves them when its FLOPs registry is empty (``ROADMAP.md`` Queue 1:
-Telemetry and tools).
-
 Zero overhead when disabled: every helper returns at once on the null
-recorder.
+recorder, and no step runs under the counter.
 """
 import time
 
 import torch
+from torch.utils.flop_counter import FlopCounterMode
 
 from ..config.keys import Metric, Perf
 from .health import record_metric
 from .recorder import get_active
 
 __all__ = [
-    "PEAK_TFLOPS_BY_DEVICE_KIND", "peak_flops_for", "resolve_peak_flops",
+    "COST_UNAVAILABLE", "PEAK_TFLOPS_BY_DEVICE_KIND", "peak_flops_for",
+    "resolve_peak_flops", "step_cost", "step_flops", "record_jit_cost",
     "record_step_perf", "sample_device_memory", "StepTimer",
 ]
+
+#: typed reason when the counter saw no product in the call
+COST_UNAVAILABLE = "cost_analysis_unavailable"
 
 #: dense bf16 peak (TFLOP/s, no sparsity) by device-name prefix — the MFU
 #: denominator.  The H100 SXM (80 GB HBM3) at 989 TFLOP/s; no CPU entry on
@@ -57,8 +78,9 @@ PEAK_TFLOPS_BY_DEVICE_KIND = {
     "NVIDIA H100 80GB HBM3": 989.0,
 }
 
-#: FLOPs-registry cache key of the JAX package (read by
-#: :func:`record_step_perf`; the port writes none yet)
+#: FLOPs-registry cache key (leading underscore: a private cache entry, as
+#: in the JAX package), written by :func:`record_jit_cost`, read by
+#: :func:`record_step_perf`
 FLOPS_CACHE_KEY = "_perf_flops"
 
 
@@ -83,15 +105,114 @@ def resolve_peak_flops(cache=None, device=None):
     return None
 
 
+def _device_kind(device):
+    """``(device name, device count)`` for the ``perf:backend`` event."""
+    if device is not None and torch.device(device).type == "cuda":
+        return torch.cuda.get_device_name(device), torch.cuda.device_count()
+    return "cpu", 1
+
+
+# ----------------------------------------------------------------- the count
+def _counted_call(fn, args):
+    """``fn(*args)`` once under a ``FlopCounterMode``: ``(out, cost,
+    reason)``.  ``cost`` is ``{'flops', 'ops'}`` (the total and its split by
+    operator name) or None, and then ``reason`` is the typed failure.  An
+    exception of ``fn`` itself propagates: it is the step's, not the
+    count's."""
+    counter = FlopCounterMode(display=False)
+    try:
+        counter.__enter__()
+    except Exception as exc:  # noqa: BLE001 — the reason is the contract
+        return fn(*args), None, f"count_failed: {exc}"[:300]
+    try:
+        out = fn(*args)
+    finally:
+        counter.__exit__(None, None, None)
+    ops = {str(op): int(n) for op, n in counter.get_flop_counts().get("Global", {}).items()}
+    flops = sum(ops.values())
+    if flops <= 0:
+        return out, None, COST_UNAVAILABLE
+    return out, {"flops": float(flops), "ops": ops}, None
+
+
+def step_cost(fn, *args):
+    """The model FLOPs of one call ``fn(*args)`` — the call runs once, for
+    real, under the counter (what it does to its arguments, it does).
+
+    Returns ``(cost, reason)``: ``cost`` is ``{'flops', 'ops'}`` (the total
+    and its split by operator) or None, and then ``reason`` is the typed
+    failure (:data:`COST_UNAVAILABLE` when the call dispatched no product
+    the counter knows, ``count_failed: ...`` when the counter itself
+    failed)."""
+    _, cost, reason = _counted_call(fn, args)
+    return cost, reason
+
+
+def step_flops(fn, *args):
+    """:func:`step_cost`'s total: ``(flops, reason)``, exactly one of the
+    two None."""
+    cost, reason = step_cost(fn, *args)
+    return (None, reason) if cost is None else (cost["flops"], None)
+
+
+def record_jit_cost(cache, key, fn, args, recorder=None, device=None):
+    """Run one step ``fn(*args)`` under the counter and flight-record its
+    FLOPs: a ``jit_cost`` event (``flops``, ``cat=compile``, as the JAX
+    package names it) and ``cache['_perf_flops'][key]`` for
+    :func:`record_step_perf`, after this recorder's ``perf:backend``
+    event.  A count that fails is a ``perf:cost_unavailable`` event with the
+    typed reason — visible in the trace, never silent, and the step is not
+    run again.  Returns ``(out, flops)``: the step's result (the count is
+    of the real call) and the FLOPs or None.  With the recorder disabled the
+    step runs uncounted."""
+    rec = recorder if recorder is not None else get_active()
+    if not rec.enabled:
+        return fn(*args), None
+    _emit_backend_event(cache, rec, device)
+    out, cost, reason = _counted_call(fn, args)
+    if cost is None:
+        rec.event("perf:cost_unavailable", cat="perf", fn=str(key), reason=reason)
+        return out, None
+    rec.event("jit_cost", cat="compile", fn=str(key), flops=cost["flops"])
+    if cache is not None:
+        cache.setdefault(FLOPS_CACHE_KEY, {})[str(key)] = cost["flops"]
+    return out, cost["flops"]
+
+
+def _emit_backend_event(cache, rec, device=None):
+    """One ``perf:backend`` event per recorder: the device's name and
+    count, the peak TFLOP/s and its source, and the structural MFU ceiling
+    — the roofline constants the doctor reads back out of the merged
+    timeline (it keeps the first)."""
+    if getattr(rec, "_perf_backend_emitted", False):
+        return
+    try:
+        rec._perf_backend_emitted = True
+    except AttributeError:  # a slotted custom sink: emit every time
+        pass
+    kind, count = _device_kind(device)
+    override = (cache or {}).get(Perf.PEAK_TFLOPS)
+    peak = resolve_peak_flops(cache, device)
+    attrs = {"device_kind": str(kind), "devices": int(count)}
+    if peak:
+        attrs["peak_tflops"] = round(peak / 1e12, 3)
+        attrs["peak_source"] = "cache" if override else "table"
+    ceiling = (cache or {}).get(Perf.MFU_CEILING)
+    if ceiling:
+        attrs["ceiling_mfu"] = float(ceiling)
+    rec.event("perf:backend", cat="perf", **attrs)
+
+
 # ------------------------------------------------------- per-round metrics
 def record_step_perf(cache, key, dur_s, samples, recorder=None, device=None):
     """Per-round throughput from one step's fenced wall time.
 
     ``key`` names the step (``grads``, ``train``, ``fed_step``), ``dur_s``
     the wall seconds, ``samples`` the padded sample count the step
-    consumed.  Records ``samples_per_sec`` always, and ``achieved_tflops``
-    and ``mfu`` when the FLOPs registry knows the step (never, in the port
-    so far); mirrors the latest values into ``cache['health']['perf']``.
+    consumed.  Records ``samples_per_sec`` always, ``achieved_tflops`` when
+    the FLOPs registry knows the step (:func:`record_jit_cost`), ``mfu``
+    when the peak is known too; mirrors the latest values into
+    ``cache['health']['perf']``.
     """
     rec = recorder if recorder is not None else get_active()
     if not rec.enabled or not dur_s or dur_s <= 0:

@@ -106,6 +106,33 @@ def test_metrics_and_data_modules_import_no_jax():
     assert out.stdout.strip().splitlines()[-1] == "BAD []"
 
 
+def test_telemetry_tools_and_flop_count_import_no_jax():
+    """The collector, the doctor, the live plane, the exporter, the CLI
+    (run as ``python -m``) and the FLOP count's modules, alone in a fresh
+    interpreter: nothing of JAX, msgpack or the JAX package."""
+    code = textwrap.dedent("""
+        import importlib, runpy, sys
+        for name in ("telemetry.collect", "telemetry.doctor", "telemetry.live",
+                     "telemetry.serve", "telemetry.__main__", "telemetry.perf",
+                     "models.flops", "ops.flash_attention"):
+            importlib.import_module("coinstac_dinunet_tpu_torch." + name)
+        sys.argv = ["telemetry", "--help"]
+        try:
+            runpy.run_module("coinstac_dinunet_tpu_torch.telemetry", run_name="__main__")
+        except SystemExit as exc:
+            assert exc.code == 0, exc.code
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "msgpack")
+                     or m == "coinstac_dinunet_tpu" or m.startswith("coinstac_dinunet_tpu."))
+        print("BAD", bad)
+    """)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env=dict(os.environ, PYTHONPATH=REPO), cwd=REPO, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "python -m coinstac_dinunet_tpu_torch.telemetry" in out.stdout
+    assert out.stdout.strip().splitlines()[-1] == "BAD []"
+
+
 def test_vectorized_engines_need_a_card_unless_given_cpu(tmp_path, monkeypatch):
     from coinstac_dinunet_tpu_torch.engine import MeshEngine
     from coinstac_dinunet_tpu_torch.federation import SiteVectorizedEngine
@@ -157,11 +184,12 @@ def test_entry_scripts_import_no_jax(tmp_path):
 
 def test_every_port_module_has_a_reference_module():
     """The port mirrors the JAX package's tree file for file where it
-    ports a module (its own additions: interop, the csrc build helper and
-    the msgpack codec that stands in for flax's)."""
+    ports a module (its own additions: interop, the csrc build helper, the
+    msgpack codec that stands in for flax's and the closed-form FLOP counts
+    of its models)."""
     names = [m.name.split(".", 1)[1] for m in
              pkgutil.walk_packages(port.__path__, port.__name__ + ".")]
-    own = {"interop", "ops._cuda", "utils.flax_msgpack"}
+    own = {"interop", "ops._cuda", "utils.flax_msgpack", "models.flops"}
     for name in names:
         if name in own:
             continue

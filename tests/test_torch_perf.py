@@ -14,8 +14,8 @@ against the JAX package's, on the CPU.
   ``capture:failed`` event — the same in both packages, with
   ``device_trace`` stubbed as ``tests/test_perf.py`` stubs it; the real
   ``device_trace`` writes a Chrome trace.
-- The trainer's rounds: no throughput sample on a fresh model's first
-  step, a memory sample every round; the site-vectorized engine's
+- The trainer's rounds: no throughput sample on a step's counted first
+  call, a memory sample every round; the site-vectorized engine's
   ``fed_step`` samples/s, its memory sample per round and its capture of
   the round after an anomaly.
 - With telemetry off the perf helpers cost one attribute lookup.
@@ -255,12 +255,18 @@ def test_trainer_rounds_emit_health_and_perf_series(tmp_path):
             grads, _ = trainer.compute_grads(batches)
         trainer.apply_grads(grads)
         trainer.train_step(batches)
+        trainer.train_step(batches)
     rec.flush()
-    by = _metrics(_load(tmp_path))
-    # the fresh model's first step: memory, no throughput
+    lane = _load(tmp_path)
+    by = _metrics(lane)
+    # each step's first call (the fresh model's) runs under the FLOP
+    # counter: memory, no throughput
     assert [r["fn"] for r in by["samples_per_sec"]] == ["grads", "grads", "train"]
     assert all(r["value"] > 0 for r in by["samples_per_sec"])
-    assert len(by["hbm_in_use_bytes"]) == 4
+    assert [r["fn"] for r in lane if r.get("name") == "jit_cost"] == ["grads", "train"]
+    assert [r["fn"] for r in by["achieved_tflops"]] == ["grads", "grads", "train"]
+    assert "mfu" not in by  # no peak for the CPU
+    assert len(by["hbm_in_use_bytes"]) == 5
     assert len(by["grad_norm"]) == 3 and len(by["train_loss"]) == 3
     assert len(by["update_norm"]) == 1
     want = float(torch.sqrt(sum(torch.sum(g.float() ** 2)
