@@ -195,6 +195,28 @@ Phases, in order; any failure exits non-zero before the last line:
    served on 127.0.0.1 and scraped, show ``mfu``; the medians of the steady
    samples printed.
 
+17. main path 13 — the remaining models.  17a: ResNet-18 at config 4
+   (64x64x3, width 64, batch 256, bfloat16) through ``InProcessEngine``
+   over 16 sites, dSGD on the int8 wire to SUCCESS, every site warm-started
+   through ``pretrained_path`` from a ``source='coinstac'`` ``weights.tar``
+   of a torchvision-style ResNet-18 written here after one Adam step:
+   each site's weights after the load bit-equal to the file's, then the
+   file's Adam state loaded (every parameter's ``step`` the file's count);
+   K1 once per payload (62 segments) in every gradient round, every site's
+   parameters equal after the run; the second gradient round's host time
+   split by part (``HostSplit``, fenced), the third neither fenced nor
+   profiled (the steady round and its samples/s), the last profiled; one
+   counted grads step equals ``resnet18_grads_flops`` (its TFLOP/s and mfu
+   printed).  17b: one grads step of 17a's model and of path 1's VBM with
+   ``fused_groupnorm`` on and off from the same weights and batch:
+   gradients within 1e-2 x the largest gradient of all leaves (the worst
+   leaf's gap against its own largest gradient printed), the fused norm
+   called only when on, both step times printed.  17c: two VBM nets
+   (config 5: 32^3, width 16, batch 128, bfloat16) on 4 sites, dSGD on the
+   int8 wire to SUCCESS, K1 once per payload (46 segments), the sites'
+   parameters equal after every round and every leaf of both nets changed
+   from the seeded start.
+
 Then one JSON line ``{"kernels": [...]}``, the ``nvidia-smi`` name/power
 line, and the last line ``{"ok": true, "device": {...}}``.  Per-shape
 numbers go to ``chiprun_out/chip_smoke.json``.
@@ -3251,13 +3273,10 @@ def run_flop_count_path(dev, workdir):
     second step gives the ``achieved_tflops``/``mfu`` sample; the lane holds
     one ``jit_cost`` and a ``perf:backend`` naming the card at its peak."""
     import numpy as np
-    import torch
 
-    from coinstac_dinunet_tpu_torch import telemetry
     from coinstac_dinunet_tpu_torch.models import SeqTrainer, VBMTrainer
     from coinstac_dinunet_tpu_torch.models import flops as closed
 
-    fa = importlib.import_module("coinstac_dinunet_tpu_torch.ops.flash_attention")
     rng = np.random.default_rng(7)
     seq = {k: SEQ_ARGS[k] for k in ("d_model", "num_heads", "num_layers", "num_features",
                                     "num_classes", "max_len", "compute_dtype")}
@@ -3274,49 +3293,65 @@ def run_flop_count_path(dev, workdir):
     }
     out, faults = {}, []
     for name, (cls, args, shape, want, attention) in cases.items():
-        torch.cuda.empty_cache()
-        lane_dir = os.path.join(workdir, name)
-        cache = {**args, "seed": 7, "profile": True}
-        trainer = cls(cache=cache, state={"outputDirectory": lane_dir}, device=dev).init_nn()
-        host = {"inputs": rng.normal(size=shape).astype(np.float32),
-                "labels": rng.integers(0, 2, shape[0]).astype(np.int32),
-                "_mask": np.ones(shape[0], np.float32)}
-        batches = trainer._stack_batches([host])
-        rec = telemetry.Recorder(name, cache=cache, out_dir=lane_dir)
-        for kern in fa.KERNELS:
-            kern.launches = 0
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        with telemetry.activate(rec):
-            trainer.compute_grads(batches)  # the counted step
-        torch.cuda.synchronize()
-        counted_s = time.perf_counter() - t0
-        launches = dict(zip(FLASH_SOURCES, (k.launches for k in fa.KERNELS)))
-        with telemetry.activate(rec):
-            trainer.compute_grads(batches)  # timed: the series' sample
-        rec.flush()
-        lane = _read_jsonl(rec.path())
-        costs = [e for e in lane if e.get("name") == "jit_cost"]
-        backend = [e for e in lane if e.get("name") == "perf:backend"]
-        series = {e["name"]: e["value"] for e in lane if e.get("kind") == "metric"
-                  and e["name"] in ("achieved_tflops", "mfu", "samples_per_sec")}
-        got = trainer.cache.get("_perf_flops", {}).get("grads")
-        if got is None or int(got) != want or [int(e["flops"]) for e in costs] != [want]:
-            faults.append(f"{name}: counted {got}, jit_cost {costs}, closed form {want}")
-        if name == "seq" and min(launches.values()) == 0:
-            faults.append(f"{name}: K2-K4 launches during the counted step {launches}")
-        if [(e.get("device_kind"), e.get("peak_tflops"), e.get("peak_source")) for e in backend] \
-                != [(torch.cuda.get_device_name(dev), FLOP_PEAK_TFLOPS, "table")]:
-            faults.append(f"{name}: perf:backend {backend}")
-        if not 0.0 < series.get("mfu", 0.0) < 1.0:
-            faults.append(f"{name}: the second step's series {series}")
-        out[name] = {"flops": int(got or 0), "closed_form": want, "attention_flops": attention,
-                     "attention_share": attention / want, "launches": launches,
-                     "counted_step_s": counted_s, **series}
-        del trainer, batches
+        out[name] = count_grads_step(dev, os.path.join(workdir, name), name, cls, args, shape,
+                                     want, rng, faults)
+        out[name]["attention_flops"] = attention
+        out[name]["attention_share"] = attention / want
+        if name == "seq" and min(out[name]["launches"].values()) == 0:
+            faults.append(f"{name}: K2-K4 launches during the counted step {out[name]['launches']}")
     if faults:
         raise AssertionError("path 12a:\n  " + "\n  ".join(faults))
     return out
+
+
+def count_grads_step(dev, lane_dir, name, cls, args, shape, want, rng, faults):
+    """A fresh ``cls`` trainer's first ``compute_grads`` on one batch of
+    ``shape`` with telemetry on (counted: its ``jit_cost`` must be ``want``,
+    the closed form) and a second one (the ``achieved_tflops``/``mfu``
+    sample); ``faults`` collects what did not hold.  K2-K4 launches during
+    the counted step are returned too."""
+    import numpy as np
+    import torch
+
+    from coinstac_dinunet_tpu_torch import telemetry
+
+    fa = importlib.import_module("coinstac_dinunet_tpu_torch.ops.flash_attention")
+    torch.cuda.empty_cache()
+    cache = {**args, "seed": 7, "profile": True}
+    trainer = cls(cache=cache, state={"outputDirectory": lane_dir}, device=dev).init_nn()
+    host = {"inputs": rng.normal(size=shape).astype(np.float32),
+            "labels": rng.integers(0, 2, shape[0]).astype(np.int32),
+            "_mask": np.ones(shape[0], np.float32)}
+    batches = trainer._stack_batches([host])
+    rec = telemetry.Recorder(name, cache=cache, out_dir=lane_dir)
+    for kern in fa.KERNELS:
+        kern.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with telemetry.activate(rec):
+        trainer.compute_grads(batches)  # the counted step
+    torch.cuda.synchronize()
+    counted_s = time.perf_counter() - t0
+    launches = dict(zip(FLASH_SOURCES, (k.launches for k in fa.KERNELS)))
+    with telemetry.activate(rec):
+        trainer.compute_grads(batches)  # timed: the series' sample
+    rec.flush()
+    lane = _read_jsonl(rec.path())
+    costs = [e for e in lane if e.get("name") == "jit_cost"]
+    backend = [e for e in lane if e.get("name") == "perf:backend"]
+    series = {e["name"]: e["value"] for e in lane if e.get("kind") == "metric"
+              and e["name"] in ("achieved_tflops", "mfu", "samples_per_sec")}
+    got = trainer.cache.get("_perf_flops", {}).get("grads")
+    if got is None or int(got) != want or [int(e["flops"]) for e in costs] != [want]:
+        faults.append(f"{name}: counted {got}, jit_cost {costs}, closed form {want}")
+    if [(e.get("device_kind"), e.get("peak_tflops"), e.get("peak_source")) for e in backend] \
+            != [(torch.cuda.get_device_name(dev), FLOP_PEAK_TFLOPS, "table")]:
+        faults.append(f"{name}: perf:backend {backend}")
+    if not 0.0 < series.get("mfu", 0.0) < 1.0:
+        faults.append(f"{name}: the second step's series {series}")
+    del trainer, batches
+    return {"flops": int(got or 0), "closed_form": want, "launches": launches,
+            "counted_step_s": counted_s, **series}
 
 
 def _tool_series(events, name, fn):
@@ -3452,6 +3487,547 @@ def log_flop_tools_paths(count, tools, smi):
         if st:
             log(f"  12b {key} (after each lane's first sample): median {st['median']:.5f} "
                 f"({st['min']:.5f}-{st['max']:.5f}, n {st['n']}) | {smi}")
+
+
+# ---- path 13 (phase 17): the remaining models.  17a: ResNet-18 at config
+# 4's full shape (bench.py resnet18_16site: 64x64x3 images, width 64, batch
+# 256, bfloat16, 16 sites), warm-started on every site from a torch
+# checkpoint of a ResNet-18 written here in plain torch with torchvision's
+# module names, one Adam step taken.  17b: the fused GroupNorm against the
+# plain one on one grads step of 17a's model and of path 1's VBM.  17c: the
+# two-network scheme at config 5's shape (2 x VBM at 32^3, width 16, batch
+# 128), cut to 4 sites of config 5's 32.
+RESNET_SITES = 16
+RESNET_LEAVES = 62
+# 1280 images a site: 1024 training images, four gradient rounds of 256
+RESNET_FILES = 1280
+RESNET_SPLIT_ROUND = 3  # the second gradient round, split by part (fenced)
+RESNET_STEADY_ROUND = 4  # the third, neither fenced nor profiled
+RESNET_PROFILED_ROUND = 5  # the last, under torch.profiler
+RESNET_ARGS = dict(input_shape=[64, 64, 3], model_width=64, batch_size=256, epochs=1,
+                   split_ratio=[0.8, 0.1, 0.1], precision_bits=8, compute_dtype="bfloat16",
+                   seed=7, patience=100)
+MULTI_SITES = 4
+MULTI_LEAVES = 2 * VBM_LEAVES
+MULTI_FILES = 320  # 256 training volumes a site: two gradient rounds of 128
+MULTI_ARGS = dict(input_shape=[32, 32, 32], model_width=16, batch_size=128, epochs=1,
+                  split_ratio=[0.8, 0.1, 0.1], precision_bits=8, compute_dtype="bfloat16",
+                  seed=7, patience=100)
+# fused against plain GroupNorm under bfloat16 autocast: the fused norm
+# returns bfloat16 (as the JAX package's does), the plain one float32, so
+# the residual stream and the pooled head run one bfloat16 rounding apart.
+# Held against the largest gradient of all leaves: a leaf whose gradient
+# is a sum that cancels (the stem's) differs by a fifth of its own largest
+# in bfloat16 without any fault, so its own scale is printed, not held
+GN_RTOL = 1e-2
+GN_TIMED_STEPS = 10
+
+
+def torchvision_style_resnet18(width=64, num_classes=2):
+    """ResNet-18 as a torch user writes it (torchvision's names: ``conv1``,
+    ``bn1``, ``layer1.0.conv1`` ... ``downsample``, ``fc``), with GroupNorm
+    (``min(8, C)`` groups, eps 1e-6) for BatchNorm: the checkpoint a user of
+    the reference framework brings.  Its own names and torch's symmetric
+    paddings; only the order of its parameters is the port's."""
+    import torch.nn.functional as F
+    from torch import nn
+
+    def gn(c):
+        return nn.GroupNorm(min(8, c), c, eps=1e-6)
+
+    class BasicBlock(nn.Module):
+        def __init__(self, cin, cout, stride):
+            super().__init__()
+            self.conv1 = nn.Conv2d(cin, cout, 3, stride, 1, bias=False)
+            self.bn1 = gn(cout)
+            self.conv2 = nn.Conv2d(cout, cout, 3, 1, 1, bias=False)
+            self.bn2 = gn(cout)
+            self.downsample = None
+            if stride != 1 or cin != cout:
+                self.downsample = nn.Sequential(nn.Conv2d(cin, cout, 1, stride, bias=False),
+                                                gn(cout))
+
+        def forward(self, x):
+            y = self.bn2(self.conv2(F.relu(self.bn1(self.conv1(x)))))
+            return F.relu(y + (x if self.downsample is None else self.downsample(x)))
+
+    class ResNet(nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.conv1 = nn.Conv2d(3, width, 7, 2, 3, bias=False)
+            self.bn1 = gn(width)
+            cin = width
+            for i, c in enumerate((width, 2 * width, 4 * width, 8 * width)):
+                setattr(self, f"layer{i + 1}",
+                        nn.Sequential(BasicBlock(cin, c, 1 if i == 0 else 2), BasicBlock(c, c, 1)))
+                cin = c
+            self.fc = nn.Linear(cin, num_classes)
+
+        def forward(self, x):
+            x = F.max_pool2d(F.relu(self.bn1(self.conv1(x))), 3, 2, 1)
+            for i in range(4):
+                x = getattr(self, f"layer{i + 1}")(x)
+            return self.fc(x.mean(dim=(2, 3)))
+
+    return ResNet()
+
+
+def write_warm_start_file(dev, path):
+    """A ``source='coinstac'`` ``weights.tar`` of a torchvision-style
+    ResNet-18 after one Adam step on a random batch; returns its parameters
+    (on the CPU, in its ``parameters()`` order) and the Adam count."""
+    import torch
+    import torch.nn.functional as F
+
+    torch.manual_seed(RESNET_ARGS["seed"])
+    net = torchvision_style_resnet18(RESNET_ARGS["model_width"]).to(dev)
+    opt = torch.optim.Adam(net.parameters(), lr=1e-3)
+    h, w, c = RESNET_ARGS["input_shape"]
+    x = torch.randn(8, c, h, w, device=dev)
+    F.cross_entropy(net(x), torch.randint(0, 2, (8,), device=dev)).backward()
+    opt.step()
+    to_cpu = lambda v: v.detach().cpu() if isinstance(v, torch.Tensor) else v  # noqa: E731
+    opt_sd = opt.state_dict()
+    opt_sd["state"] = {i: {k: to_cpu(v) for k, v in st.items()} for i, st in opt_sd["state"].items()}
+    torch.save({"source": "coinstac",
+                "models": {"resnet": {k: to_cpu(v) for k, v in net.state_dict().items()}},
+                "optimizers": {"resnet": opt_sd}}, path)
+    return [to_cpu(p) for p in net.parameters()], 1
+
+
+def warm_started_resnet_trainer(file_params, records):
+    """``ResNetTrainer`` whose sites record what the warm start gave them:
+    the weights right after ``pretrained_path``'s load (the JAX package's
+    rule: weights only, a fresh optimizer) against the file's, bit for bit;
+    then the file loaded again with its Adam state, as a run resumed from
+    the reference framework's checkpoint does, and every parameter's Adam
+    ``step``."""
+    import torch
+
+    from coinstac_dinunet_tpu_torch.interop import creation_order
+    from coinstac_dinunet_tpu_torch.models import ResNetTrainer
+
+    class WarmStartedResNet(ResNetTrainer):
+        def _init_nn_weights(self):
+            super()._init_nn_weights()
+            m = self.nn["resnet"]
+            self._weights_equal = [torch.equal(m.get_parameter(p).detach().cpu(), t)
+                                   for p, t in zip(creation_order(m), file_params)]
+
+        def init_nn(self, init_models=True, init_weights=True, init_optimizer=True):
+            super().init_nn(init_models, init_weights, init_optimizer)
+            if init_weights and init_optimizer and self.cache.get("pretrained_path"):
+                fresh_step = self.step
+                self.load_checkpoint(full_path=self.cache["pretrained_path"])
+                state = self.optimizer["resnet"].state
+                records.append({
+                    "site": self.state.get("clientId"), "weights_equal": self._weights_equal,
+                    "step_before": fresh_step, "step": self.step, "states": len(state),
+                    "adam_steps": sorted({float(st["step"]) for st in state.values()})})
+            return self
+
+    return WarmStartedResNet
+
+
+def _site_params(eng, site):
+    ts = eng.site_caches[site].get("_train_state")
+    return None if ts is None else {n: [p.detach() for p in m.parameters()]
+                                    for n, m in ts.nn.items()}
+
+
+def _equal_across_sites(eng):
+    """Every site's parameters bit-equal to the first site's (None before
+    the sites hold models)."""
+    import torch
+
+    first = _site_params(eng, eng.site_ids[0])
+    if first is None:
+        return None
+    for s in eng.site_ids[1:]:
+        other = _site_params(eng, s)
+        if other is None or any(not torch.equal(a, b) for n in first
+                                for a, b in zip(first[n], other[n])):
+            return False
+    return True
+
+
+def run_federation(eng, sites, leaves, after_round=None, profiled=()):
+    """Step ``eng`` to SUCCESS; every gradient round must launch K1 once per
+    payload (``sites`` + the aggregator's) over ``leaves`` segments each.
+    ``after_round(eng, grad_round)`` runs after every round; the rounds
+    numbered in ``profiled`` run under ``torch.profiler``.  Returns the
+    round times, the K1 counts, the profiles and the wall time."""
+    import torch
+
+    from coinstac_dinunet_tpu_torch.ops import quantize as q
+
+    q.KERNEL.launches = q.KERNEL.segments = 0
+    round_s, per_round, profiles, grad_rounds = [], [], [], 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while not eng.success and eng.rounds < 40:
+        before = q.KERNEL.launches, q.KERNEL.segments
+        tr = time.perf_counter()
+        if eng.rounds + 1 in profiled:
+            site_outs, profile = profiled_round(eng)
+            profiles.append(profile)
+        else:
+            site_outs, _ = eng.step_round()
+            torch.cuda.synchronize()
+        round_s.append(time.perf_counter() - tr)
+        grew = q.KERNEL.launches - before[0], q.KERNEL.segments - before[1]
+        per_round.append(grew)
+        grad = all(o.get("reduce") for o in site_outs.values())
+        if grad:
+            grad_rounds += 1
+            if grew != (sites + 1, (sites + 1) * leaves):
+                raise AssertionError(
+                    f"round {eng.rounds}: K1 launched {grew[0]} times over {grew[1]} segments, "
+                    f"expected {sites + 1} over {(sites + 1) * leaves}")
+        if after_round is not None:
+            after_round(eng, grad)
+    wall = time.perf_counter() - t0
+    if not eng.success:
+        raise AssertionError(f"no SUCCESS after {eng.rounds} rounds")
+    if grad_rounds == 0:
+        raise AssertionError("no gradient round went through K1")
+    return {"rounds": eng.rounds, "grad_rounds": grad_rounds, "launches": q.KERNEL.launches,
+            "segments": q.KERNEL.segments, "launches_segments_per_round": per_round,
+            "round_s": round_s, "profiled_rounds": profiles, "wall_s": wall}
+
+
+def _provision(eng, n_files, stem):
+    for s in eng.site_ids:
+        for i in range(n_files):
+            open(os.path.join(eng.site_data_dir(s), f"{s}_{stem}_{i:04d}"), "w").close()
+
+
+class HostSplit:
+    """Seconds a round spends in each named part of the sites' and the
+    aggregator's work, fenced on the card: the synthetic images
+    (``__getitem__``), the batches' cast and copy (``_stack_batches``), the
+    gradient step, the optimizer step, writing and reading payloads (K1
+    and the files), the aggregator's reduce, the evaluations, building the
+    models and writing and reading checkpoints, each
+    exclusive of the others it calls (the reduce's payload reads count as
+    reads).  While open, it wraps those functions where the port looks
+    them up; the wrappers time and fence only while ``armed`` is set, so
+    the rounds it is not armed for run as without it.  :meth:`take`
+    returns the sums and starts anew."""
+
+    def __init__(self, dataset_cls):
+        from coinstac_dinunet_tpu_torch.nn.basetrainer import NNTrainer
+        from coinstac_dinunet_tpu_torch.parallel.reducer import COINNReducer
+        from coinstac_dinunet_tpu_torch.utils import tensorutils
+
+        self.sums, self.stack, self.armed = {}, [], False
+        self.targets = [(dataset_cls, "__getitem__", "images"),
+                        (NNTrainer, "_stack_batches", "cast_copy"),
+                        (NNTrainer, "compute_grads", "grads_step"),
+                        (NNTrainer, "apply_grads", "adam_step"),
+                        (NNTrainer, "evaluation", "evaluation"),
+                        (NNTrainer, "init_nn", "init_nn"),
+                        (NNTrainer, "save_checkpoint", "checkpoint_save"),
+                        (NNTrainer, "load_checkpoint", "checkpoint_load"),
+                        (tensorutils, "save_wire", "save_payload"),
+                        (tensorutils, "load_arrays", "load_payload"),
+                        (COINNReducer, "reduce", "reduce")]
+
+    def _timed(self, fn, name):
+        import torch
+
+        def timed(*a, **kw):
+            if not self.armed:
+                return fn(*a, **kw)
+            torch.cuda.synchronize()
+            self.stack.append([time.perf_counter(), 0.0])
+            try:
+                return fn(*a, **kw)
+            finally:
+                torch.cuda.synchronize()
+                t0, inner = self.stack.pop()
+                took = time.perf_counter() - t0
+                self.sums[name] = self.sums.get(name, 0.0) + took - inner
+                if self.stack:
+                    self.stack[-1][1] += took
+        return timed
+
+    def __enter__(self):
+        self.saved = [(obj, attr, getattr(obj, attr)) for obj, attr, _ in self.targets]
+        for obj, attr, name in self.targets:
+            setattr(obj, attr, self._timed(getattr(obj, attr), name))
+        return self
+
+    def __exit__(self, *exc):
+        for obj, attr, fn in self.saved:
+            setattr(obj, attr, fn)
+
+    def take(self):
+        out, self.sums = self.sums, {}
+        return out
+
+
+def run_resnet_path(dev, workdir):
+    """Path 13a (phase 17): ResNet-18 at config 4 over 16 sites, every site
+    warm-started from the torchvision-style file (weights bit-equal to the
+    file's, then its Adam state: every parameter's ``step`` the file's
+    count), lockstep dSGD on the int8 wire to SUCCESS, K1 on every
+    payload, every site's parameters equal after the run."""
+    from coinstac_dinunet_tpu_torch import InProcessEngine
+    from coinstac_dinunet_tpu_torch.models import SyntheticImageDataset
+
+    os.makedirs(workdir, exist_ok=True)
+    weights = os.path.join(workdir, "weights.tar")
+    file_params, count = write_warm_start_file(dev, weights)
+    records = []
+    eng = InProcessEngine(os.path.join(workdir, "run"), n_sites=RESNET_SITES,
+                          trainer_cls=warm_started_resnet_trainer(file_params, records),
+                          dataset_cls=SyntheticImageDataset, device=dev, data_dir="data",
+                          pretrained_path=weights, **RESNET_ARGS)
+    _provision(eng, RESNET_FILES, "image")
+    host_split = {}
+
+    def after_round(eng, grad):
+        if eng.rounds == RESNET_SPLIT_ROUND:
+            host_split.update(split.take())
+        split.armed = eng.rounds + 1 == RESNET_SPLIT_ROUND
+
+    with HostSplit(SyntheticImageDataset) as split:
+        split.armed = RESNET_SPLIT_ROUND == 1
+        fed = run_federation(eng, RESNET_SITES, RESNET_LEAVES, after_round=after_round,
+                             profiled=(RESNET_PROFILED_ROUND,))
+    faults = []
+    for n in (RESNET_SPLIT_ROUND, RESNET_PROFILED_ROUND, RESNET_STEADY_ROUND):
+        if n > len(fed["round_s"]) or fed["launches_segments_per_round"][n - 1][0] == 0:
+            faults.append(f"round {n} is not a gradient round")
+    sites = {r["site"] for r in records if str(r["site"]).startswith("site_")}
+    if sites != set(eng.site_ids):
+        faults.append(f"warm-started sites {sorted(sites)}")
+    for r in records:
+        if not (all(r["weights_equal"]) and len(r["weights_equal"]) == RESNET_LEAVES):
+            faults.append(f"{r['site']}: weights after pretrained_path not the file's "
+                          f"({sum(r['weights_equal'])}/{len(r['weights_equal'])} leaves)")
+        if (r["step_before"], r["step"], r["states"], r["adam_steps"]) != \
+                (0, count, RESNET_LEAVES, [float(count)]):
+            faults.append(f"{r['site']}: Adam after the load {r}")
+    if not _equal_across_sites(eng):
+        faults.append("the sites' parameters differ after the run")
+    if faults:
+        raise AssertionError("path 13a:\n  " + "\n  ".join(faults))
+    run_dir = os.path.join(workdir, "run")
+    metrics = check_outputs(eng, run_dir)
+    grads_bytes = [os.path.getsize(os.path.join(run_dir, "remote_base", s, "grads.npy"))
+                   for s in eng.site_ids]
+    avg_bytes = os.path.getsize(os.path.join(run_dir, "remote_xfer", "avg_grads.npy"))
+    samples = fed["grad_rounds"] * RESNET_SITES * RESNET_ARGS["batch_size"]
+    steady_s = fed["round_s"][RESNET_STEADY_ROUND - 1]
+    return {**fed, "samples_per_s": samples / fed["wall_s"], "warm_started_sites": len(sites),
+            "host_split": host_split, "steady_round_s": steady_s,
+            "steady_samples_per_s": RESNET_SITES * RESNET_ARGS["batch_size"] / steady_s,
+            "adam_count": count, "global_test_metrics": metrics,
+            "wire_bytes": {"site_to_aggregator": grads_bytes, "aggregator_to_site": avg_bytes,
+                           "float32_values": 4 * sum(p.numel() for p in file_params)}}
+
+
+def grads_fused_vs_plain(dev, cls, args, shape):
+    """One ``grads`` step of ``cls`` from the same seeded weights and batch
+    with ``fused_groupnorm`` off and on: the gradients' largest difference
+    against the plain step's largest gradient, of all leaves and of each
+    leaf, the fused norm's calls in each (0 with it off), and the median
+    step time of a few more."""
+    import numpy as np
+    import torch
+
+    from coinstac_dinunet_tpu_torch.ops import groupnorm
+
+    rng = np.random.default_rng(11)
+    host = {"inputs": rng.normal(size=shape).astype(np.float32),
+            "labels": rng.integers(0, 2, shape[0]).astype(np.int32),
+            "_mask": np.ones(shape[0], np.float32)}
+    calls = [0]
+    fused_fn = groupnorm.group_norm
+
+    def counted(*a, **kw):
+        calls[0] += 1
+        return fused_fn(*a, **kw)
+
+    grads, out = {}, {}
+    groupnorm.group_norm = counted
+    try:
+        for fused in (False, True):
+            torch.cuda.empty_cache()
+            calls[0] = 0
+            trainer = cls(cache={**args, "seed": 7, "fused_groupnorm": fused},
+                          device=dev).init_nn()
+            batches = trainer._stack_batches([host])
+            g, _ = trainer.compute_grads(batches)
+            grads[fused] = [t.detach().float().clone() for m in g.values() for t in m.values()]
+            n_calls, times = calls[0], []
+            for _ in range(GN_TIMED_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                trainer.compute_grads(batches)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            out["fused" if fused else "plain"] = {"gn_calls": n_calls,
+                                                  "step_ms": 1e3 * float(np.median(times))}
+            del trainer, batches, g
+    finally:
+        groupnorm.group_norm = fused_fn
+    errs = [float((a - b).abs().max()) for a, b in zip(grads[True], grads[False])]
+    scales = [float(b.abs().max()) for b in grads[False]]
+    err, scale = max(errs), max(scales)
+    leaf_rel = [e / max(s, 1e-30) for e, s in zip(errs, scales)]
+    worst = max(range(len(leaf_rel)), key=leaf_rel.__getitem__)
+    out.update(max_abs_err=err, max_abs_grad=scale, relative=err / scale,
+               worst_leaf=worst, worst_leaf_relative=leaf_rel[worst],
+               worst_leaf_max_abs_grad=scales[worst], leaf_relative=leaf_rel)
+    if out["plain"]["gn_calls"] != 0 or out["fused"]["gn_calls"] == 0:
+        raise AssertionError(f"path 13b {cls.__name__}: fused GroupNorm calls {out}")
+    if not err <= GN_RTOL * scale:
+        raise AssertionError(f"path 13b {cls.__name__}: fused and plain gradients differ by "
+                             f"{err} > {GN_RTOL} x {scale}")
+    return out
+
+
+def run_fused_groupnorm_path(dev):
+    """Path 13b (phase 17): 17a's ResNet-18 (batch 256) and path 1's VBM
+    (width 16, 64^3, batch 16), one grads step each with the fused
+    GroupNorm and with the plain one."""
+    from coinstac_dinunet_tpu_torch.models import ResNetTrainer, VBMTrainer
+
+    resnet = {k: RESNET_ARGS[k] for k in ("input_shape", "model_width", "compute_dtype")}
+    vbm = dict(input_shape=[64, 64, 64], model_width=WIDTH, compute_dtype="bfloat16")
+    return {
+        "resnet": grads_fused_vs_plain(dev, ResNetTrainer, resnet,
+                                       (RESNET_ARGS["batch_size"], *RESNET_ARGS["input_shape"])),
+        "vbm": grads_fused_vs_plain(dev, VBMTrainer, vbm, (VBM_BATCH, 64, 64, 64)),
+    }
+
+
+def run_multinet_path(dev, workdir):
+    """Path 13c (phase 17): two VBM nets at config 5's width on 4 sites,
+    dSGD on the int8 wire to SUCCESS: one payload of both nets' 46 leaves
+    through K1 a site, every site's parameters equal to the others' after
+    every round, and from the round that applies the first mean gradient on
+    each leaf of both nets changed from the seeded start."""
+    import torch
+
+    from coinstac_dinunet_tpu_torch import InProcessEngine
+    from coinstac_dinunet_tpu_torch.models import MultiNetTrainer, SyntheticVBMDataset
+
+    start = MultiNetTrainer(cache={**MULTI_ARGS}, device=dev).init_nn()
+    initial = {n: [p.detach().clone() for p in m.parameters()] for n, m in start.nn.items()}
+    del start
+    eng = InProcessEngine(workdir, n_sites=MULTI_SITES, trainer_cls=MultiNetTrainer,
+                          dataset_cls=SyntheticVBMDataset, device=dev, data_dir="data",
+                          **MULTI_ARGS)
+    _provision(eng, MULTI_FILES, "subject")
+    faults, seen = [], {"equal_rounds": 0, "changed_checks": 0, "shipped": False}
+
+    def after_round(eng, grad):
+        equal = _equal_across_sites(eng)
+        if equal is None:
+            return
+        if not equal:
+            faults.append(f"round {eng.rounds}: the sites' parameters differ")
+        seen["equal_rounds"] += 1
+        # a gradient round ships the gradients; the sites apply the mean
+        # when the next round brings it
+        if seen["shipped"]:
+            for s in eng.site_ids:
+                for n, params in _site_params(eng, s).items():
+                    same = sum(torch.equal(a, b) for a, b in zip(params, initial[n]))
+                    if same:
+                        faults.append(f"round {eng.rounds}: {s} {n}: {same} leaves unchanged")
+            seen["changed_checks"] += 1
+        seen["shipped"] = seen["shipped"] or grad
+
+    fed = run_federation(eng, MULTI_SITES, MULTI_LEAVES, after_round)
+    if faults:
+        raise AssertionError("path 13c:\n  " + "\n  ".join(faults[:20]))
+    metrics = check_outputs(eng, workdir)
+    samples = fed["grad_rounds"] * MULTI_SITES * MULTI_ARGS["batch_size"]
+    return {**fed, **seen, "samples_per_s": samples / fed["wall_s"],
+            "global_test_metrics": metrics,
+            "wire_bytes": wire_sizes(eng, workdir, ["grads.npy"], ["avg_grads.npy"])}
+
+
+def run_remaining_models_path(dev, workdir):
+    """Path 13 (phase 17): 13a, 13b, 13c and 17a's counted grads step."""
+    import numpy as np
+
+    from coinstac_dinunet_tpu_torch.models import ResNetTrainer
+    from coinstac_dinunet_tpu_torch.models import flops as closed
+
+    t0 = time.perf_counter()
+    out = {"resnet": run_resnet_path(dev, os.path.join(workdir, "resnet"))}
+    out["resnet_s"] = time.perf_counter() - t0
+    faults = []
+    shape = (RESNET_ARGS["batch_size"], *RESNET_ARGS["input_shape"])
+    args = {k: RESNET_ARGS[k] for k in ("input_shape", "model_width", "compute_dtype")}
+    out["resnet_count"] = count_grads_step(
+        dev, os.path.join(workdir, "count"), "resnet", ResNetTrainer, args, shape,
+        closed.resnet18_grads_flops(shape[0], RESNET_ARGS["input_shape"],
+                                    RESNET_ARGS["model_width"]),
+        np.random.default_rng(7), faults)
+    if faults:
+        raise AssertionError("path 13a count:\n  " + "\n  ".join(faults))
+    t1 = time.perf_counter()
+    out["fused_groupnorm"] = run_fused_groupnorm_path(dev)
+    out["fused_groupnorm_s"] = time.perf_counter() - t1
+    t2 = time.perf_counter()
+    out["multinet"] = run_multinet_path(dev, os.path.join(workdir, "multinet"))
+    out["multinet_s"] = time.perf_counter() - t2
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def log_remaining_models_path(path, smi):
+    r = path["resnet"]
+    log(f"  17a ResNet-18, config 4: {RESNET_SITES} sites warm-started from a torchvision-style "
+        f"weights.tar (weights bit-equal, Adam step {r['adam_count']} on all "
+        f"{RESNET_LEAVES} parameters); {r['rounds']} rounds ({r['grad_rounds']} with gradients) "
+        f"to SUCCESS in {r['wall_s']:.3f} s, {r['samples_per_s']:.1f} samples/s, K1 launches "
+        f"{r['launches']} over {r['segments']} segments | {smi}")
+    log("  17a round seconds: " + " ".join(f"{t:.3f}" for t in r["round_s"]))
+    log(f"  17a steady round {RESNET_STEADY_ROUND} (unfenced, unprofiled) "
+        f"{r['steady_round_s']:.3f} s, {r['steady_samples_per_s']:.1f} samples/s | {smi}")
+    sp, t = r["host_split"], r["round_s"][RESNET_SPLIT_ROUND - 1]
+    log(f"  17a round {RESNET_SPLIT_ROUND} split (fenced) {t:.3f} s: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in sorted(sp.items()))
+        + f", the rest {t - sum(sp.values()):.3f}")
+    log_profiles(r["profiled_rounds"])
+    log("  17a K1 launches/segments per round: " + " ".join(
+        f"{n}/{m}" for n, m in r["launches_segments_per_round"]))
+    wb = r["wire_bytes"]
+    log(f"  17a wire bytes per gradient round: site->aggregator {wb['site_to_aggregator'][0]} "
+        f"(x{len(wb['site_to_aggregator'])}), aggregator->each site {wb['aggregator_to_site']} "
+        f"(float32 values alone: {wb['float32_values']})")
+    c = path["resnet_count"]
+    log(f"  17a counted grads step (batch {RESNET_ARGS['batch_size']}): {c['flops']} FLOP = the "
+        f"closed form ({c['flops'] / 1e9:.3f} GFLOP); counted step {c['counted_step_s']:.3f} s; "
+        f"the next step {c.get('achieved_tflops', 0.0):.3f} TFLOP/s, mfu {c.get('mfu', 0.0):.5f}, "
+        f"{c.get('samples_per_sec', 0.0):.1f} samples/s | {smi}")
+    for name, g in path["fused_groupnorm"].items():
+        log(f"  17b {name}: grads fused vs plain GroupNorm max |d| {g['max_abs_err']:.3e} "
+            f"({g['relative']:.3e} of max |g| {g['max_abs_grad']:.3e}; tolerance {GN_RTOL}); "
+            f"worst leaf {g['worst_leaf']} {g['worst_leaf_relative']:.3e} of its max |g| "
+            f"{g['worst_leaf_max_abs_grad']:.3e}; "
+            f"step {g['plain']['step_ms']:.3f} ms plain, {g['fused']['step_ms']:.3f} ms fused "
+            f"({g['fused']['gn_calls']} fused calls) | {smi}")
+    m = path["multinet"]
+    log(f"  17c two VBM nets, config 5 at {MULTI_SITES} sites: {m['rounds']} rounds "
+        f"({m['grad_rounds']} with gradients) to SUCCESS in {m['wall_s']:.3f} s, "
+        f"{m['samples_per_s']:.1f} samples/s; sites equal after {m['equal_rounds']} rounds, both "
+        f"nets changed on every site in {m['changed_checks']}; K1 launches {m['launches']} over "
+        f"{m['segments']} segments | {smi}")
+    log("  17c round seconds: " + " ".join(f"{t:.3f}" for t in m["round_s"]))
+    log(f"  17c wire bytes per gradient round: site->aggregator "
+        f"{m['wire_bytes']['site_to_aggregator']}, aggregator->each site "
+        f"{m['wire_bytes']['aggregator_to_site']}")
+    log(f"  phase 17: 17a {path['resnet_s']:.1f} s, 17b {path['fused_groupnorm_s']:.1f} s, "
+        f"17c {path['multinet_s']:.1f} s, all {path['wall_s']:.1f} s")
 
 
 # ---- path 11 (phase 15): the other metrics and data.  The VBM gray-matter
@@ -4129,6 +4705,13 @@ def main():
         nifti_path = run_nifti_path(dev, wd)
     log_nifti_path(nifti_path, smi)
 
+    log(f"[17 main path 13: the remaining models] ResNet-18 (config 4) on {RESNET_SITES} sites "
+        f"warm-started from a torch checkpoint, the fused GroupNorm, two VBM nets "
+        f"(config 5) on {MULTI_SITES} sites | {smi}")
+    with tempfile.TemporaryDirectory() as wd:
+        models_path = run_remaining_models_path(dev, wd)
+    log_remaining_models_path(models_path, smi)
+
     k1["launches_by_path"] = {"vbm_dsgd": main_path["launches"],
                               "vbm_pretrain_powersgd": psgd_path["launches"],
                               "seq_rankdad": dad_path["k1_launches"],
@@ -4136,7 +4719,9 @@ def main():
                               "seq_membership_run_ahead": mem_path["k1_launches"],
                               "seq_health_quarantine": health_path["k1_launches"],
                               "vbm_nifti_metrics": (nifti_path["11a"]["launches"]
-                                                    + nifti_path["11b"]["launches"])}
+                                                    + nifti_path["11b"]["launches"]),
+                              "resnet18_config4": models_path["resnet"]["launches"],
+                              "multinet_config5": models_path["multinet"]["launches"]}
     for kern in k234:
         kern["launches_by_path"] = {"seq_dsgd": seq_path["launches"][kern["name"]],
                                     "seq_rankdad": dad_path["launches"][kern["name"]],
@@ -4156,7 +4741,11 @@ def main():
                   vectorized_path=vec_path, membership_path=mem_path,
                   drain_path=drain_path, health_path=health_path,
                   health_vectorized_path=health_vec, nifti_path=nifti_path,
-                  flop_count_path=flop_path, tools_path=tools_path, device=kind,
+                  flop_count_path=flop_path, tools_path=tools_path,
+                  resnet18_config4=models_path["resnet"],
+                  resnet18_config4_count=models_path["resnet_count"],
+                  fused_groupnorm=models_path["fused_groupnorm"],
+                  multinet_config5=models_path["multinet"], device=kind,
                   power=smi, kernels=kernels)
     out_dir = os.path.join(HERE, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)

@@ -6,10 +6,11 @@ and the aggregator, so every value is identical to the JAX package's
 dSGD path, the invocation retries, the daemon engine, the engine's
 telemetry lane, quorum, the staleness-bounded async rounds and the
 site-vectorized federation, run-ahead pipelining, the roster protocol
-of elastic membership and the health layer (metrics, anomalies, perf and
-capture keys) use; the vocabularies of the features the port does
-not carry yet (the live ops plane's knobs and verdicts, analysis tiers)
-stay in the JAX package until their slice lands (``ROADMAP.md`` Queue 1).
+of elastic membership, the health layer (metrics, anomalies, perf and
+capture keys) and the models and torch checkpoint import use; the
+vocabularies of the features the port does not carry yet (the live ops
+plane's knobs and verdicts, analysis tiers) stay in the JAX package until
+their slice lands (``ROADMAP.md`` Queue 1).
 """
 from enum import Enum
 
@@ -276,6 +277,28 @@ class Capture:
 
     ON_ANOMALY = "capture_on_anomaly"
     MAX_PROFILES = "capture_max_profiles"
+
+
+class Model:
+    """Cache keys of the models and the checkpoint import, spelled as the
+    JAX package reads them:
+
+    - ``FUSED_GROUPNORM`` — the CNNs' norms return the input's dtype, as
+      the JAX package's fused GroupNorm does (``ops/groupnorm.py``;
+      ``COINN_NO_FUSED_GN`` in the environment still turns it off);
+    - ``TORCH_NAME_MAP`` — ``{torch name: flax path}`` overriding the
+      positional pairing of a torch checkpoint's entries
+      (``utils/torch_import.py``);
+    - ``IMPORT_TORCH_OPTIMIZER`` — ``False`` starts an imported model's
+      optimizer fresh even when the file carries its Adam state;
+    - ``ALLOW_UNSAFE_TORCH_PICKLE`` — loads a torch file that needs full
+      unpickling (which runs code from the file): trusted local files only.
+    """
+
+    FUSED_GROUPNORM = "fused_groupnorm"
+    TORCH_NAME_MAP = "torch_name_map"
+    IMPORT_TORCH_OPTIMIZER = "import_torch_optimizer"
+    ALLOW_UNSAFE_TORCH_PICKLE = "allow_unsafe_torch_pickle"
 
 
 class Federation:

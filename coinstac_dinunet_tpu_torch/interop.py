@@ -12,7 +12,8 @@ the JAX package's order and layout on the wire:
 
 A port model names its flax counterpart's modules in ``FLAX_NAMES``
 (``{torch module prefix: flax module path}``; the ``""`` entry holds the
-model's own top-level parameters, such as a positional table).  The layout
+model's own top-level parameters, such as a positional table), listed in
+the order the flax model creates them (:func:`creation_order`).  The layout
 follows the parameter's kind, never its rank: only the ``weight`` of an
 ``nn.Linear`` or ``nn.Conv*`` is a flax ``kernel`` and is transposed;
 every other parameter (norm scales, biases, a ``(max_len, d)`` embedding
@@ -41,6 +42,21 @@ def flax_path(model, param_name):
     if leaf == "weight":
         leaf = "kernel" if is_kernel(model, param_name) else "scale"
     return ("params", *module, leaf)
+
+
+def creation_order(model):
+    """``model``'s parameter names in the order its flax counterpart
+    creates its leaves (the order of a torch ``state_dict`` of the same
+    architecture): the modules in ``FLAX_NAMES`` order, each module's own
+    parameters in registration order (``weight`` before ``bias``, as flax
+    makes ``kernel``/``scale`` before ``bias``)."""
+    by_module = {}
+    for pname, _ in model.named_parameters():
+        by_module.setdefault(pname.rpartition(".")[0], []).append(pname)
+    order = [p for prefix in model.FLAX_NAMES for p in by_module.pop(prefix, [])]
+    if by_module:
+        raise ValueError(f"modules missing from FLAX_NAMES: {sorted(by_module)}")
+    return order
 
 
 def wire_leaves(models):

@@ -1,5 +1,7 @@
 from .cnn3d import NiftiVBMDataset, SyntheticVBMDataset, VBM3DNet, VBMTrainer, fit_volume
 from .mlp import FSVDataset, FSVNet, FSVTrainer
+from .multinet import MultiNetTrainer
+from .resnet import ResBlock, ResNet18, ResNetTrainer, SyntheticImageDataset
 from .transformer import (
     MultiHeadSelfAttention,
     SeqClassifier,
@@ -14,4 +16,5 @@ __all__ = [
     "FSVNet", "FSVDataset", "FSVTrainer",
     "TPDense", "MultiHeadSelfAttention", "TransformerBlock", "SeqClassifier",
     "SyntheticSeqDataset", "SeqTrainer",
+    "ResBlock", "ResNet18", "SyntheticImageDataset", "ResNetTrainer", "MultiNetTrainer",
 ]

@@ -15,8 +15,10 @@ choices were TPU-specific the port computes the same function plainly:
   wire.
 - **GroupNorm.** ``min(8, C)`` groups and eps 1e-6 (torch's default 1e-5
   is a different function); statistics in float32 (autocast runs
-  ``group_norm`` in float32).  The fused closed-form GroupNorm of the JAX
-  package is off by default there and not ported yet.
+  ``group_norm`` in float32).  ``fused_gn`` returns the norm in the
+  input's dtype, as the JAX package's fused GroupNorm(+ReLU) does
+  (:mod:`..ops.groupnorm`), off by default as there
+  (``cache['fused_groupnorm']``).
 - **Layout.** The public input stays the JAX model's ``(B, D, H, W)`` or
   ``(B, D, H, W, 1)``; inside, the volume runs as ``(B, 1, D, H, W)``.
 - **Dropout.** ``Dropout(0.2)`` on the head draws from an explicit
@@ -36,22 +38,25 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..config.keys import Model
 from ..data import COINNDataset
 from ..data.nifti import load_nifti
 from ..metrics import classification_outputs
+from ..ops.groupnorm import norm_relu
 from ..trainer import COINNTrainer
 from ..utils import logger, parse_shape, stable_file_id
 
 
-def _same_pad(x, k, stride):
+def _same_pad(x, k, stride, value=0.0):
     """flax ``padding="SAME"`` for a ``k``-wide kernel on every spatial dim
-    of an NCDHW volume: total ``max((ceil(n/s) - 1)·s + k - n, 0)``, the
-    smaller half before."""
+    of an ``(N, C, *spatial)`` tensor of any rank: total ``max((ceil(n/s) -
+    1)·s + k - n, 0)``, the smaller half before, filled with ``value``
+    (``-inf`` for a max-pool)."""
     pads = []
     for n in reversed(x.shape[2:]):
         total = max((-(-n // stride) - 1) * stride + k - n, 0)
         pads += [total // 2, total - total // 2]
-    return F.pad(x, pads)
+    return F.pad(x, pads, value=value)
 
 
 def _lecun_normal_(w, generator):
@@ -66,42 +71,45 @@ def _lecun_normal_(w, generator):
 class ConvBlock(nn.Module):
     """3³ convolution (no bias) + GroupNorm + ReLU."""
 
-    def __init__(self, cin, cout, stride=1):
+    def __init__(self, cin, cout, stride=1, fused_gn=False):
         super().__init__()
         self.stride = stride
         # stride 1: symmetric padding 1 IS flax's SAME; stride 2 pads
         # explicitly in forward
         self.conv = nn.Conv3d(cin, cout, 3, stride=stride,
                               padding=1 if stride == 1 else 0, bias=False)
-        self.gn = nn.GroupNorm(min(8, cout), cout, eps=1e-6)
+        self.gn = norm_relu(cout, fused_gn, relu=True)
 
     def forward(self, x):
         if self.stride != 1:
             x = _same_pad(x, 3, self.stride)
-        return F.relu(self.gn(self.conv(x)))
+        return self.gn(self.conv(x))
 
 
 class VBM3DNet(nn.Module):
     """Volumetric CNN: stem + 4 strided stages + GAP head; ``width`` sets
-    the channel progression (w, 2w, 4w, 8w)."""
+    the channel progression (w, 2w, 4w, 8w); ``fused_gn`` returns the
+    norms in the input's dtype.  ``FLAX_NAMES`` lists the modules in the flax
+    model's creation order (the torch checkpoint import pairs by it)."""
 
     FLAX_NAMES = {
         "stem": ("_StemConv_0",),
         "gn0": ("GroupNorm_0",),
+        **{k: v for i in range(6) for k, v in (
+            (f"blocks.{i}.conv", (f"_ConvBlock_{i}", "Conv_0")),
+            (f"blocks.{i}.gn", (f"_ConvBlock_{i}", "GroupNorm_0")))},
         "head": ("Dense_0",),
-        **{f"blocks.{i}.conv": (f"_ConvBlock_{i}", "Conv_0") for i in range(6)},
-        **{f"blocks.{i}.gn": (f"_ConvBlock_{i}", "GroupNorm_0") for i in range(6)},
     }
 
-    def __init__(self, num_classes=2, width=16, dropout=0.2):
+    def __init__(self, num_classes=2, width=16, dropout=0.2, fused_gn=False):
         super().__init__()
         w = int(width)
         self.dropout = float(dropout)
         self.stem = nn.Conv3d(1, w, 3, stride=2, bias=False)
-        self.gn0 = nn.GroupNorm(min(8, w), w, eps=1e-6)
+        self.gn0 = norm_relu(w, fused_gn, relu=True)
         chans = [(w, w, 1), (w, 2 * w, 2), (2 * w, 2 * w, 1),
                  (2 * w, 4 * w, 2), (4 * w, 4 * w, 1), (4 * w, 8 * w, 2)]
-        self.blocks = nn.ModuleList(ConvBlock(a, b, s) for a, b, s in chans)
+        self.blocks = nn.ModuleList(ConvBlock(a, b, s, fused_gn) for a, b, s in chans)
         self.head = nn.Linear(8 * w, int(num_classes))
 
     def init_weights(self, generator):
@@ -121,7 +129,7 @@ class VBM3DNet(nn.Module):
         if x.ndim == 5 and x.shape[-1] == 1:
             x = x[..., 0]
         x = x.unsqueeze(1)
-        x = F.relu(self.gn0(self.stem(_same_pad(x, 3, 2))))
+        x = self.gn0(self.stem(_same_pad(x, 3, 2)))
         for block in self.blocks:
             x = block(x)
         x = x.float().mean(dim=(2, 3, 4))  # global average pool
@@ -218,15 +226,11 @@ class NiftiVBMDataset(COINNDataset):
 
 class VBMTrainer(COINNTrainer):
     def _init_nn_model(self):
-        if self.cache.get("fused_groupnorm"):
-            raise NotImplementedError(
-                "fused_groupnorm is not ported yet (ROADMAP.md Queue 1: "
-                "s2d and fused GroupNorm)"
-            )
         self.cache.setdefault("compute_dtype", "bfloat16")
         self.nn["vbm_net"] = VBM3DNet(
             num_classes=int(self.cache.get("num_classes", 2)),
             width=int(self.cache.get("model_width", 16)),
+            fused_gn=bool(self.cache.get(Model.FUSED_GROUPNORM, False)),
         )
 
     def iteration(self, batch, generator=None):

@@ -16,7 +16,8 @@ import math
 
 from ..ops.flash_attention import attention_flops
 
-__all__ = ["dense_flops", "conv3d_flops", "vbm_grads_flops", "seq_attention_flops",
+__all__ = ["dense_flops", "conv_flops", "vbm_grads_flops",
+           "resnet18_grads_flops", "multinet_grads_flops", "seq_attention_flops",
            "seq_grads_flops", "fsv_grads_flops"]
 
 
@@ -25,10 +26,11 @@ def dense_flops(rows, fan_in, fan_out, input_grad=True):
     return 2 * rows * fan_in * fan_out * (3 if input_grad else 2)
 
 
-def conv3d_flops(batch, out_spatial, cin, cout, k=3, input_grad=True):
-    """Forward and backward FLOPs of one ``k³`` convolution whose output is
-    ``out_spatial`` (the padded input's every tap counts)."""
-    macs = batch * math.prod(out_spatial) * cin * cout * k ** 3
+def conv_flops(batch, out_spatial, cin, cout, k=3, input_grad=True):
+    """Forward and backward FLOPs of one convolution with a ``k``-wide
+    kernel on every spatial dim whose output is ``out_spatial`` (the padded
+    input's every tap counts)."""
+    macs = batch * math.prod(out_spatial) * cin * cout * k ** len(out_spatial)
     return 2 * macs * (3 if input_grad else 2)
 
 
@@ -38,12 +40,40 @@ def vbm_grads_flops(batch, input_shape, width=16, num_classes=2):
     dense head, on ``(batch, *input_shape)`` volumes."""
     w = int(width)
     spatial = [-(-int(n) // 2) for n in input_shape]
-    total = conv3d_flops(batch, spatial, 1, w, input_grad=False)
+    total = conv_flops(batch, spatial, 1, w, input_grad=False)
     for cin, cout, stride in ((w, w, 1), (w, 2 * w, 2), (2 * w, 2 * w, 1),
                               (2 * w, 4 * w, 2), (4 * w, 4 * w, 1), (4 * w, 8 * w, 2)):
         spatial = [-(-n // stride) for n in spatial]
-        total += conv3d_flops(batch, spatial, cin, cout)
+        total += conv_flops(batch, spatial, cin, cout)
     return total + dense_flops(batch, 8 * w, num_classes)
+
+
+def resnet18_grads_flops(batch, input_shape=(64, 64, 3), width=64, num_classes=2):
+    """ResNet-18 (``models/resnet.py``) on ``(batch, *input_shape)``
+    images: the 7×7 stride-2 stem, eight residual blocks of two 3×3
+    convolutions (the first of stages 2–4 stride 2, with a 1×1 stride-2
+    projection) and the dense head; the max-pool counts nothing."""
+    w = int(width)
+    cin = int(input_shape[2]) if len(input_shape) == 3 else 1
+    spatial = [-(-int(n) // 2) for n in input_shape[:2]]
+    total = conv_flops(batch, spatial, cin, w, k=7, input_grad=False)
+    spatial = [-(-n // 2) for n in spatial]  # the max-pool
+    cin = w
+    for i, feat in enumerate((w, 2 * w, 4 * w, 8 * w)):
+        for b in range(2):
+            stride = 2 if (i > 0 and b == 0) else 1
+            spatial = [-(-n // stride) for n in spatial]
+            total += conv_flops(batch, spatial, cin, feat) + conv_flops(batch, spatial, feat, feat)
+            if stride != 1 or cin != feat:
+                total += conv_flops(batch, spatial, cin, feat, k=1)
+            cin = feat
+    return total + dense_flops(batch, 8 * w, num_classes)
+
+
+def multinet_grads_flops(batch, input_shape=(32, 32, 32), width=16, num_classes=2):
+    """The two-network scheme (``models/multinet.py``): two VBM CNNs on
+    the same volumes; the logits' mean counts nothing."""
+    return 2 * vbm_grads_flops(batch, input_shape, width, num_classes)
 
 
 def seq_attention_flops(batch, seq_len, d_model=128, num_heads=4, num_layers=2):

@@ -121,8 +121,9 @@ class TransformerBlock(nn.Module):
 
 
 def _flax_names(num_layers):
-    names = {"": (), "embed": ("Dense_0",), "norm": ("LayerNorm_0",),
-             "head": ("Dense_1",)}
+    """``FLAX_NAMES`` in the flax model's creation order: the input
+    projection, the positional table, the blocks, the norm and the head."""
+    names = {"embed": ("Dense_0",), "": ()}
     for i in range(num_layers):
         blk = f"TransformerBlock_{i}"
         names.update({
@@ -133,6 +134,7 @@ def _flax_names(num_layers):
             f"blocks.{i}.up": (blk, "Dense_0"),
             f"blocks.{i}.down": (blk, "Dense_1"),
         })
+    names.update({"norm": ("LayerNorm_0",), "head": ("Dense_1",)})
     return names
 
 

@@ -25,8 +25,10 @@ written and read by :mod:`..utils.flax_msgpack` through :mod:`..interop`,
 so either package loads the other's.  ``count``, ``mu`` and ``nu`` are
 ``torch.optim.Adam``'s ``step``, ``exp_avg`` and ``exp_avg_sq``.  Reading
 one, the port ignores ``rng`` (the dropout generator does not map; it
-keeps its own).  Local data parallelism waits for a later slice
-(``ROADMAP.md``).
+keeps its own).  Any other ``torch.save`` file is a checkpoint of the
+reference framework, imported as the JAX package imports it
+(:mod:`..utils.torch_import`).  Local data parallelism waits for a later
+slice (``ROADMAP.md``).
 
 With telemetry on (an ambient recorder, ``telemetry.get_active()``), as
 in the JAX package: ``compute_grads`` records the gradient-health series
@@ -62,7 +64,7 @@ import numpy as np
 import torch
 
 from .. import config, interop
-from ..config.keys import Mode
+from ..config.keys import Mode, Model
 from ..data import device_prefetch, to_device
 from ..metrics import COINNAverages, Prf1a
 from ..telemetry import capture as _capture
@@ -70,6 +72,7 @@ from ..telemetry import health as _health
 from ..telemetry import perf as _perf
 from ..telemetry.recorder import get_active as _telemetry
 from ..utils import atomic_write, flax_msgpack, logger
+from ..utils import torch_import
 from ..utils.utils import performance_improved_, stop_training_
 
 CHECKPOINT_SOURCE = "coinstac-dinunet-tpu-torch"
@@ -77,26 +80,6 @@ CHECKPOINT_SOURCE = "coinstac-dinunet-tpu-torch"
 #: ``load_checkpoint`` needs to read ``models`` (any other string sends it
 #: down its foreign-payload fallback)
 WIRE_CHECKPOINT_SOURCE = "coinstac-dinunet-tpu"
-
-
-def is_torch_file(path):
-    """Whether ``path`` holds a ``torch.save`` payload: a zip archive with a
-    ``data.pkl`` member, or a legacy pickle (first byte ``0x80``, which is
-    also msgpack's empty map — no checkpoint is one)."""
-    try:
-        with open(path, "rb") as f:
-            head = f.read(2)
-    except OSError:
-        return False
-    if head[:2] == b"PK":
-        import zipfile
-
-        try:
-            with zipfile.ZipFile(path) as z:
-                return any(n.endswith("data.pkl") for n in z.namelist())
-        except (zipfile.BadZipFile, OSError):
-            return False
-    return head[:1] == b"\x80"
 
 
 @dataclass
@@ -298,13 +281,15 @@ class NNTrainer:
         """Restore models (and optimizers, step, generator when present)
         from a :meth:`save_checkpoint` file, or the models and step from a
         wire checkpoint (:meth:`save_wire_checkpoint`, or one the JAX
-        package wrote), into the built models.  ``allow_torch=False`` — a
-        file received from the aggregator — refuses a ``torch.save``
-        payload rather than unpickle it."""
+        package wrote), into the built models; any other ``torch.save``
+        file is a reference-ecosystem checkpoint
+        (:meth:`_load_torch_checkpoint`).  ``allow_torch=False`` — a file
+        received from the aggregator — refuses a ``torch.save`` payload
+        rather than unpickle it."""
         path = full_path or self.checkpoint_path(name)
         if not self.nn:
             raise RuntimeError("load_checkpoint needs built models: call init_nn() first")
-        if not is_torch_file(path):
+        if not torch_import.is_torch_file(path):
             return self._load_wire_checkpoint(path, load_optimizer)
         if not allow_torch:
             raise RuntimeError(
@@ -313,9 +298,10 @@ class NNTrainer:
                 "(cache['pretrained_path']), never from files received from "
                 "the aggregator"
             )
-        payload = torch.load(path, map_location="cpu", weights_only=True)
-        if payload.get("source") != CHECKPOINT_SOURCE:
-            raise ValueError(f"{path!r} is not a {CHECKPOINT_SOURCE} checkpoint")
+        payload = torch_import.read_torch_file(
+            path, allow_unsafe=bool(self.cache.get(Model.ALLOW_UNSAFE_TORCH_PICKLE)))
+        if not (isinstance(payload, dict) and payload.get("source") == CHECKPOINT_SOURCE):
+            return self._load_torch_checkpoint(payload, load_optimizer)
         self.last_checkpoint_extra = dict(payload.get("extra", {}))
         for n, sd in payload["models"].items():
             self.nn[n].load_state_dict(sd)
@@ -325,6 +311,51 @@ class NNTrainer:
             self.step = int(payload.get("step", self.step))
             if "rng" in payload and self.generator is not None:
                 self.generator.set_state(payload["rng"])
+        return self
+
+    def _load_torch_checkpoint(self, payload, load_optimizer=True):
+        """Warm start from a reference-ecosystem ``torch.save`` payload
+        (:mod:`..utils.torch_import`): a ``source='coinstac'`` payload maps
+        its models by name, anything else is a state dict for the first
+        model.  Every imported model's optimizer starts fresh; with
+        ``load_optimizer`` and ``cache['import_torch_optimizer']`` (default
+        on) a payload's Adam state for it is grafted on, and the step
+        carries the largest grafted count (0 without one).  Models absent
+        from the file keep their weights and optimizers.
+        ``cache['torch_name_map']`` overrides the positional pairing."""
+        state_dicts, optimizers = torch_import.split_payload(payload)
+        if set(state_dicts) == {None}:
+            state_dicts = {next(iter(self.nn)): state_dicts[None]}
+        unknown = set(state_dicts) - set(self.nn)
+        if unknown:
+            raise KeyError(f"checkpoint models {sorted(unknown)} not in trainer models "
+                           f"{list(self.nn)}")
+        name_map = self.cache.get(Model.TORCH_NAME_MAP) or None
+        # convert every model before any changes: a mismatch loads nothing
+        imported = {n: torch_import.convert_state_dict(self.nn[n], sd, name_map=name_map)
+                    for n, sd in state_dicts.items()}
+        self.last_checkpoint_extra = {}
+        for n, sd in imported.items():
+            self.nn[n].load_state_dict(sd)
+        if not self.optimizer:
+            return self  # before init_nn builds the optimizers (pretrained_path)
+        want_opt = load_optimizer and self.cache.get(Model.IMPORT_TORCH_OPTIMIZER, True)
+        counts = []
+        for n in imported:
+            self.optimizer[n].state.clear()  # no stale moments for new weights
+            opt_sd = (optimizers or {}).get(n)
+            if not (want_opt and opt_sd):
+                continue
+            try:
+                moments, count = torch_import.convert_torch_adam_state(
+                    self.nn[n], opt_sd, name_map=name_map)
+            except (ValueError, KeyError, TypeError) as exc:
+                logger.warn(f"torch optimizer state for {n!r} not imported ({exc}); "
+                            "starting that optimizer fresh")
+                continue
+            torch_import.graft_adam_state(self.optimizer[n], self.nn[n], moments, count)
+            counts.append(count)
+        self.step = max(counts, default=0)
         return self
 
     def _load_wire_checkpoint(self, path, load_optimizer=True):

@@ -43,7 +43,8 @@ import torch
 from torch.utils.flop_counter import FlopCounterMode
 
 from coinstac_dinunet_tpu_torch import telemetry
-from coinstac_dinunet_tpu_torch.models import FSVTrainer, SeqTrainer, VBMTrainer
+from coinstac_dinunet_tpu_torch.models import (FSVTrainer, MultiNetTrainer, ResNetTrainer,
+                                               SeqTrainer, VBMTrainer)
 from coinstac_dinunet_tpu_torch.models import flops as closed
 from coinstac_dinunet_tpu_torch.telemetry import perf
 
@@ -96,7 +97,53 @@ def _load(out_dir):
     return recs
 
 
+#: the models without a JAX band: (port trainer, cache, batch input
+#: shape, closed form of one micro-batch of B)
+MORE_MODELS = {
+    "resnet": (ResNetTrainer, {"input_shape": [33, 31, 3], "model_width": 4}, (33, 31, 3),
+               closed.resnet18_grads_flops(B, (33, 31, 3), width=4)),
+    "multinet": (MultiNetTrainer, {"input_shape": [16, 15, 16], "model_width": 4},
+                 (16, 15, 16), closed.multinet_grads_flops(B, (16, 15, 16), width=4)),
+}
+
+
 # ------------------------------------------------------- the closed forms
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", sorted(MORE_MODELS))
+def test_resnet_and_multinet_counts_equal_the_closed_form(name, dtype):
+    """ResNet-18 (an odd image, so every SAME pad is uneven) and the two
+    VBM nets: the count of ``k`` micro-batches is ``k`` times the closed
+    form, as integers, for ``grads`` and ``train``."""
+    cls, cache, shape, want = MORE_MODELS[name]
+    trainer = cls(cache={**cache, "seed": 0, "compute_dtype": dtype}, device="cpu").init_nn()
+    rng = np.random.default_rng(0)
+    batches = trainer._stack_batches([
+        {"inputs": rng.normal(size=(B, *shape)).astype(np.float32),
+         "labels": rng.integers(0, 2, B).astype(np.int32), "_mask": np.ones(B, np.float32)}
+        for _ in range(K)])
+    cost, reason = perf.step_cost(trainer._grads, batches)
+    assert reason is None
+    assert int(cost["flops"]) == K * want
+    assert cost["flops"] == sum(cost["ops"].values())
+    flops, reason = perf.step_flops(trainer._train, batches)
+    assert reason is None and int(flops) == K * want
+
+
+def test_config_4_and_5_closed_forms():
+    """Config 4 (ResNet-18, 64×64×3, width 64) and config 5 (two VBM nets,
+    32³, width 16) per sample: the sum of their layers' products."""
+    per_sample = closed.resnet18_grads_flops(1)
+    assert closed.resnet18_grads_flops(256) == 256 * per_sample
+    stem = closed.conv_flops(1, (32, 32), 3, 64, k=7, input_grad=False)
+    assert stem == 2 * 32 * 32 * 3 * 64 * 49 * 2
+    # stem; stage 1 (4 convs at 16², 64→64); stages 2–4 (each: 3 convs of
+    # c→c, one 3×3 and one 1×1 of c/2→c at 16·16/4^i positions, the same
+    # multiply-adds); the head
+    stage = 6 * (64 * 64 * 128 * 9 + 3 * 64 * 128 * 128 * 9 + 64 * 64 * 128)
+    assert per_sample == stem + 6 * 4 * 256 * 64 * 64 * 9 + 3 * stage + 2 * 512 * 2 * 3
+    assert per_sample == 869_013_504
+    assert closed.multinet_grads_flops(128, (32, 32, 32), 16) == \
+        2 * closed.vbm_grads_flops(128, (32, 32, 32), 16)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("name", sorted(MODELS))
 def test_grads_and_train_counts_equal_the_closed_form(name, dtype):

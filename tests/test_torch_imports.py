@@ -15,7 +15,8 @@ import torch
 
 import coinstac_dinunet_tpu_torch as port
 from coinstac_dinunet_tpu_torch import COINNLocal, COINNRemote, InProcessEngine, SiteRunner
-from coinstac_dinunet_tpu_torch.models import SeqTrainer, VBMTrainer
+from coinstac_dinunet_tpu_torch.models import (MultiNetTrainer, ResNetTrainer, SeqTrainer,
+                                               VBMTrainer)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -133,6 +134,30 @@ def test_telemetry_tools_and_flop_count_import_no_jax():
     assert out.stdout.strip().splitlines()[-1] == "BAD []"
 
 
+def test_models_groupnorm_and_checkpoint_import_modules_import_no_jax():
+    """ResNet-18, the two-network scheme, the GroupNorm and the
+    torch checkpoint import, alone in a fresh interpreter: nothing of JAX,
+    msgpack or the JAX package."""
+    code = textwrap.dedent("""
+        import importlib, sys
+        for name in ("ops.groupnorm", "models.resnet", "models.multinet",
+                     "utils.torch_import", "models.flops", "interop"):
+            importlib.import_module("coinstac_dinunet_tpu_torch." + name)
+        from coinstac_dinunet_tpu_torch.models import (
+            MultiNetTrainer, ResNet18, ResNetTrainer, SyntheticImageDataset)
+        from coinstac_dinunet_tpu_torch.ops.groupnorm import group_norm, norm_relu
+        from coinstac_dinunet_tpu_torch.utils.torch_import import read_torch_file
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "msgpack")
+                     or m == "coinstac_dinunet_tpu" or m.startswith("coinstac_dinunet_tpu."))
+        print("BAD", bad)
+    """)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env=dict(os.environ, PYTHONPATH=REPO), cwd=REPO, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "BAD []"
+
+
 def test_vectorized_engines_need_a_card_unless_given_cpu(tmp_path, monkeypatch):
     from coinstac_dinunet_tpu_torch.engine import MeshEngine
     from coinstac_dinunet_tpu_torch.federation import SiteVectorizedEngine
@@ -204,6 +229,8 @@ def test_entry_points_need_a_card_unless_given_cpu(tmp_path, monkeypatch):
         lambda dev: SiteRunner(tmp_path / "s", device=dev),
         lambda dev: VBMTrainer(cache={}, device=dev),
         lambda dev: SeqTrainer(cache={}, device=dev),
+        lambda dev: ResNetTrainer(cache={}, device=dev),
+        lambda dev: MultiNetTrainer(cache={}, device=dev),
         lambda dev: COINNLocal(cache={}, device=dev),
         lambda dev: COINNRemote(cache={}, device=dev),
     ):
