@@ -6,14 +6,18 @@ Phases, in order; any failure exits non-zero before the last line:
 
 1. device — the card's name and power limit, TF32 switches set explicitly;
 2. build — every hand-written kernel from ``coinstac_dinunet_tpu_torch/csrc``
-   with ``nvcc`` for ``sm_90a`` (one compiler per source, started together);
+   with ``nvcc`` for ``sm_90a`` (one compiler per source, started together),
+   and the native wire runtime (``coinstac_dinunet_tpu_torch/native/wire.cc``)
+   with ``g++``; a build that fails fails the run;
 3. kernels — each kernel against its plain PyTorch version on the card, at
    the shapes the main paths give it and at edge shapes, with kernel,
    plain-version, bound and library times: K1 (int8 quantize) bit-equal,
    one leaf a launch and whole payloads in one launch (the data section of
    one VBM gradient, special values and the edges of the kernel's fast
    division, edge sizes, a misaligned view, 200 segments);
-   K2–K4 (flash-attention forward, dq, dk/dv) within stated tolerances
+   K2–K4 (flash-attention forward, dq, dk/dv) at head dims 16, 32, 64 and
+   128 (16: the sequence example's attention, B 8, H 4, T 128, in both
+   types, and T 4096) within stated tolerances
    (the bfloat16 tensor-core forward, dq and dk/dv against the plain
    version with the kernels' bfloat16 roundings and against the float32
    one, with ``scaled_dot_product_attention``'s forward and backward as the
@@ -217,12 +221,34 @@ Phases, in order; any failure exits non-zero before the last line:
    parameters equal after every round and every leaf of both nets changed
    from the seeded start.
 
+18. main path 14 — the native wire, background commits and the examples'
+   simulations, run after phase 17.  14a: 17 ResNet-18 gradient payloads at
+   config 4 (62 leaves, 11.18 M values), int8 through K1 and float32, each
+   packed once and committed by the native gather-write and by the Python
+   writer (``COINN_NATIVE=0``): the files equal byte for byte; read back by
+   the native many-file reader, through read-only maps and by the Python
+   loop: the arrays equal bit for bit; the guarded flat and tree (k 4)
+   means with the fan-in's maps on and off equal bit for bit; ms a payload
+   written and read and the fan-in seconds of each way, and path 13a's
+   fenced payload reads and writes beside the Python wire's.  14b: path 1 with
+   ``async_wire_commit``: the same rounds, logs, parameters and every
+   round's payload files bit for bit, K1 once a payload, every payload
+   committed by the background thread and none pending at any node's
+   output.  14c: the FSV, VBM and sequence examples' ``run_sim.main`` at
+   their ``inputspec.json`` sizes to SUCCESS with finite global test
+   metrics, the sequence example through K2-K4 at head dim 16 in every
+   gradient round, the training-curve PNGs decoded where matplotlib
+   imports (else the skip is printed).  Paths 1-13 run on the native wire
+   and the mapped fan-in too (the defaults); path 1 checks that every
+   payload was gather-written and every site's read of the mean was native.
+
 Then one JSON line ``{"kernels": [...]}``, the ``nvidia-smi`` name/power
 line, and the last line ``{"ok": true, "device": {...}}``.  Per-shape
 numbers go to ``chiprun_out/chip_smoke.json``.
 
 Run from the repository root: ``python3 chip_smoke.py``.
 """
+import contextlib
 import importlib
 import json
 import os
@@ -488,12 +514,20 @@ _FLASH_EDGES = [
     ("causal_all_masked", 1, 1, 48, 32, True, 0, 64, None, False),
     ("offsets_d64", 1, 2, 333, 64, True, 100, 37, 300, True),
     ("offsets_d128", 1, 2, 333, 128, True, 100, 37, 300, True),
+    # head dim 16 (the sequence example's d_model 64 over 4 heads)
+    ("t160_d16_causal", 1, 2, 160, 16, True, 0, 0, None, True),
+    ("offsets_d16", 1, 2, 333, 16, True, 100, 37, 300, True),
 ]
 FLASH_CASES = [
     ("main", 16, 4, 4096, 32, "bfloat16", False, 0, 0, None, False),
     ("tpu", 1, 8, 8192, 128, "bfloat16", True, 0, 0, None, False),
     # path 8's folded batch: 16 sites and a spare slot of 16 sequences each
     ("vectorized", 272, 4, 4096, 32, "bfloat16", False, 0, 0, None, False),
+    # the sequence example's attention (path 14c: batch 8, 4 heads, T 128,
+    # d 16) in both types, and d 16 at a long T
+    ("seq_example", 8, 4, 128, 16, "bfloat16", False, 0, 0, None, False),
+    ("seq_example_f32", 8, 4, 128, 16, "float32", False, 0, 0, None, False),
+    ("d16_long", 8, 4, 4096, 16, "bfloat16", False, 0, 0, None, False),
 ] + [(name, b, h, t, d, "float32", *rest) for name, b, h, t, d, *rest in _FLASH_EDGES] + [
     (name + "_bf16", b, h, t, d, "bfloat16", *rest) for name, b, h, t, d, *rest in _FLASH_EDGES]
 # Tolerance of a kernel's output against its plain version: 1e-4 of the
@@ -528,6 +562,9 @@ FLASH_LONG_T = 1024  # from here on a case counts as long
 # must give the same bits (no atomics).
 FLASH_BF16_RTOL = 2e-2
 FLASH_BF16_LIBRARY_FACTOR = 2.0
+# the cases whose kernel, plain-version, bound and library times are taken
+FLASH_D16_TIMED = ("seq_example", "seq_example_f32", "d16_long")
+FLASH_TIMED = ("main", "tpu", "vectorized", *FLASH_D16_TIMED)
 FLASH_SOURCES = {
     "flash_attention_fwd": ("coinstac_dinunet_tpu_torch/csrc/flash_attention_fwd.cu",
                             "coinstac_dinunet_tpu/ops/flash_attention.py:79"),
@@ -725,7 +762,7 @@ def check_flash(dev, report):
             f"max|d| fwd {e_fwd:.2e} dq {e_dq:.2e} dk/dv {e_dkv:.2e}"
             + (" (rounding-matched plain)" if bf16 else "") + "; bit-identical reruns; "
             "max|plain| out/lse/dq/dk/dv " + " ".join(f"{x:.3g}" for x in scales) + extra)
-        if case in ("main", "tpu", "vectorized"):
+        if case in FLASH_TIMED:
             row["times"] = time_flash(fa, F, case, (b, h, t, d), q, k, v, g_out, args, pos,
                                       kernels if case == "main" else None, exp_per_s)
         rows.append(row)
@@ -733,6 +770,11 @@ def check_flash(dev, report):
         torch.cuda.empty_cache()
     report["flash_cases"] = rows
     report["flash_library_errors"] = library_errs
+    # the head-dim-16 shapes' times ride along in the kernels' entries
+    for row in rows:
+        if row["case"] in FLASH_D16_TIMED:
+            for name, kern in kernels.items():
+                kern.setdefault("times_d16", {})[row["case"]] = row["times"][name]
     for name, kern in kernels.items():
         kern["max_abs_err"] = errs[name]
         # bfloat16 cases: max_abs_err is against the rounding-matched plain
@@ -868,6 +910,7 @@ def check_power_iteration(dev):
 
 
 VBM_BATCH = 16
+VBM_SHAPE = [64, 64, 64]
 
 
 def make_vbm_engine(dev, workdir, extra_files=None, **args):
@@ -880,7 +923,7 @@ def make_vbm_engine(dev, workdir, extra_files=None, **args):
     eng = InProcessEngine(
         workdir, n_sites=N_SITES, trainer_cls=VBMTrainer,
         dataset_cls=SyntheticVBMDataset, device=dev,
-        data_dir="data", input_shape=[64, 64, 64], model_width=WIDTH,
+        data_dir="data", input_shape=VBM_SHAPE, model_width=WIDTH,
         batch_size=VBM_BATCH, epochs=1, split_ratio=[0.75, 0.125, 0.125],
         precision_bits=8, compute_dtype="bfloat16", seed=7, patience=100, **args,
     )
@@ -891,29 +934,63 @@ def make_vbm_engine(dev, workdir, extra_files=None, **args):
     return eng
 
 
-def run_main_path(dev, workdir):
-    """Federated dSGD of the width-16 VBM at precision_bits=8 to SUCCESS."""
+def payload_digests(workdir):
+    """sha256 of every wire payload file (``*.npy``) under ``workdir``, by
+    relative path."""
+    import hashlib
+
+    out = {}
+    for root, _, files in os.walk(workdir):
+        for f in files:
+            if f.endswith(".npy"):
+                path = os.path.join(root, f)
+                with open(path, "rb") as fh:
+                    out[os.path.relpath(path, workdir)] = hashlib.sha256(fh.read()).hexdigest()
+    return out
+
+
+def param_digests(eng):
+    """sha256 of every site's parameters, by site and name."""
+    import hashlib
+
+    return {s: {f"{m}.{k}": hashlib.sha256(v.detach().cpu().contiguous().numpy().tobytes())
+                .hexdigest()
+                for m, net in eng.site_caches[s]["_train_state"].nn.items()
+                for k, v in net.state_dict().items()}
+            for s in eng.site_ids}
+
+
+def run_main_path(dev, workdir, profiled=PROFILED_ROUNDS, **args):
+    """Federated dSGD of the width-16 VBM at precision_bits=8 to SUCCESS
+    (``args`` add to the configuration: path 14b's background commits),
+    every round's payload files and the final parameters digested; the
+    payloads written by the native gather-write and the sites' reads of
+    the mean by the native reader (the aggregator's fan-in maps the
+    files)."""
     import torch
 
+    from coinstac_dinunet_tpu_torch import native
     from coinstac_dinunet_tpu_torch.ops import quantize as q
 
-    eng = make_vbm_engine(dev, workdir)
+    eng = make_vbm_engine(dev, workdir, **args)
     q.KERNEL.launches = 0
     q.KERNEL.segments = 0
+    native.reset_counts()
     grad_rounds = 0
-    round_s, profiles, per_round = [], [], []
+    round_s, profiles, per_round, digests = [], [], [], []
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     while not eng.success and eng.rounds < 40:
         before = q.KERNEL.launches, q.KERNEL.segments
         tr = time.perf_counter()
-        if eng.rounds + 1 in PROFILED_ROUNDS:
+        if eng.rounds + 1 in profiled:
             site_outs, profile = profiled_round(eng)
             profiles.append(profile)
         else:
             site_outs, _ = eng.step_round()
             torch.cuda.synchronize()
         round_s.append(time.perf_counter() - tr)
+        digests.append(payload_digests(workdir))
         grew = q.KERNEL.launches - before[0], q.KERNEL.segments - before[1]
         per_round.append(grew)
         if all(o.get("reduce") for o in site_outs.values()):
@@ -928,10 +1005,16 @@ def run_main_path(dev, workdir):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = q.KERNEL.launches
+    counts = dict(native.COUNTS)
     if not eng.success:
         raise AssertionError(f"no SUCCESS after {eng.rounds} rounds")
     if grad_rounds == 0 or launches == 0:
         raise AssertionError("the main path shipped no gradients through K1")
+    # every payload through the native gather-write, every site's read of
+    # the mean through the native reader
+    want = {"packs": (N_SITES + 1) * grad_rounds, "loads": N_SITES * grad_rounds}
+    if {k: counts[k] for k in want} != want:
+        raise AssertionError(f"native wire calls {counts}, expected {want}")
 
     metrics = check_outputs(eng, workdir)
     # wire bytes of the last gradient round (the payload files persist):
@@ -948,7 +1031,10 @@ def run_main_path(dev, workdir):
         "rounds": eng.rounds, "grad_rounds": grad_rounds, "launches": launches,
         "segments": q.KERNEL.segments, "launches_segments_per_round": per_round,
         "wall_s": wall, "samples_per_s": samples / wall, "round_s": round_s,
-        "profiled_rounds": profiles, "global_test_metrics": metrics,
+        "profiled_rounds": profiles, "global_test_metrics": metrics, "native_calls": counts,
+        # for path 14b, which holds its run to these bit for bit (not written out)
+        "payload_digests": digests, "final_params": param_digests(eng),
+        "logs": {k: eng.remote_cache[k] for k in SEQ_LOGS},
     }
 
 
@@ -3731,13 +3817,18 @@ class HostSplit:
                         (NNTrainer, "load_checkpoint", "checkpoint_load"),
                         (tensorutils, "save_wire", "save_payload"),
                         (tensorutils, "load_arrays", "load_payload"),
+                        (tensorutils, "load_arrays_many", "load_payload"),
                         (COINNReducer, "reduce", "reduce")]
 
     def _timed(self, fn, name):
+        import threading
+
         import torch
 
         def timed(*a, **kw):
-            if not self.armed:
+            # the fan-in's pool threads run inside a timed read of the main
+            # thread's: only the main thread's calls are timed
+            if not self.armed or threading.current_thread() is not threading.main_thread():
                 return fn(*a, **kw)
             torch.cuda.synchronize()
             self.stack.append([time.perf_counter(), 0.0])
@@ -4438,6 +4529,384 @@ def log_nifti_path(path, smi):
 
 
 
+# ---- path 14 (phase 18): the native wire at config 4's payload, the
+# background commits on path 1, and the examples' simulations on the card.
+NATIVE_PAYLOADS = 17  # path 13a's 16 sites and its aggregator
+NATIVE_WIDTH = 64  # ResNet-18 at config 4: 62 leaves, 11.18 M values a payload
+NATIVE_TREE_FANIN = 4
+# path 13a's fenced split round on the Python wire, as PERF.md §5 records it
+# (NVIDIA H100 80GB HBM3, 700 W)
+PYTHON_WIRE_SPLIT_S = {"load_payload": 0.803, "save_payload": 0.486}
+EXAMPLES = ("fsv_classification", "vbm_classification", "seq_classification")
+
+
+@contextlib.contextmanager
+def python_wire():
+    """``COINN_NATIVE=0`` while open: the port's Python writer and readers."""
+    old = os.environ.get("COINN_NATIVE")
+    os.environ["COINN_NATIVE"] = "0"
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["COINN_NATIVE"]
+        else:
+            os.environ["COINN_NATIVE"] = old
+
+
+def resnet_grad_payloads(dev, n, width):
+    """``n`` gradient wire lists of ResNet-18 on the card (config 4's model
+    at ``width``): its leaves in the wire's order and flax layout, float32
+    values from a seeded generator."""
+    import torch
+
+    from coinstac_dinunet_tpu_torch.models.resnet import ResNet18
+    from coinstac_dinunet_tpu_torch.utils import tensorutils
+
+    model = ResNet18(width=width).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(14)
+    out = []
+    for _ in range(n):
+        for p in model.parameters():
+            p.grad = torch.randn(p.shape, generator=gen, device=dev) * 1e-3
+        out.append(tensorutils.extract_grads({"resnet": model}))
+    return out
+
+
+def _same_arrays(a, b):
+    return len(a) == len(b) and all(
+        x.dtype == y.dtype and x.shape == y.shape and x.tobytes() == y.tobytes()
+        for x, y in zip(a, b))
+
+
+def run_native_wire_path(dev, workdir):
+    """Path 14a: 17 ResNet-18 gradient payloads at config 4, int8 through
+    K1 and float32, each packed once and committed by the native
+    gather-write and by the Python writer (the files equal byte for byte),
+    read back by the native many-file reader, through maps and by the
+    Python loop (the arrays equal bit for bit), and reduced by the guarded
+    flat and tree (k 4) means with the fan-in's maps on and off (equal bit
+    for bit).  Seconds of each way."""
+    import shutil
+    import types
+
+    import torch
+
+    from coinstac_dinunet_tpu_torch import native
+    from coinstac_dinunet_tpu_torch.config.keys import Federation
+    from coinstac_dinunet_tpu_torch.ops import quantize as q
+    from coinstac_dinunet_tpu_torch.parallel.reducer import COINNReducer
+    from coinstac_dinunet_tpu_torch.resilience import transport
+    from coinstac_dinunet_tpu_torch.utils import tensorutils
+
+    if not native.available():
+        raise AssertionError("path 14a: the native wire runtime is not available")
+    n = NATIVE_PAYLOADS
+    payloads = resnet_grad_payloads(dev, n, NATIVE_WIDTH)
+    out = {"payloads": n, "leaves": len(payloads[0]),
+           "values": sum(t.numel() for t in payloads[0]), "codecs": {}}
+    faults = []
+    q.KERNEL.launches = 0
+    for codec in ("int8", "float32"):
+        row = out["codecs"][codec] = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        parts = [tensorutils._pack_parts(p, codec="int8" if codec == "int8" else None,
+                                         seed=1000 * i) for i, p in enumerate(payloads)]
+        row["pack_ms"] = 1e3 * (time.perf_counter() - t0) / n
+        row["payload_bytes"] = len(parts[0][0]) + sum(len(b) for b in parts[0][1])
+        dirs = {way: os.path.join(workdir, codec, way) for way in ("native", "python")}
+        paths = {way: [os.path.join(d, f"site_{i:02d}", "grads.npy") for i in range(n)]
+                 for way, d in dirs.items()}
+        for way in ("native", "python"):
+            for path in paths[way]:
+                os.makedirs(os.path.dirname(path), exist_ok=True)
+        # the two writers in turns, each first on every other payload
+        write_s = {"native": 0.0, "python": 0.0}
+        packs = native.COUNTS["packs"]
+        for i, (header, blobs, crc) in enumerate(parts):
+            for way in (("native", "python") if i % 2 == 0 else ("python", "native")):
+                with python_wire() if way == "python" else contextlib.nullcontext():
+                    t0 = time.perf_counter()
+                    transport.commit_bytes(paths[way][i], header, blobs, crc=crc)
+                    write_s[way] += time.perf_counter() - t0
+        for way, secs in write_s.items():
+            row[f"write_ms_{way}"] = 1e3 * secs / n
+        if native.COUNTS["packs"] - packs != n:
+            faults.append(f"{codec}: {native.COUNTS['packs'] - packs} native packs for {n} "
+                          "native writes")
+        del parts
+        for a, b in zip(paths["native"], paths["python"]):
+            with open(a, "rb") as fa_, open(b, "rb") as fb_:
+                if fa_.read() != fb_.read():
+                    faults.append(f"{codec}: {a} differs from the Python writer's file")
+        # the reads hit the page cache the writes just filled
+        loaded = {}
+        for way in ("native", "mmap", "python"):
+            many = native.COUNTS["load_many"]
+            with python_wire() if way == "python" else contextlib.nullcontext():
+                t0 = time.perf_counter()
+                loaded[way] = tensorutils.load_arrays_many(paths["native"], mmap=way == "mmap")
+                row[f"read_ms_{way}"] = 1e3 * (time.perf_counter() - t0) / n
+            if native.COUNTS["load_many"] - many != (way == "native"):
+                faults.append(f"{codec} {way}: {native.COUNTS['load_many'] - many} native "
+                              "many-file reads")
+        for i in range(n):
+            if not (_same_arrays(loaded["native"][i], loaded["mmap"][i])
+                    and _same_arrays(loaded["native"][i], loaded["python"][i])):
+                faults.append(f"{codec}: payload {i} reads differently by way")
+            if codec == "float32" and not _same_arrays(
+                    loaded["native"][i], [t.cpu().numpy() for t in payloads[i]]):
+                faults.append(f"float32: payload {i} is not the gradient written")
+        del loaded
+        means = {}
+        inp = {f"site_{i:02d}": {"grads_file": "grads.npy"} for i in range(n)}
+        for fanin in (0, NATIVE_TREE_FANIN):
+            for mmap in (True, False):
+                red_dir = os.path.join(workdir, codec, f"reduce_{fanin}_{mmap}")
+                os.makedirs(red_dir, exist_ok=True)
+                red = COINNReducer(trainer=types.SimpleNamespace(
+                    device=dev, input=inp,
+                    cache={Federation.WIRE_MMAP: mmap, Federation.REDUCE_FANIN: fanin},
+                    state={"baseDirectory": dirs["native"], "outputDirectory": red_dir,
+                           "transferDirectory": red_dir}))
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                mean = (red._tree_average("grads_file") if fanin
+                        else red._average(red._load("grads_file")))
+                torch.cuda.synchronize()
+                row[f"fan_in_s_{'tree' if fanin else 'flat'}_{'mmap' if mmap else 'heap'}"] = (
+                    time.perf_counter() - t0)
+                means[fanin, mmap] = mean
+            if not all(torch.equal(a, b) for a, b in zip(means[fanin, True],
+                                                         means[fanin, False])):
+                faults.append(f"{codec}: the {'tree' if fanin else 'flat'} mean with maps "
+                              "differs from the heap one")
+        row["tree_vs_flat_max_abs"] = max(
+            float((a.float() - b.float()).abs().max())
+            for a, b in zip(means[NATIVE_TREE_FANIN, True], means[0, True]))
+        del means
+        shutil.rmtree(os.path.join(workdir, codec), ignore_errors=True)
+    out["k1_launches"] = q.KERNEL.launches
+    if out["k1_launches"] != n:
+        faults.append(f"K1 launched {out['k1_launches']} times for {n} int8 payloads")
+    if faults:
+        raise AssertionError("path 14a:\n  " + "\n  ".join(faults))
+    return out
+
+
+def run_async_commit_path(dev, workdir, main_path):
+    """Path 14b: path 1 with ``async_wire_commit``: the same rounds, logs,
+    parameters and payload files (every round's) bit for bit, K1 once a
+    payload, every payload committed by the background thread, and no
+    commit pending when a node's output leaves it."""
+    from coinstac_dinunet_tpu_torch.nodes.local import COINNLocal
+    from coinstac_dinunet_tpu_torch.nodes.remote import COINNRemote
+    from coinstac_dinunet_tpu_torch.resilience import transport
+
+    committer = transport.async_committer()
+    seen = {"outputs": 0, "submitted": 0}
+    saved = [(cls, cls.__call__) for cls in (COINNLocal, COINNRemote)]
+
+    def guarded(fn):
+        def call(self, *a, **kw):
+            result = fn(self, *a, **kw)
+            if committer.pending():
+                raise AssertionError(f"{committer.pending()} commits pending at a node's output")
+            seen["outputs"] += 1
+            return result
+        return call
+
+    real_submit = committer.submit
+
+    def submit(fn):
+        seen["submitted"] += 1
+        real_submit(fn)
+
+    committer.submit = submit
+    for cls, fn in saved:
+        cls.__call__ = guarded(fn)
+    try:
+        path = run_main_path(dev, workdir, profiled=(), async_wire_commit=True)
+    finally:
+        for cls, fn in saved:
+            cls.__call__ = fn
+        del committer.submit
+    faults = []
+    for key in ("rounds", "launches", "segments", "launches_segments_per_round", "logs",
+                "final_params"):
+        if path[key] != main_path[key]:
+            faults.append(f"{key} differs from path 1's")
+    if path["payload_digests"] != main_path["payload_digests"]:
+        bad = [r + 1 for r, (a, b) in enumerate(zip(path["payload_digests"],
+                                                    main_path["payload_digests"])) if a != b]
+        faults.append(f"payload files differ from path 1's in rounds {bad}")
+    if seen["submitted"] != path["native_calls"]["packs"] or seen["submitted"] == 0:
+        faults.append(f"{seen['submitted']} background commits for "
+                      f"{path['native_calls']['packs']} payloads")
+    if faults:
+        raise AssertionError("path 14b:\n  " + "\n  ".join(faults))
+    path.update(outputs_checked=seen["outputs"], background_commits=seen["submitted"])
+    return path
+
+
+def load_script(path):
+    """A script of the repository as a module."""
+    import importlib.util
+
+    name = "_smoke_" + "_".join(os.path.normpath(path).split(os.sep)[-2:]).replace(".", "_")
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_examples_path(dev, workdir):
+    """Path 14c: the FSV, VBM and sequence examples' ``run_sim.main`` on the
+    card at their ``inputspec.json`` sizes, each to SUCCESS with finite
+    global test metrics; the sequence example's attention through K2-K4 at
+    head dim 16 in every gradient round; the aggregator's training-curve
+    PNGs decoded by Pillow where matplotlib imports."""
+    import torch
+
+    from coinstac_dinunet_tpu_torch import InProcessEngine
+
+    fa = importlib.import_module("coinstac_dinunet_tpu_torch.ops.flash_attention")
+    try:
+        import matplotlib  # noqa: F401
+        plots = True
+    except ImportError:
+        plots = False
+    head_dims, per_round = set(), []
+    real = {name: getattr(fa, name) for name in ("flash_forward_cuda", "flash_backward_cuda")}
+
+    def recording(fn):
+        def call(q, *a, **kw):
+            head_dims.add(int(q.shape[-1]))
+            return fn(q, *a, **kw)
+        return call
+
+    real_step = InProcessEngine.step_round
+
+    def step_round(self, *a, **kw):
+        before = [kern.launches for kern in fa.KERNELS]
+        result = real_step(self, *a, **kw)
+        per_round.append((all(o.get("reduce") for o in result[0].values()),
+                          [kern.launches - b for kern, b in zip(fa.KERNELS, before)]))
+        return result
+
+    out, faults = {}, []
+    for name, fn in real.items():
+        setattr(fa, name, recording(fn))
+    InProcessEngine.step_round = step_round
+    try:
+        for ex in EXAMPLES:
+            mod = load_script(os.path.join(HERE, "coinstac_dinunet_tpu_torch", "examples", ex,
+                                           "run_sim.py"))
+            head_dims.clear()
+            per_round.clear()
+            for kern in fa.KERNELS:
+                kern.launches = 0
+            wd = os.path.join(workdir, ex)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng = mod.main(wd, device=dev.type)
+            torch.cuda.synchronize()
+            row = out[ex] = {"wall_s": time.perf_counter() - t0, "rounds": eng.rounds,
+                             "sites": len(eng.site_ids), "args": dict(mod.ARGS)}
+            if not eng.success:
+                faults.append(f"{ex}: no SUCCESS after {eng.rounds} rounds")
+                continue
+            row["global_test_metrics"] = check_outputs(eng, wd)
+            grads = [grew for reduce, grew in per_round if reduce]
+            row["grad_rounds"] = len(grads)
+            row["launches"] = dict(zip(FLASH_SOURCES, (kern.launches for kern in fa.KERNELS)))
+            if ex == "seq_classification":
+                need = len(eng.site_ids) * mod.ARGS["num_layers"]
+                if not grads or any(min(g) < need for g in grads):
+                    faults.append(f"{ex}: K2/K3/K4 launches per gradient round {grads}, "
+                                  f"expected >= {need} each")
+                if head_dims != {mod.ARGS["d_model"] // mod.ARGS["num_heads"]}:
+                    faults.append(f"{ex}: attention head dims {sorted(head_dims)}")
+                row["head_dims"] = sorted(head_dims)
+            log_dir = eng.remote_cache["log_dir"]
+            pngs = sorted(f for f in os.listdir(log_dir) if f.endswith(".png"))
+            row["pngs"] = pngs
+            if plots:
+                from PIL import Image as PILImage
+
+                if pngs != ["train_log.png", "validation_log.png"]:
+                    faults.append(f"{ex}: PNGs {pngs}")
+                for f in pngs:
+                    with PILImage.open(os.path.join(log_dir, f)) as im:
+                        im.load()
+                        row.setdefault("png_sizes", {})[f] = list(im.size)
+            elif pngs:
+                faults.append(f"{ex}: PNGs {pngs} without matplotlib")
+    finally:
+        for name, fn in real.items():
+            setattr(fa, name, fn)
+        InProcessEngine.step_round = real_step
+    if faults:
+        raise AssertionError("path 14c:\n  " + "\n  ".join(faults))
+    out["plots"] = "written" if plots else "skipped (matplotlib does not import)"
+    return out
+
+
+def run_native_examples_path(dev, workdir, main_path):
+    """Path 14 (phase 18): 14a, 14b and 14c."""
+    t0 = time.perf_counter()
+    out = {"native": run_native_wire_path(dev, os.path.join(workdir, "native"))}
+    out["native_s"] = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    out["async"] = run_async_commit_path(dev, os.path.join(workdir, "async"), main_path)
+    out["async_s"] = time.perf_counter() - t1
+    t2 = time.perf_counter()
+    out["examples"] = run_examples_path(dev, os.path.join(workdir, "examples"))
+    out["examples_s"] = time.perf_counter() - t2
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def log_native_examples_path(path, models_path, smi):
+    a = path["native"]
+    log(f"  14a {a['payloads']} ResNet-18 gradient payloads (config 4: {a['leaves']} leaves, "
+        f"{a['values']} values): native and Python writes byte-identical, native/mmap/Python "
+        f"reads bit-identical, flat and tree (k {NATIVE_TREE_FANIN}) means with and without "
+        f"maps bit-identical; K1 launches {a['k1_launches']} | {smi}")
+    for codec, r in a["codecs"].items():
+        log(f"  14a {codec} ({r['payload_bytes']} B a payload), ms a payload: pack "
+            f"{r['pack_ms']:.3f}, write native {r['write_ms_native']:.3f} / Python "
+            f"{r['write_ms_python']:.3f}, read native {r['read_ms_native']:.3f} / mmap "
+            f"{r['read_ms_mmap']:.3f} / Python {r['read_ms_python']:.3f}; fan-in s: flat "
+            f"mmap {r['fan_in_s_flat_mmap']:.3f} / heap {r['fan_in_s_flat_heap']:.3f}, tree "
+            f"mmap {r['fan_in_s_tree_mmap']:.3f} / heap {r['fan_in_s_tree_heap']:.3f}; tree vs "
+            f"flat max |d| {r['tree_vs_flat_max_abs']:.3e}")
+    sp = models_path["resnet"]["host_split"]
+    log(f"  14a path 13a's fenced split round {RESNET_SPLIT_ROUND} on the native wire and the "
+        f"mapped fan-in: payload reads {sp.get('load_payload', 0.0):.3f} s (on the Python wire: "
+        f"{PYTHON_WIRE_SPLIT_S['load_payload']}), payload writes "
+        f"{sp.get('save_payload', 0.0):.3f} s (on the Python wire: "
+        f"{PYTHON_WIRE_SPLIT_S['save_payload']}) | {smi}")
+    b = path["async"]
+    log(f"  14b path 1 with async_wire_commit: {b['rounds']} rounds, logs, parameters and every "
+        f"round's payload files equal path 1's bit for bit; K1 launches {b['launches']}; "
+        f"{b['background_commits']} background commits, none pending at any of "
+        f"{b['outputs_checked']} node outputs; {b['wall_s']:.3f} s | {smi}")
+    log("  14b round seconds: " + " ".join(f"{t:.3f}" for t in b["round_s"]))
+    for ex in EXAMPLES:
+        r = path["examples"][ex]
+        log(f"  14c {ex}: {r['sites']} sites, {r['rounds']} rounds ({r['grad_rounds']} with "
+            f"gradients) to SUCCESS in {r['wall_s']:.3f} s, global test "
+            f"{r['global_test_metrics']}; K2/K3/K4 launches "
+            f"{list(r['launches'].values())}" + (f" at head dims {r['head_dims']}"
+                                                   if "head_dims" in r else "")
+            + f"; PNGs {r['pngs']}")
+    log(f"  14c plots: {path['examples']['plots']}")
+    log(f"  phase 18: 14a {path['native_s']:.1f} s, 14b {path['async_s']:.1f} s, 14c "
+        f"{path['examples_s']:.1f} s, all {path['wall_s']:.1f} s")
+
+
 def profiled_round(eng):
     """One engine round under ``torch.profiler``: the round's host wall
     time, the device time its kernels took, the idle share, and the
@@ -4522,6 +4991,14 @@ def main():
     t0 = time.perf_counter()
     build_logs = _cuda.build(_cuda.all_sources())
     log(f"[2 build] {', '.join(_cuda.all_sources())} in {time.perf_counter() - t0:.2f} s")
+    from coinstac_dinunet_tpu_torch import native
+
+    t0 = time.perf_counter()
+    lib = native.build()
+    if not native.available():
+        raise AssertionError("the native wire runtime is off (COINN_NATIVE=0)")
+    log(f"[2 build] native wire runtime {os.path.relpath(lib, HERE)} in "
+        f"{time.perf_counter() - t0:.2f} s")
     for source, text in build_logs.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "Performance Loss" in line:
@@ -4589,6 +5066,8 @@ def main():
     log("  round seconds: " + " ".join(f"{t:.3f}" for t in main_path["round_s"]))
     log("  K1 launches/segments per round: " + " ".join(
         f"{n}/{m}" for n, m in main_path["launches_segments_per_round"]))
+    log(f"  native wire calls: {main_path['native_calls']} (every payload gather-written, "
+        "every site's read of the mean native; the aggregator's fan-in maps the files)")
     wb = main_path["wire_bytes"]
     log(f"  wire bytes per gradient round: site->aggregator {wb['site_to_aggregator']}, "
         f"aggregator->each site {wb['aggregator_to_site']} (float32 values alone: "
@@ -4712,6 +5191,16 @@ def main():
         models_path = run_remaining_models_path(dev, wd)
     log_remaining_models_path(models_path, smi)
 
+    log(f"[18 main path 14: the native wire, background commits, the examples] "
+        f"{NATIVE_PAYLOADS} ResNet-18 payloads, path 1 with async_wire_commit, the FSV, VBM "
+        f"and sequence examples at their inputspec sizes | {smi}")
+    with tempfile.TemporaryDirectory() as wd:
+        native_path = run_native_examples_path(dev, wd, main_path)
+    log_native_examples_path(native_path, models_path, smi)
+    for key in ("payload_digests", "final_params"):
+        main_path.pop(key)
+        native_path["async"].pop(key)
+
     k1["launches_by_path"] = {"vbm_dsgd": main_path["launches"],
                               "vbm_pretrain_powersgd": psgd_path["launches"],
                               "seq_rankdad": dad_path["k1_launches"],
@@ -4721,7 +5210,9 @@ def main():
                               "vbm_nifti_metrics": (nifti_path["11a"]["launches"]
                                                     + nifti_path["11b"]["launches"]),
                               "resnet18_config4": models_path["resnet"]["launches"],
-                              "multinet_config5": models_path["multinet"]["launches"]}
+                              "multinet_config5": models_path["multinet"]["launches"],
+                              "native_wire_resnet18_payloads": native_path["native"]["k1_launches"],
+                              "vbm_async_commit": native_path["async"]["launches"]}
     for kern in k234:
         kern["launches_by_path"] = {"seq_dsgd": seq_path["launches"][kern["name"]],
                                     "seq_rankdad": dad_path["launches"][kern["name"]],
@@ -4733,7 +5224,9 @@ def main():
                                     "seq_health_quarantine": health_path["launches"][kern["name"]],
                                     "seq_health_vectorized": health_vec["launches"][kern["name"]],
                                     "seq_flop_count": flop_path["seq"]["launches"][kern["name"]],
-                                    "vbm_nifti_metrics": nifti_path["11c_launches"][kern["name"]]}
+                                    "vbm_nifti_metrics": nifti_path["11c_launches"][kern["name"]],
+                                    "seq_example_d16": native_path["examples"][
+                                        "seq_classification"]["launches"][kern["name"]]}
     kernels = [k1, *k234]
     report.update(main_path=main_path, seq_path=seq_path, powersgd_path=psgd_path,
                   rankdad_path=dad_path, fresh_process_path=fresh_path,
@@ -4745,7 +5238,8 @@ def main():
                   resnet18_config4=models_path["resnet"],
                   resnet18_config4_count=models_path["resnet_count"],
                   fused_groupnorm=models_path["fused_groupnorm"],
-                  multinet_config5=models_path["multinet"], device=kind,
+                  multinet_config5=models_path["multinet"], native_examples_path=native_path,
+                  device=kind,
                   power=smi, kernels=kernels)
     out_dir = os.path.join(HERE, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)

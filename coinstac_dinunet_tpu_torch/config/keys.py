@@ -320,7 +320,12 @@ class Federation:
       widens to ``k + d`` (the in-process engine clamps ``d`` to 0);
     - ``REDUCE_FANIN`` — ``k >= 2``: the aggregator streams the site
       payloads through a k-ary tree of partial sums instead of stacking
-      them all at once.
+      them all at once;
+    - ``WIRE_MMAP`` — the aggregator's fan-in maps each site payload
+      read-only and verifies it over the map instead of reading it into a
+      heap copy (``parallel/reducer.py`` through
+      ``tensorutils.load_arrays_many(mmap=)``); default on, false for heap
+      reads.
     """
 
     REDUCE_FANIN = "reduce_fanin"
@@ -329,6 +334,7 @@ class Federation:
     ASYNC_POOL = "async_invoke_pool"
     ASYNC_DISCOUNT = "async_stale_discount"
     RUN_AHEAD = "run_ahead"
+    WIRE_MMAP = "wire_mmap"
 
 
 class Membership:

@@ -267,6 +267,7 @@ template <bool kDq>
 int run(int d, int is_bf16, const Args& a) {
   if (a.bh <= 0 || a.tq <= 0 || a.tk <= 0) return 0;
   switch (d) {
+    case 16: return launch<kDq, 16>(is_bf16, a);
     case 32: return launch<kDq, 32>(is_bf16, a);
     case 64: return launch<kDq, 64>(is_bf16, a);
     case 128: return launch<kDq, 128>(is_bf16, a);
@@ -279,7 +280,7 @@ int run(int d, int is_bf16, const Args& a) {
 // Plain C interfaces, loaded with ctypes.  q (bh, tq, d), k and v (bh, tk, d)
 // and g_out (bh, tq, d) in float32 (is_bf16 = 0) or bfloat16 (is_bf16 = 1);
 // lse, delta and g_lse (bh, tq) float32; dq (bh, tq, d), dk and dv
-// (bh, tk, d) float32.  d is 32, 64 or 128.  Each launches on `stream` and
+// (bh, tk, d) float32.  d is 16, 32, 64 or 128.  Each launches on `stream` and
 // returns cudaGetLastError() (0 = launched), or cudaErrorInvalidValue when
 // a tensor map cannot be encoded.
 extern "C" int coinn_flash_bwd_dq(const void* q, const void* k, const void* v,

@@ -9,13 +9,13 @@
 //
 // Bound on an H100 (989 TFLOP/s bfloat16, 3.35 TB/s, 16 exp a clock on each
 // of 132 SMs).  K3 does 6·d and K4 8·d tensor operations and one exp per
-// valid (query, key) pair on a few bytes per row.  At d = 32 the exp is the
-// longest of the three terms (K3) or level with the products (K4); at
-// d = 128 the products are.  The bytes never bind at the sequence lengths
+// valid (query, key) pair on a few bytes per row.  At d = 16 the exp is the
+// longest term; at d = 32 it is the longest (K3) or level with the products
+// (K4); at d = 128 the products are.  The bytes never bind at the sequence lengths
 // of the sequence model.
 //
 // Design.  The two kernels are mirror images, so one template serves both:
-// a block of two warpgroups (one for K4 at d = 32, see Config) owns 128
+// a block of two warpgroups (one for K4 at d <= 32, see Config) owns 128
 // "resident" rows (q rows and their g_out rows in K3; key rows and their
 // value rows in K4) of one bh and loops over tiles of N "streamed" rows (k
 // and v in K3; q and g_out in K4), each warpgroup on its own 64 resident
@@ -71,10 +71,11 @@ using namespace coinn_hopper;
 template <int D, bool kDq>
 struct Config {
   using L = TileLayout<D>;
-  // Two warpgroups share a streamed tile, except K4 at d = 32: its 141
-  // registers a thread let one block of two, or three blocks of one, live
-  // on an SM, and three blocks of one warpgroup run a quarter faster.
-  static constexpr int kWarpgroups = (!kDq && D == 32) ? 1 : 2;
+  // Two warpgroups share a streamed tile, except K4 at d = 32 (and d = 16,
+  // planned as d = 32): its 141 registers a thread let one block of two, or
+  // three blocks of one, live on an SM, and three blocks of one warpgroup
+  // run a quarter faster.
+  static constexpr int kWarpgroups = (!kDq && D <= 32) ? 1 : 2;
   static constexpr int kThreads = kWarpgroups * kWarpgroup;
   static constexpr int kBlockRows = 64 * kWarpgroups;
   // rows of a streamed tile: K4 at d = 128 keeps two 64 x 128 float32
@@ -82,9 +83,9 @@ struct Config {
   static constexpr int kN = (!kDq && D == 128) ? 32 : 64;
   // Blocks that must fit on an SM together, which caps a thread's
   // registers; chosen so that no instance spills (ptxas -v).
-  static constexpr int kMinBlocks = (!kDq && D == 32) ? 3 : (kDq && D <= 64) ? 2 : 1;
+  static constexpr int kMinBlocks = (!kDq && D <= 32) ? 3 : (kDq && D <= 64) ? 2 : 1;
   // ring depth: small tiles take more stages to cover the copy's latency
-  static constexpr int kStages = D == 32 ? 4 : (D == 64 || !kDq ? 3 : 2);
+  static constexpr int kStages = D <= 32 ? 4 : (D == 64 || !kDq ? 3 : 2);
   static constexpr int kResidentBytes = 2 * L::bytes(kBlockRows);
   static constexpr int kStageBytes = 2 * L::bytes(kN);
   static constexpr int kVecFloats = 4 * kN;  // 2 slots of (lse, Δ − g_lse)

@@ -154,7 +154,7 @@ int run(int is_bf16, const FwdArgs& a) {
 
 // Plain C interface, loaded with ctypes.  q (bh, tq, d), k and v (bh, tk, d)
 // in float32 (is_bf16 = 0) or bfloat16 (is_bf16 = 1); out (bh, tq, d) and
-// lse (bh, tq) float32.  d is 32, 64 or 128; tk > 0.  Launches on `stream`
+// lse (bh, tq) float32.  d is 16, 32, 64 or 128; tk > 0.  Launches on `stream`
 // and returns cudaGetLastError() (0 = launched).
 extern "C" int coinn_flash_fwd(const void* q, const void* k, const void* v,
                                void* out, void* lse, int bh, int tq, int tk,
@@ -165,6 +165,7 @@ extern "C" int coinn_flash_fwd(const void* q, const void* k, const void* v,
   const FwdArgs a{q, k, v, out, lse, bh, tq, tk, scale, causal, q_offset, k_offset,
                   kv_len, (cudaStream_t)stream};
   switch (d) {
+    case 16: return run<16>(is_bf16, a);
     case 32: return run<32>(is_bf16, a);
     case 64: return run<64>(is_bf16, a);
     case 128: return run<128>(is_bf16, a);

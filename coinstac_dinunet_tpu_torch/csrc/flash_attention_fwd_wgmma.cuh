@@ -15,8 +15,8 @@
 //
 // Bound on an H100 (989 TFLOP/s bfloat16, 3.35 TB/s, 16 exp a clock on each
 // of 132 SMs).  4·d tensor operations and one exp per valid (query, key)
-// pair on a few bytes per row: at d = 32 the exp term is the longest (about
-// twice the products), at d = 128 the products are; the bytes never bind at
+// pair on a few bytes per row: at d = 16 and d = 32 the exp term is the
+// longest (about twice the products at d = 32), at d = 128 the products are; the bytes never bind at
 // the sequence model's lengths.
 //
 // Design.  A block of two warpgroups owns 128 query rows of one bh, 64 rows
@@ -83,9 +83,10 @@ struct Config {
   static constexpr int kThreads = 2 * kWarpgroup;
   static constexpr int kBlockRows = 128;
   // Blocks that must fit on an SM together, which caps a thread's
-  // registers: at d = 32 two blocks (110 registers, no spill, ptxas -v);
-  // wider heads need more registers than that allows.
-  static constexpr int kMinBlocks = D == 32 ? 2 : 1;
+  // registers: at d = 32 two blocks (110 registers, no spill, ptxas -v), and
+  // at d = 16, whose accumulator is half as wide, as at d = 32; wider heads
+  // need more registers than that allows.
+  static constexpr int kMinBlocks = D <= 32 ? 2 : 1;
   // keys of a K/V tile (FWD_KEY_TILE in ops/flash_attention.py): 128 keys
   // at d = 32 ran 5 % faster than 64 keys (two or three blocks an SM)
   static constexpr int kN = 128;

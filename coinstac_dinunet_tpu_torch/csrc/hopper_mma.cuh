@@ -7,9 +7,10 @@
 // _dq_kernel and _dkv_kernel).
 //
 // Tile layout.  A (rows, D) bfloat16 tile sits in shared memory as D / 64
-// column chunks (one chunk of 32 columns at D = 32), each chunk a dense
-// (rows, chunk width) array whose row is exactly one swizzle span: 64 bytes
-// (swizzle mode 64B) at D = 32, 128 bytes (swizzle mode 128B) otherwise.
+// column chunks (one chunk of D columns at D = 16 and D = 32), each chunk a
+// dense (rows, chunk width) array whose row is exactly one swizzle span: 32
+// bytes (swizzle mode 32B) at D = 16, 64 bytes (swizzle mode 64B) at D = 32,
+// 128 bytes (swizzle mode 128B) otherwise.
 // TMA writes a chunk with the swizzle applied (the 16-byte unit index of a
 // row is xor-ed with address bits 7 and up), and a wgmma descriptor that
 // names the same mode reads it back, so no thread ever computes a swizzled
@@ -19,11 +20,13 @@
 // One wgmma instruction multiplies a 64-row A by a 16-deep slice:
 //  - "K-major" operands (the reduction runs along the contiguous D axis of
 //    both tiles: A·Bᵀ of two row-major tiles): slice kk of a chunk starts 32
-//    bytes further along the row, 8-row groups are 8 rows apart (SBO);
+//    bytes further along the row, 8-row groups are 8 rows apart (SBO); at
+//    D = 16 a row is one slice, so Q·Kᵀ takes a single instruction;
 //  - an "MN-major" B (the reduction runs down the rows of a row-major tile:
 //    P·M with P in registers): slice kk starts 16 rows further down, 8-row
 //    groups are again 8 rows apart (SBO), and the instruction's N is one
-//    chunk's width, so the chunk stride (LBO) never comes into play.
+//    chunk's width (16 at D = 16: m64n16k16), so the chunk stride (LBO)
+//    never comes into play.
 // The float32 accumulator fragment of m64nNk16 (thread t of the warpgroup,
 // warp w = t / 32, g = (t % 32) / 4, c = t % 4) holds, for every 8-column
 // block j, d[4j + 0..1] = (row 16w + g, columns 8j + 2c, 8j + 2c + 1) and
@@ -49,9 +52,10 @@ struct TileLayout {
   static constexpr int kPitch = kChunkCols * 2;     // bytes of a row
   static constexpr int kGroup = 8 * kPitch;         // bytes of 8 rows (SBO)
   static constexpr int kSlices = kChunkCols / 16;   // 16-deep slices of a row
-  // descriptor swizzle field: 1 = 128 bytes, 2 = 64 bytes
-  static constexpr uint64_t kSwizzle = kPitch == 128 ? 1 : 2;
-  static_assert(D == 32 || D % 64 == 0, "head dim must be 32 or a multiple of 64");
+  // descriptor swizzle field: 1 = 128 bytes, 2 = 64 bytes, 3 = 32 bytes
+  static constexpr uint64_t kSwizzle = kPitch == 128 ? 1 : kPitch == 64 ? 2 : 3;
+  static_assert(D == 16 || D == 32 || D % 64 == 0,
+                "head dim must be 16, 32 or a multiple of 64");
   __host__ __device__ static constexpr int bytes(int rows) { return rows * D * 2; }
   __host__ __device__ static constexpr int chunk_bytes(int rows) { return rows * kPitch; }
 };
@@ -93,7 +97,9 @@ inline bool make_tile_map(CUtensorMap* map, const void* base, int bh, int rows,
   const cuuint32_t elem[3] = {1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
                 dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                L::kPitch == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+                L::kPitch == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                : L::kPitch == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                  : CU_TENSOR_MAP_SWIZZLE_32B,
                 L::kPitch == 128 ? CU_TENSOR_MAP_L2_PROMOTION_L2_128B
                                  : CU_TENSOR_MAP_L2_PROMOTION_NONE,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
@@ -197,6 +203,9 @@ __device__ __forceinline__ void pin(uint32_t (&r)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
 
+#define COINN_ACC8(d)                                                          \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),      \
+      "+f"(d[6]), "+f"(d[7])
 #define COINN_ACC16(d)                                                          \
   "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),       \
       "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
@@ -214,6 +223,7 @@ __device__ __forceinline__ void pin(uint32_t (&r)[N]) {
       "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),           \
       "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),           \
       "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+#define COINN_REGS8 "{%0, %1, %2, %3, %4, %5, %6, %7}"
 #define COINN_REGS16 \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
 #define COINN_REGS32                                                         \
@@ -268,6 +278,18 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a, uint64_t b,
 
 // d (64 x N, float32) += A·B: A a 64 x 16 slice in registers (`pack_bf16`), B
 // 16 rows of an MN-major bfloat16 tile chunk of width N in shared memory.
+__device__ __forceinline__ void wgmma_rs(float (&d)[8], const uint32_t* a,
+                                         uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 " COINN_REGS8
+      ", {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n"
+      "}\n"
+      : COINN_ACC8(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
 __device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t* a,
                                          uint64_t b) {
   asm volatile(

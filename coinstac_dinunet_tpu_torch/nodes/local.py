@@ -53,6 +53,7 @@ from .. import config, telemetry, utils
 from ..config.keys import AggEngine, Key, LocalWire, Mode, Phase, RemoteWire
 from ..data import COINNDataHandle
 from ..parallel import COINNLearner, DADLearner, PowerSGDLearner, powersgd, rankdad
+from ..resilience import transport as wire_transport
 from ..utils import logger
 
 # engine/epoch state cleared on every fold transition
@@ -530,6 +531,9 @@ class COINNLocal:
         if trainer.train_state is not None:
             self.cache["_train_state"] = trainer.train_state
         self._persist_round_state(trainer)
+        # background commits (cache['async_wire_commit']) land, or fail this
+        # invocation, before the output JSON names their files
+        wire_transport.flush_async()
         return self.out
 
     def __call__(self, *a, **kw):
@@ -552,6 +556,10 @@ class COINNLocal:
                 f"partial out: {self.out}"
             ) from exc
         finally:
+            # a failed invocation drains its own pending commits, so their
+            # errors never reach the next node this process serves
+            for exc in wire_transport.flush_async(raise_errors=False):
+                logger.warn(f"async wire commit failed: {exc}")
             rec.flush()
         # "cache" carries the JSON-able node cache back to the engine
         return {

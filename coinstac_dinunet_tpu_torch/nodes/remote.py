@@ -49,8 +49,10 @@ summary — is broadcast as ``RemoteWire.HEALTH``, and each site's reported
 samples/s refreshes ``cache['site_capacity']`` (the capacity weighting's
 data).
 
-What differs from the JAX package: the training-curve PNGs
-(``vision/plotter``) are not drawn — the CSV/JSON logs are the same.
+The training curves (``vision/plotter.py``): one PNG per log at the
+epochs ``lazy_debug`` picks and at the end of every fold, as in the JAX
+package.  What differs: where matplotlib does not import, the plot is
+skipped (once logged, one ``plot:skipped`` event) and the run goes on.
 """
 import datetime
 import math
@@ -75,6 +77,7 @@ from ..data import EmptyDataHandle
 from ..parallel import COINNReducer, DADReducer, PowerSGDReducer
 from ..resilience import transport as wire_transport
 from ..utils import logger
+from ..vision import plotter
 from ..utils.utils import performance_improved_, stop_training_
 from . import check, gather
 
@@ -371,7 +374,17 @@ class COINNRemote:
         self.cache[Key.VALIDATION_LOG.value].append(
             [*info["val_averages"].get(), *info["val_metrics"].get()]
         )
+        if logger.lazy_debug(self.cache["epoch"]):
+            self._plot()
         return info
+
+    def _plot(self):
+        """The training and validation curves as PNGs in ``log_dir``."""
+        plotter.plot_progress(
+            self.cache, self.cache["log_dir"],
+            plot_keys=[Key.TRAIN_LOG.value, Key.VALIDATION_LOG.value],
+            epoch=self.cache.get("epoch"),
+        )
 
     def _save_if_better(self, **info):
         score = info["val_metrics"].extract(self.cache.get("monitor_metric", "f1"))
@@ -399,6 +412,7 @@ class COINNRemote:
         self.cache[Key.GLOBAL_TEST_SERIALIZABLE.value].append(
             {"averages": averages.serialize(), "metrics": metrics.serialize()}
         )
+        self._plot()
         utils.save_scores(
             self.cache, log_dir=self.cache["log_dir"],
             file_keys=[Key.TEST_METRICS.value],
@@ -533,6 +547,9 @@ class COINNRemote:
         })
         if rec.enabled:
             self._broadcast_health(rec)
+        # background commits land, or fail this invocation, before the output
+        # JSON naming the broadcast files leaves the node
+        wire_transport.flush_async()
         self.cache["wire_round"] = self.out[RemoteWire.ROUND.value]
         return self.out
 
@@ -581,6 +598,8 @@ class COINNRemote:
                 f"partial out: {self.out}"
             ) from exc
         finally:
+            for exc in wire_transport.flush_async(raise_errors=False):
+                logger.warn(f"async wire commit failed: {exc}")
             rec.flush()
         return {
             "output": self.out,

@@ -60,8 +60,9 @@ _LSE_PAD = 1.0e30  # lse of a q row past Tq: exp(s - pad) == 0
 _LOG2E = 1.4426950408889634
 _LN2 = 0.6931471805599453
 
-#: head dims the kernels are instantiated for
-HEAD_DIMS = (32, 64, 128)
+#: head dims the kernels are instantiated for (16: the sequence example's
+#: d_model 64 over 4 heads)
+HEAD_DIMS = (16, 32, 64, 128)
 #: keys of a K/V tile of the bfloat16 forward kernel at every head dim
 #: (``Config<D>::kN`` in ``csrc/flash_attention_fwd_wgmma.cuh``): the tiles
 #: over which its running max, and so its rounding of p, advances

@@ -39,6 +39,14 @@ stated tolerance, not bit for bit.  A skipped non-finite site is a
 ``reduce:nonfinite_skip`` event, a reduce a ``reduce:dSGD`` (and a tree one
 a ``reduce:tree``) event on the ambient recorder.
 
+The fan-in maps each site payload read-only by default
+(``cache['wire_mmap']``, :meth:`COINNReducer._wire_mmap`): the payloads are
+verified over the maps, and each leaf's site values are staged from the
+read-only views into the reducer's own host buffer (pinned when the
+reducer is on the card) and copied to the device from there, so a view is
+never handed to torch.  The mean is the heap path's bit for bit.  The
+tree drops its views before its spill directory is removed.
+
 What differs from the JAX package: a discounted reduce lands one
 ``async:discount`` event (``gamma`` and every site's weight) on the
 ambient recorder, which the JAX package does not write.
@@ -177,12 +185,19 @@ class COINNReducer:
         """Site payloads appear under ``baseDirectory/<site>/``."""
         return os.path.join(self.state.get("baseDirectory", "."), str(site), fname)
 
+    def _wire_mmap(self):
+        """Whether fan-in loads map the payload files
+        (``cache['wire_mmap']``, default on)."""
+        v = self.cache.get(Federation.WIRE_MMAP)
+        return True if v is None else bool(v)
+
     def _load(self, file_key):
         """One payload per site (site order: sorted site id), under the wire
         retry policy."""
         sites = sorted(self.input.keys())
         paths = [self._site_path(s, self.input[s][file_key]) for s in sites]
-        return tensorutils.load_arrays_many(paths, retry=RetryPolicy.for_wire(self.cache))
+        return tensorutils.load_arrays_many(paths, retry=RetryPolicy.for_wire(self.cache),
+                                            mmap=self._wire_mmap())
 
     def _save_out(self, fname, arrays):
         """Outbound (aggregator → sites) payload at the wire precision; the
@@ -343,19 +358,23 @@ class COINNReducer:
         paths = [self._site_path(s, self.input[s][file_key]) for s in sites]
         weights = self._apply_quarantine(self._site_weights())
         retry = RetryPolicy.for_wire(self.cache)
+        use_mmap = self._wire_mmap()
         guard = bool(self.cache.get("guard_nonfinite", True))
         rec = telemetry.get_active()
         spill = os.path.join(self.state.get("outputDirectory", "."), ".tree_reduce")
         os.makedirs(spill, exist_ok=True)
         ok = torch.ones(len(sites), dtype=torch.bool, device=self.device)
+        site_leaves = partials = root = None
         try:
             entries = []
             for g in range(0, len(paths), k):
-                site_leaves = tensorutils.load_arrays_many(paths[g:g + k], retry=retry)
+                site_leaves = tensorutils.load_arrays_many(paths[g:g + k], retry=retry,
+                                                           mmap=use_mmap)
                 n_leaves = len(site_leaves[0])
                 if n_leaves == 0:
                     return []
                 stacked = self._stack(site_leaves)
+                site_leaves = None
                 w = weights[g:g + k]
                 if guard:
                     sums, wtot, ok[g:g + k] = guarded_partial(stacked, w)
@@ -372,18 +391,21 @@ class COINNReducer:
                     if len(chunk) == 1:
                         nxt.append(chunk[0])
                         continue
-                    partials = tensorutils.load_arrays_many(chunk, retry=retry)
+                    partials = tensorutils.load_arrays_many(chunk, retry=retry,
+                                                            mmap=use_mmap)
                     total = [sum(self._tensor(p[i]) for p in partials)
                              for i in range(len(partials[0]))]
+                    partials = None
                     part = os.path.join(spill, f"l{levels}_{g // k}.npy")
                     tensorutils.save_arrays(part, total)
                     nxt.append(part)
                 entries = nxt
                 levels += 1
-            root = tensorutils.load_arrays(entries[0], retry=retry)
+            root = tensorutils.load_arrays(entries[0], retry=retry, mmap=use_mmap)
             denom = torch.tensor(max(float(np.asarray(root[-1]).ravel()[0]), 1.0),
                                  dtype=torch.float32, device=self.device)
             means = [self._tensor(x) / denom for x in root[:-1]]
+            root = None
             if rec.enabled:
                 self._tree_health(paths, weights, means, retry, payload, k)
             if guard:
@@ -393,6 +415,8 @@ class COINNReducer:
             wire = config.wire_torch_dtype(self.precision_bits)
             return [m.to(wire) for m in means]
         finally:
+            # no view may outlive the spill files it maps
+            site_leaves = partials = root = None
             shutil.rmtree(spill, ignore_errors=True)
 
     def _tree_health(self, paths, weights, mean_leaves, retry, payload, k):
@@ -403,22 +427,33 @@ class COINNReducer:
         mnorm2 = mean_norm2(mean_leaves)
         cos = torch.empty(len(sites), dtype=torch.float32, device=self.device)
         for g in range(0, len(paths), k):
-            stacked = self._stack(tensorutils.load_arrays_many(paths[g:g + k], retry=retry))
+            stacked = self._stack(tensorutils.load_arrays_many(
+                paths[g:g + k], retry=retry, mmap=self._wire_mmap()))
             cos[g:g + k], _ = cosine_block(stacked, mean_leaves, mnorm2)
         _health.record_site_agreement(self.cache, sites, cos, weights=weights,
                                       recorder=telemetry.get_active(), payload=payload)
 
+    def _staged(self, arrays):
+        """``arrays`` (each a payload array, maybe a read-only view of a
+        mapped file) stacked as one float32 tensor on the reducer's device:
+        copied into a host buffer of the reducer's own, pinned when the
+        device is the card, then to the device."""
+        pin = self.device.type == "cuda"
+        buf = torch.empty((len(arrays), *np.shape(arrays[0])), dtype=torch.float32,
+                          pin_memory=pin)
+        host = buf.numpy()
+        for j, a in enumerate(arrays):
+            host[j] = a
+        return buf.to(self.device, non_blocking=pin)
+
     def _tensor(self, a):
         """A loaded (read-only) payload array as a float32 device tensor."""
-        return torch.from_numpy(np.array(a, np.float32)).to(self.device)
+        return self._staged([a])[0]
 
     def _stack(self, site_leaves):
         """``(n_sites, ...)`` float32 device tensors, one per leaf."""
-        return [
-            torch.from_numpy(np.stack([np.asarray(site[i], np.float32)
-                                       for site in site_leaves])).to(self.device)
-            for i in range(len(site_leaves[0]))
-        ]
+        return [self._staged([site[i] for site in site_leaves])
+                for i in range(len(site_leaves[0]))]
 
     def reduce(self):
         """Average all sites' gradients → ship ``avg_grads`` + signal update.

@@ -1,19 +1,28 @@
-"""Integrity-checked atomic wire transport (pure-Python path).
+"""Integrity-checked atomic wire transport.
 
 The same contract as the JAX package's ``resilience/transport.py``: payloads
 commit through tmp file + fsync + ``os.replace`` and are recorded (bytes +
 CRC32) in a per-directory ``.wire_manifest.json``, so a reader sees a
 payload absent or complete, never partial, and can tell *not yet relayed*
-from *partially relayed* from *corrupted*.  Load-failure hooks let the
+from *partially relayed* from *corrupted*.  The tmp file is written by the
+native gather-write (``native/wire.cc``; the Python writer under
+``COINN_NATIVE=0``), the same bytes either way.  Load-failure hooks let the
 chaos harness (``resilience/chaos.py``) repair a damaged payload between
-two load attempts.  The native gather-write (``native/wire.cc``) and the
-background committer wait for a later slice (``ROADMAP.md``).
+two load attempts.
+
+The opt-in background commit (:class:`BackgroundCommitter`, on with
+``cache['async_wire_commit']``): a payload's pack, write, fsync and
+manifest run on one worker thread, overlapping the caller's next step; a
+node flushes it, re-raising the first commit error, before its output JSON
+names the files (:func:`flush_async`).
 """
 import contextlib
 import json
 import os
 import threading
 import zlib
+
+from .. import native
 
 #: name of the per-directory commit manifest written next to payloads
 MANIFEST_NAME = ".wire_manifest.json"
@@ -43,24 +52,36 @@ def crc32(*buffers):
     return c & 0xFFFFFFFF
 
 
+def _fsync_file(path):
+    with open(path, "rb+") as f:
+        os.fsync(f.fileno())
+
+
 def _tmp_name(path):
+    """Process- and thread-unique: the committer thread and the caller may
+    commit at once."""
     return f"{path}.tmp.{os.getpid()}.{threading.get_ident()}"
 
 
 def commit_bytes(path, header, blobs, crc=None, fsync=True, manifest=True):
     """Atomically commit ``header + blobs`` to ``path``; returns total bytes.
+    tmp file → fsync → ``os.replace``, the tmp file gather-written by the
+    native runtime (``native.pack_file``) unless ``COINN_NATIVE=0``.
     ``crc`` (CRC32 of ``blobs``) lands in the directory manifest."""
     path = str(path)
     blobs = list(blobs)
     tmp = _tmp_name(path)
     try:
-        with open(tmp, "wb") as f:
-            f.write(header)
-            for b in blobs:
-                f.write(b)
-            if fsync:
-                f.flush()
-                os.fsync(f.fileno())
+        if not native.pack_file(tmp, header, blobs):
+            with open(tmp, "wb") as f:
+                f.write(header)
+                for b in blobs:
+                    f.write(b)
+                if fsync:
+                    f.flush()
+                    os.fsync(f.fileno())
+        elif fsync:
+            _fsync_file(tmp)
         os.replace(tmp, path)
     except BaseException:
         with contextlib.suppress(OSError):
@@ -180,3 +201,75 @@ def notify_load_failure(path, attempt, exc):
         except Exception:  # noqa: BLE001 — a hook must never mask the load error
             pass
     return changed
+
+
+# -------------------------------------------------------- background commit
+class BackgroundCommitter:
+    """One worker thread that runs outbound commits while the caller goes
+    on.  ``submit`` queues a commit thunk; ``flush`` waits until the queue
+    drains and re-raises the first error (a payload that never committed
+    must fail the round before the protocol names it)."""
+
+    def __init__(self):
+        import queue
+
+        self._q = queue.Queue()
+        self._errors = []
+        self._lock = threading.Lock()
+        self._thread = threading.Thread(target=self._worker, name="coinn-wire-commit",
+                                        daemon=True)
+        self._thread.start()
+
+    def _worker(self):
+        while True:
+            fn = self._q.get()
+            try:
+                fn()
+            except BaseException as exc:  # noqa: BLE001 — reported at flush
+                with self._lock:
+                    self._errors.append(exc)
+            finally:
+                self._q.task_done()
+
+    def submit(self, fn):
+        self._q.put(fn)
+
+    def pending(self):
+        """Commits queued or running."""
+        return self._q.unfinished_tasks
+
+    def flush(self, raise_errors=True):
+        """Wait for every pending commit; re-raise the first failure, or,
+        with ``raise_errors=False``, return the errors (the drain a failed
+        invocation takes, so its errors never reach the next node this
+        process serves)."""
+        self._q.join()
+        with self._lock:
+            errors, self._errors = self._errors, []
+        if errors and raise_errors:
+            raise errors[0]
+        return errors
+
+
+_COMMITTER = None
+_COMMITTER_LOCK = threading.Lock()
+
+
+def async_committer():
+    """The process-wide background committer (made at first use)."""
+    global _COMMITTER
+    with _COMMITTER_LOCK:
+        if _COMMITTER is None:
+            _COMMITTER = BackgroundCommitter()
+        return _COMMITTER
+
+
+def flush_async(raise_errors=True):
+    """Drain the pending background commits (nothing when none was ever
+    submitted) and re-raise the first commit error; with
+    ``raise_errors=False`` return the errors instead.  Nodes call it before
+    the output JSON that names the files leaves them, and without raising
+    when an invocation fails."""
+    if _COMMITTER is not None:
+        return _COMMITTER.flush(raise_errors=raise_errors)
+    return []

@@ -13,22 +13,32 @@ one device buffer already in the data section's layout
 (``ops/quantize.py``), and only that buffer crosses to the host, in one
 copy; the JAX package copies float32 to the host first.
 
+Files are written by the native gather-write and read by the native bulk
+reader (``native/``, ``COINN_NATIVE=0`` for the Python path); the
+aggregator's fan-in (:func:`load_arrays_many`) reads every site payload at
+once on native threads, or maps each one read-only (``mmap=True``, the
+reducer's default: ``Federation.WIRE_MMAP``) and verifies it over the map.
+With ``cache['async_wire_commit']`` :func:`save_wire` hands the commit to
+the background committer (``resilience/transport.py``).
+
 With telemetry on, every payload saved through :func:`save_wire` and
 every payload loaded is a ``wire`` record on the ambient recorder (bytes
 on disk, arrays, codec, the arrays' bytes before the codec), a fan-in is a
 ``wire:fan_in`` event and a retried load a ``wire:retry`` event, as in the
-JAX package.
+JAX package.  What differs: the JAX package writes no ``wire:fan_in``
+event for a fan-in through its thread pool (the mmap one); the port writes
+one for every fan-in.
 """
 import json
 import os
 import struct
+import threading
 import time
-from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
-from .. import config
+from .. import config, native
 from ..config.keys import Retry
 from ..interop import from_flax, to_flax, wire_leaves
 from ..ops.quantize import GROUP, dequantize_int8, quantize_int8_many, wire_layout
@@ -70,13 +80,14 @@ def _quantize_to_host(leaves, seeds):
     return host
 
 
-def _pack_parts(arrays, codec=None, seed=0):
-    """(header bytes, data blobs, data CRC32) for a list of ndarrays or
-    torch tensors.  ``codec='int8'`` quantizes the float arrays of each
-    device together into the data section's layout (array ``i`` of the
-    payload seeded ``seed + i``, whatever the kinds of the others); other
-    arrays pass raw.  A quantized array's blobs are views of that one host
-    buffer, which they keep alive."""
+def _host_parts(arrays, codec=None, seed=0):
+    """Each array of a payload as its manifest entry and data blobs on the
+    host: ``codec='int8'`` quantizes the float arrays of each device
+    together into the data section's layout (array ``i`` of the payload
+    seeded ``seed + i``, whatever the kinds of the others) — K1 and the
+    copy to the host happen here; other arrays pass raw, as bytes.  The
+    blobs are the caller's to keep: a quantized array's are views of one
+    fresh host buffer, which they keep alive."""
     quantized = {}
     if codec == "int8":
         by_device = {}
@@ -90,19 +101,23 @@ def _pack_parts(arrays, codec=None, seed=0):
             groups = [-(-t.numel() // GROUP) for _, t in items]
             for (i, t), g, (vs, ss) in zip(items, groups, wire_layout(groups)[0]):
                 quantized[i] = t, g, data[vs], data[ss]
-    entries, blobs = [], []
+    parts = []
     for i, a in enumerate(arrays):
         if i in quantized:
             t, g, vals, scales = quantized[i]
-            entries.append({
-                "shape": list(t.shape), "dtype": _numpy_dtype(t).str, "codec": "int8",
-                "groups": g,
-            })
-            blobs += [vals, scales]
+            parts.append(({"shape": list(t.shape), "dtype": _numpy_dtype(t).str,
+                           "codec": "int8", "groups": g}, [vals, scales]))
         else:
             h = _host(a)
-            entries.append({"shape": list(h.shape), "dtype": h.dtype.str})
-            blobs.append(h.tobytes())
+            parts.append(({"shape": list(h.shape), "dtype": h.dtype.str}, [h.tobytes()]))
+    return parts
+
+
+def _assemble(parts):
+    """(header bytes, data blobs, data CRC32) of the parts of
+    :func:`_host_parts`."""
+    entries = [entry for entry, _ in parts]
+    blobs = [b for _, bs in parts for b in bs]
     crc = _transport.crc32(*blobs)
     manifest = json.dumps({
         "e": entries,
@@ -111,6 +126,12 @@ def _pack_parts(arrays, codec=None, seed=0):
     }).encode("utf-8")
     header = b"".join([_MAGIC_V2, struct.pack("<Q", len(manifest)), manifest])
     return header, blobs, crc
+
+
+def _pack_parts(arrays, codec=None, seed=0):
+    """(header bytes, data blobs, data CRC32) for a list of ndarrays or
+    torch tensors (:func:`_host_parts`, :func:`_assemble`)."""
+    return _assemble(_host_parts(arrays, codec=codec, seed=seed))
 
 
 def pack_arrays(arrays, codec=None, seed=0):
@@ -196,13 +217,33 @@ def save_arrays(path, arrays, codec=None, seed=0):
     return _transport.commit_bytes(path, header, blobs, crc=crc)
 
 
-def load_arrays(path, retry=None):
+def _read_payload(path, use_mmap=False):
+    """A payload file's bytes: a read-only map of it (``use_mmap``; an empty
+    file reads as ``b""``, which unpacks as truncated), the native bulk
+    read, or Python's under ``COINN_NATIVE=0``.  Arrays unpacked from a map
+    are views that keep it alive."""
+    if use_mmap:
+        import mmap as _mmap
+
+        with open(path, "rb") as f:
+            if os.fstat(f.fileno()).st_size == 0:
+                return b""  # mmap refuses empty files
+            return _mmap.mmap(f.fileno(), 0, access=_mmap.ACCESS_READ)
+    payload = native.load_file(path) if native.available() else None
+    if payload is None:
+        with open(path, "rb") as f:
+            payload = f.read()
+    return payload
+
+
+def load_arrays(path, retry=None, mmap=False):
     """Read back a :func:`save_arrays` payload, verifying its checksum and
     the directory manifest's CRC.  ``retry`` (a
     :class:`~..resilience.retry.RetryPolicy`) retries absent, incomplete
     or corrupt payloads with backoff; exhaustion re-raises the typed
     error.  Every failed attempt notifies the transport's load-failure
-    hooks (the chaos harness heals a damaged payload there)."""
+    hooks (the chaos harness heals a damaged payload there).  ``mmap=True``
+    maps the file read-only and returns read-only views into the map."""
     rec = _telemetry()
     t0 = time.perf_counter()
     attempt = 0
@@ -211,8 +252,7 @@ def load_arrays(path, retry=None):
     while True:
         attempt += 1
         try:
-            with open(path, "rb") as f:
-                payload = f.read()
+            payload = _read_payload(path, use_mmap=mmap)
             entry = _transport.manifest_entry(path)
             out = unpack_arrays(
                 payload,
@@ -245,27 +285,85 @@ def load_arrays(path, retry=None):
     return out
 
 
-def load_arrays_many(paths, retry=None):
-    """Load several payload files concurrently — the aggregator's fan-in.
+# the fan-in's one bounded thread pool, made at first use and kept (no
+# thread start and join on every reduce)
+_FAN_IN_POOL = None
+_FAN_IN_POOL_LOCK = threading.Lock()
 
-    Loads are ISSUED in sorted-path order (each with its own retry fork
-    keyed on that rank) and the results return in the caller's order, so
-    the order of a directory listing never changes a load's behavior."""
+
+def fan_in_pool():
+    """The process-wide fan-in executor, at most the host's core count of
+    threads (made at first use)."""
+    global _FAN_IN_POOL
+    with _FAN_IN_POOL_LOCK:
+        if _FAN_IN_POOL is None:
+            from concurrent.futures import ThreadPoolExecutor
+
+            _FAN_IN_POOL = ThreadPoolExecutor(max_workers=os.cpu_count() or 8,
+                                              thread_name_prefix="coinn-fan-in")
+        return _FAN_IN_POOL
+
+
+def shutdown_fan_in_pool(wait=True):
+    """Shut the fan-in executor down (nothing when none was made); the next
+    :func:`load_arrays_many` makes a new one."""
+    global _FAN_IN_POOL
+    with _FAN_IN_POOL_LOCK:
+        pool, _FAN_IN_POOL = _FAN_IN_POOL, None
+    if pool is not None:
+        pool.shutdown(wait=wait)
+
+
+def load_arrays_many(paths, retry=None, mmap=False):
+    """Load several payload files at once — the aggregator's fan-in.
+
+    Native threads read every file in one call (:func:`native.load_many`);
+    a file the native read missed goes through :func:`load_arrays` with
+    its retry fork, and so does one that fails its integrity check.  With
+    ``mmap=True`` (the reducer's default) or ``COINN_NATIVE=0`` each file is
+    loaded by :func:`load_arrays` on the shared :func:`fan_in_pool`.  Loads
+    are issued in sorted-path order (native batch order, pool scheduling
+    and retry forks key on the sorted rank) and the results return in the
+    caller's order, so the order of a directory listing never changes a
+    load's behavior."""
     paths = list(paths)
     if not paths:
         return []
     rec = _telemetry()
     t0 = time.perf_counter()
     order = sorted(range(len(paths)), key=lambda i: paths[i])
+    rank = {i: r for r, i in enumerate(order)}
 
-    def task(rank, i):
-        return load_arrays(paths[i], retry=None if retry is None else retry.fork(rank))
+    def fork(i):
+        return None if retry is None else retry.fork(rank[i])
 
-    with ThreadPoolExecutor(max_workers=min(len(paths), os.cpu_count() or 1)) as pool:
-        ranked = list(pool.map(task, range(len(order)), order))
-    out = [None] * len(paths)
-    for r, i in enumerate(order):
-        out[i] = ranked[r]
+    ranked = None if mmap or not native.available() else native.load_many(
+        [paths[i] for i in order])
+    if ranked is None:
+        loaded = list(fan_in_pool().map(
+            lambda i: load_arrays(paths[i], retry=fork(i), mmap=mmap), order))
+        out = [None] * len(paths)
+        for r, i in enumerate(order):
+            out[i] = loaded[r]
+    else:
+        out = []
+        for i, p in enumerate(paths):
+            payload = ranked[rank[i]]
+            if payload is None:  # the native read failed: the retrying reader
+                out.append(load_arrays(p, retry=fork(i)))
+                continue
+            try:
+                entry = _transport.manifest_entry(p)
+                arrays = unpack_arrays(
+                    payload, expected_crc=None if entry is None else entry.get("crc32"))
+            except WireError:  # an integrity failure: the retrying reader
+                out.append(load_arrays(p, retry=fork(i)))
+                continue
+            out.append(arrays)
+            if rec.enabled:
+                rec.wire("load", p, nbytes=len(payload), arrays=len(arrays),
+                         raw_bytes=sum(int(a.nbytes) for a in arrays),
+                         payload_kind="tensor")
     if rec.enabled:
         rec.event("wire:fan_in", cat="wire", files=len(paths),
                   secs=round(time.perf_counter() - t0, 6))
@@ -278,25 +376,41 @@ def save_wire(path, arrays, salt="", cache=None, precision_bits=None):
     int8 codec's seed is ``(stable_file_id(salt) + counter) % 2**31``, array
     ``i`` taking ``seed + i``, and the counter advances in
     ``cache['_wire_seed']`` by the number of arrays, so rounding noise is
-    independent across nodes and rounds."""
+    independent across nodes and rounds.
+
+    With ``cache['async_wire_commit']`` the payload's host parts are made
+    before this returns — K1 on the card, the copy to the host, raw arrays
+    copied to bytes — so the caller may reuse its buffers at once (the next
+    backward writes the same gradient tensors); the header, the write, the
+    fsync and the manifest run on the background committer, which the node
+    flushes before its output JSON names the file.  The file is the
+    synchronous path's, byte for byte."""
     cache = cache if cache is not None else {}
-    if cache.get(Retry.ASYNC_WIRE_COMMIT):
-        raise NotImplementedError(
-            "async_wire_commit (the background committer) is not ported yet "
-            "(ROADMAP.md Queue 1: native wire)"
-        )
     counter = int(cache.get("_wire_seed", 0))
     seed = (stable_file_id(salt) + counter) % (2 ** 31)
     arr_list = list(arrays) if isinstance(arrays, (list, tuple)) else [arrays]
     cache["_wire_seed"] = counter + len(arr_list)
     codec = config.wire_codec(precision_bits)
     rec = _telemetry()
+    raw_bytes = sum(_raw_nbytes(a) for a in arr_list) if rec.enabled else 0
     t0 = time.perf_counter() if rec.enabled else 0.0
+    if cache.get(Retry.ASYNC_WIRE_COMMIT):
+        parts = _host_parts(arr_list, codec=codec, seed=seed)
+
+        def _commit(path=path, parts=parts, n=len(arr_list), rec=rec, t0=t0):
+            header, blobs, crc = _assemble(parts)
+            nbytes = _transport.commit_bytes(path, header, blobs, crc=crc)
+            if rec.enabled:
+                rec.wire("save", path, nbytes=nbytes, arrays=n, codec=codec,
+                         raw_bytes=raw_bytes, dur=time.perf_counter() - t0,
+                         payload_kind="tensor")
+
+        _transport.async_committer().submit(_commit)
+        return None
     nbytes = save_arrays(path, arr_list, codec=codec, seed=seed)
     if rec.enabled:
         rec.wire("save", path, nbytes=nbytes, arrays=len(arr_list), codec=codec,
-                 raw_bytes=sum(_raw_nbytes(a) for a in arr_list),
-                 dur=time.perf_counter() - t0, payload_kind="tensor")
+                 raw_bytes=raw_bytes, dur=time.perf_counter() - t0, payload_kind="tensor")
     return nbytes
 
 
@@ -314,6 +428,14 @@ def aslist(x):
     if isinstance(x, dict):
         return [x[k] for k in sorted(x, key=lambda s: int(s))]
     return list(x)
+
+
+def caste_ndarray(x, precision_bits=None):
+    """Cast to the wire dtype (float{precision_bits}): a numpy array, or a
+    tensor of the wire's torch dtype on its own device."""
+    if isinstance(x, torch.Tensor):
+        return x.to(config.wire_torch_dtype(precision_bits))
+    return np.asarray(x).astype(config.wire_dtype(precision_bits))
 
 
 def extract_grads(models, precision_bits=None):
@@ -348,3 +470,26 @@ def grads_like(models, flat_arrays, device=None):
         t = a.to(device=device or p.device, dtype=p.dtype)
         out[name][tname] = from_flax(models[name], tname, t)
     return out
+
+
+def safe_concat(large, small, axis=1):
+    """Concatenate ``small`` onto ``large`` along ``axis``, center-cropping
+    ``large`` on every other dim where the two differ (U-Net skip
+    connections).  Any rank >= 2; dims 0 (batch) and ``axis`` are never
+    cropped.  Tensors in, a tensor out."""
+    large = torch.as_tensor(large)
+    small = torch.as_tensor(small)
+    axis = axis % large.ndim  # a negative axis, e.g. -1 for channels last
+    slices = []
+    for d in range(large.ndim):
+        if d in (0, axis) or large.shape[d] == small.shape[d]:
+            slices.append(slice(None))
+        else:
+            diff = large.shape[d] - small.shape[d]
+            if diff < 0:
+                raise ValueError(
+                    f"safe_concat: large dim {d} smaller than small "
+                    f"({tuple(large.shape)} vs {tuple(small.shape)})")
+            lo = diff // 2
+            slices.append(slice(lo, lo + small.shape[d]))
+    return torch.cat([large[tuple(slices)], small], dim=axis)

@@ -401,3 +401,21 @@ def test_rounding_matched_plain_forward_matches_jax_in_bf16(case, impl):
     # and the rounding stays near the unrounded statement of the function
     plain = fa.flash_forward_plain(q, k, v, qo, ko, kv, causal, scale)[0]
     assert float((got - plain).abs().max()) <= 2e-2 * float(plain.abs().max())
+
+
+@pytest.mark.parametrize("impl,atol", [("xla", 1e-5), ("pallas_interpret", 1e-4)])
+def test_head_dim_16_matches_jax(impl, atol):
+    """The sequence example's head dim (d_model 64 over 4 heads, T 128):
+    the port's output, lse and gradients against the JAX package's, whose
+    TPU kernel takes any last dim; the card's kernels take 16 as well
+    (``HEAD_DIMS``)."""
+    assert 16 in fa.HEAD_DIMS
+    arrays = _qkv(16, b=2, h=4, t=128, d=16)
+    want, want_lse = jax_flash(*map(jnp.asarray, arrays), impl=impl, return_lse=True)
+    with torch.no_grad():
+        got, got_lse = flash_attention(*_port(arrays), return_lse=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=atol)
+    np.testing.assert_allclose(got_lse.numpy(), np.asarray(want_lse), atol=atol)
+    for a, b in zip(_port_grads(arrays, lse_term=True),
+                    _jax_grads(arrays, impl, lse_term=True)):
+        np.testing.assert_allclose(a, b, **GRAD_TOL)

@@ -203,6 +203,39 @@ def test_bf16_backward_of_a_long_sequence(card):
 
 
 @pytest.mark.cuda
+def test_bf16_kernels_at_head_dim_16_of_a_long_sequence(card):
+    """The sequence example's head dim (d_model 64 over 4 heads): one
+    16-deep slice for Q·Kᵀ, N = 16 for P·V, the 32-byte swizzle; many key
+    tiles, mask-free and diagonal ones, against the rounding-matched plain
+    versions within 1e-3·max."""
+    for case in [(False, 0, 0, 2048, False), (True, 0, 0, 2048, True)]:
+        qkv, pos, _ = _inputs(card, 16, torch.bfloat16, case, t=2048)
+        out, lse = fa.flash_forward_cuda(*qkv, *pos)
+        want_out, want_lse = fa.flash_forward_plain(*qkv, *pos, round_dtype=torch.bfloat16)
+        _close(out, want_out, BF16_MATCHED_RTOL)
+        _close(lse, want_lse)
+        args = _backward_args(card, 16, case, torch.bfloat16, 2048)
+        got = (fa.flash_dq_cuda(*args), *fa.flash_dkv_cuda(*args))
+        matched = (fa.flash_dq_plain(*args, round_dtype=torch.bfloat16),
+                   *fa.flash_dkv_plain(*args, round_dtype=torch.bfloat16))
+        for a, b in zip(got, matched):
+            _close(a, b, BF16_MATCHED_RTOL)
+
+
+@pytest.mark.cuda
+def test_autograd_function_launches_the_kernels_at_head_dim_16(card):
+    """The sequence example's attention shape, (B 8, H 4, T 128, d 16),
+    through the autograd function: one launch of each kernel."""
+    q, k, v = [torch.randn((8, 4, 128, 16), device=card, dtype=torch.bfloat16,
+                           requires_grad=True) for _ in range(3)]
+    before = [kern.launches for kern in fa.KERNELS]
+    out = fa.flash_attention(q, k, v)
+    out.float().pow(2).sum().backward()
+    assert [kern.launches - b for kern, b in zip(fa.KERNELS, before)] == [1, 1, 1]
+    assert torch.isfinite(q.grad.float()).all()
+
+
+@pytest.mark.cuda
 def test_autograd_function_launches_the_kernels(card):
     q, k, v = [torch.randn((2, 4, 200, 32), device=card, dtype=torch.bfloat16,
                            requires_grad=True) for _ in range(3)]

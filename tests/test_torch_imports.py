@@ -158,6 +158,30 @@ def test_models_groupnorm_and_checkpoint_import_modules_import_no_jax():
     assert out.stdout.strip().splitlines()[-1] == "BAD []"
 
 
+def test_native_wire_and_vision_modules_import_no_jax():
+    """The native wire runtime and the plots, alone in a fresh interpreter,
+    with the native library loaded: nothing of JAX, msgpack or the JAX
+    package."""
+    code = textwrap.dedent("""
+        import importlib, sys
+        for name in ("native", "vision", "vision.imageutils", "vision.plotter",
+                     "resilience.transport", "utils.tensorutils"):
+            importlib.import_module("coinstac_dinunet_tpu_torch." + name)
+        from coinstac_dinunet_tpu_torch import native
+        from coinstac_dinunet_tpu_torch.resilience import flush_async
+        from coinstac_dinunet_tpu_torch.vision import plot_progress
+        assert native.available()
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "msgpack")
+                     or m == "coinstac_dinunet_tpu" or m.startswith("coinstac_dinunet_tpu."))
+        print("BAD", bad)
+    """)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env=dict(os.environ, PYTHONPATH=REPO), cwd=REPO, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "BAD []"
+
+
 def test_vectorized_engines_need_a_card_unless_given_cpu(tmp_path, monkeypatch):
     from coinstac_dinunet_tpu_torch.engine import MeshEngine
     from coinstac_dinunet_tpu_torch.federation import SiteVectorizedEngine
@@ -181,19 +205,20 @@ def test_daemon_worker_without_a_script_prints_its_usage():
 
 def test_entry_scripts_import_no_jax(tmp_path):
     """The example entry scripts (``examples/*/{local,remote}.py``, which
-    COINSTAC runs as ``python local.py``, and ``vbm_nifti/run_sim.py``)
+    COINSTAC runs as ``python local.py``, and the simulations
+    ``run_sim.py`` of all four examples and ``run_local.py`` of FSV and VBM)
     load from any directory without the package installed, and pull in
     nothing of JAX either."""
     scripts = sorted(glob.glob(os.path.join(REPO, "coinstac_dinunet_tpu_torch", "examples",
                                             "*", "*.py")))
-    assert len(scripts) == 9, scripts
+    assert len(scripts) == 14, scripts
     code = textwrap.dedent("""
         import importlib.util, os, sys
         for i, path in enumerate(sys.argv[1:]):
             spec = importlib.util.spec_from_file_location(f"entry{i}", path)
             mod = importlib.util.module_from_spec(spec)
             spec.loader.exec_module(mod)
-            entry = "main" if os.path.basename(path) == "run_sim.py" else "compute"
+            entry = "main" if os.path.basename(path).startswith("run_") else "compute"
             assert callable(getattr(mod, entry)), path
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "msgpack")

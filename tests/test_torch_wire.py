@@ -105,21 +105,41 @@ def test_load_retries_then_raises_typed_error(tmp_path):
 
 
 def test_load_arrays_many_issues_sorted_returns_caller_order(tmp_path, monkeypatch):
+    """Native reads are issued in one call in sorted-path order; with
+    ``COINN_NATIVE=0`` each file goes to ``load_arrays`` on the fan-in pool
+    in that order.  Either way the results come back in the caller's."""
     paths = []
     for name in ("c", "a", "b"):
         p = tmp_path / f"{name}.npy"
         ttu.save_arrays(p, [np.full(3, ord(name), np.float32)])
         paths.append(str(p))
+    batches = []
+    real_many = ttu.native.load_many
+
+    def spy_many(ps):
+        batches.append([os.path.basename(p) for p in ps])
+        return real_many(ps)
+
+    monkeypatch.setattr(ttu.native, "load_many", spy_many)
+    out = ttu.load_arrays_many(paths)
+    assert batches == [["a.npy", "b.npy", "c.npy"]]
+    assert [int(o[0][0]) for o in out] == [ord("c"), ord("a"), ord("b")]
+
     issued = []
     real = ttu.load_arrays
 
-    def spy(path, retry=None):
+    def spy(path, retry=None, mmap=False):
         issued.append(os.path.basename(path))
-        return real(path, retry=retry)
+        return real(path, retry=retry, mmap=mmap)
 
+    monkeypatch.setenv("COINN_NATIVE", "0")
     monkeypatch.setattr(ttu, "load_arrays", spy)
     monkeypatch.setattr(ttu.os, "cpu_count", lambda: 1)  # one worker: issue order is visible
-    out = ttu.load_arrays_many(paths)
+    ttu.shutdown_fan_in_pool()  # the next pool is made with one worker
+    try:
+        out = ttu.load_arrays_many(paths)
+    finally:
+        ttu.shutdown_fan_in_pool()
     assert issued == ["a.npy", "b.npy", "c.npy"]
     assert [int(o[0][0]) for o in out] == [ord("c"), ord("a"), ord("b")]
 
@@ -211,3 +231,33 @@ def test_jax_reads_the_ports_mixed_int8_payload(tmp_path):
             assert err.max() <= top / 127.0 + top * np.finfo(a.dtype).eps
         else:
             np.testing.assert_array_equal(j.reshape(-1), a.reshape(-1))
+
+
+@pytest.mark.parametrize("bits", [None, 8, 16, 32, 64])
+def test_caste_ndarray_matches_jax(bits):
+    """The wire dtype cast: numpy in, the JAX package's array out bit for
+    bit; a tensor stays a tensor of the wire's torch dtype."""
+    x = np.random.default_rng(3).normal(size=(4, 5)) * 1e3
+    got, want = ttu.caste_ndarray(x, bits), jtu.caste_ndarray(x, bits)
+    assert got.dtype == want.dtype
+    np.testing.assert_array_equal(got, want)
+    t = ttu.caste_ndarray(torch.from_numpy(x), bits)
+    assert isinstance(t, torch.Tensor)
+    np.testing.assert_array_equal(t.numpy(), want)
+
+
+@pytest.mark.parametrize("large,small,axis", [
+    ((2, 3, 10, 9), (2, 4, 6, 9), 1),          # U-Net 2-D skip, channels first
+    ((1, 2, 9, 8, 7), (1, 5, 5, 4, 7), 1),     # 5-D (the reference's defect case)
+    ((2, 10, 11, 3), (2, 6, 7, 4), -1),        # channels last, negative axis
+])
+def test_safe_concat_matches_jax(large, small, axis):
+    rng = np.random.default_rng(4)
+    a = rng.normal(size=large).astype(np.float32)
+    b = rng.normal(size=small).astype(np.float32)
+    got = ttu.safe_concat(torch.from_numpy(a), torch.from_numpy(b), axis=axis)
+    want = np.asarray(jtu.safe_concat(a, b, axis=axis))
+    assert tuple(got.shape) == want.shape
+    np.testing.assert_array_equal(got.numpy(), want)
+    with pytest.raises(ValueError, match="smaller"):
+        ttu.safe_concat(torch.from_numpy(b), torch.from_numpy(a), axis=axis)
