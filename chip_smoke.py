@@ -54,15 +54,19 @@ Phases, in order; any failure exits non-zero before the last line:
    rest 23), one round's payloads bit-equal to K1's plain version on the
    same leaves; SUCCESS with finite outputs; wire bytes per round and a
    profiled steady round;
-9. main path 5 — path 2's configuration through ``SubprocessEngine`` and
+9. main path 5 — path 2's configuration, cut in depth to
+   ``FRESH_SITES`` site of ``FRESH_SEQ_FILES`` subjects (one gradient
+   round: every invocation pays a process start), through ``SubprocessEngine`` and
    the port's ``seq_classification`` entry scripts with
    ``persist_round_state`` and ``--device cuda``: every site and aggregator
    invocation a fresh ``python`` process (a wrapper written to a temporary
    directory runs the entry module's ``compute`` and appends the process's
    kernel launch counts and clock readings to a JSON-lines file).  SUCCESS
-   in path 2's number of rounds; ``train_log``, ``validation_log``,
-   ``test_metrics`` and every site's final parameters (from its round
-   file) equal path 2's bit for bit; K2, K3 and K4 launched in every
+   in the number of rounds of the same federation run in one process
+   (``run_seq_path`` at that size); ``train_log``,
+   ``validation_log``, ``test_metrics`` and every site's final parameters
+   (from its round file) equal that run's bit for bit; K2, K3 and K4
+   launched in every
    gradient-round site invocation, once per block at least; the round file
    at every site; the cost of an invocation split into the start-up before
    the node's entry, the node's compute, and the total;
@@ -242,6 +246,26 @@ Phases, in order; any failure exits non-zero before the last line:
    and the mapped fan-in too (the defaults); path 1 checks that every
    payload was gather-written and every site's read of the mean was native.
 
+19. main path 15 — the mesh planes, every rank on the one card
+   (``devices=["cuda:0"] * n``).  15a: path 2's configuration through
+   ``MeshEngine`` with ``sequence_parallel`` 2 (2 sites × 2 ranks, the ring
+   over K2–K4) against ``MeshFederation`` with one rank a site, 3 gradient
+   rounds each: K2, K3 and K4 launched exactly sites × ranks × hops ×
+   blocks times a round (16 and 4), the losses of the logs within
+   ``MESH_LOSS_ATOL``, the final parameters within ``MESH_PARAM_ATOL``, and
+   the first round's reduced gradient, leaf by leaf, within
+   ``MESH_GRAD_RTOL`` of the leaf's norm, a check shown to fail on
+   ``MESH_FAULTS`` planted in the same gradients.
+   15b: the same with ``tensor_parallel`` 2 (8 launches a round).  15c: the
+   ring at sp 2 and 4 and Ulysses at sp 2 and 4, causal and not, at B 2,
+   H 4, T 4096, d 32 in bfloat16, outputs and q/k/v gradients within
+   ``RING_RTOL`` of one ``flash_attention`` call, their launches counted,
+   and rank 0's fully masked hops of a causal ring of 4 (zeros, the
+   sentinel lse, zero gradients under a nonzero ``g_lse``).  15d: the
+   sequence example's ``main_mesh(sp=2)`` at its ``inputspec.json`` size
+   (head dim 16) to SUCCESS, its launches counted a round.  Each part
+   timed.
+
 Then one JSON line ``{"kernels": [...]}``, the ``nvidia-smi`` name/power
 line, and the last line ``{"ok": true, "device": {...}}``.  Per-shape
 numbers go to ``chiprun_out/chip_smoke.json``.
@@ -258,6 +282,7 @@ import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+T_START = time.perf_counter()  # log()'s phase headers count from here
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM bandwidth and the
 # float32 rate outside the tensor cores, used for the integer/float work of
@@ -289,6 +314,12 @@ SEQ_ARGS = dict(
     split_ratio=[0.75, 0.125, 0.125], compute_dtype="bfloat16",
 )
 SEQ_FILES = 48
+# path 5's depth: one site (paths 6, 7 and 9 run several through worker
+# processes) of 16 subjects, 12 training sequences, one gradient round of the
+# batch of 16 (path 2's 48 give three), as every invocation there pays a
+# process start of 10–20 s
+FRESH_SITES = 1
+FRESH_SEQ_FILES = 16
 SEQ_TASK = "seq_classification"  # the example whose entry scripts path 5 runs
 SEQ_LOGS = ("train_log", "validation_log", "test_metrics")
 SEQ_PROFILED_ROUND = 3  # the second gradient round, a steady one
@@ -303,6 +334,10 @@ PORT_KERNEL_NAMES = ("quantize_int8", "flash_fwd", "flash_bwd", "flash_dq", "fla
 
 
 def log(msg):
+    """A line of the report; a phase's header (``[n ...]``) also gives the
+    seconds since the script started."""
+    if msg.startswith("["):
+        msg = f"{msg} | t+{time.perf_counter() - T_START:.1f} s"
     print(msg, flush=True)
 
 
@@ -1038,11 +1073,14 @@ def run_main_path(dev, workdir, profiled=PROFILED_ROUNDS, **args):
     }
 
 
-def run_seq_path(dev, workdir, compute_dtype=None, extra=None):
+def run_seq_path(dev, workdir, compute_dtype=None, extra=None, n_sites=N_SITES,
+                 n_files=SEQ_FILES, trace_round=SEQ_PROFILED_ROUND):
     """Federated dSGD of the width-128 sequence transformer on 4096-step
     sequences to SUCCESS; K2–K4 launched in every gradient round.
     ``compute_dtype`` replaces path 2's bfloat16 (phase 12a's rerun);
-    ``extra`` adds to the node arguments (phase 15c's AUC)."""
+    ``extra`` adds to the node arguments (phase 15c's AUC); ``n_sites``
+    sites of ``n_files`` subjects and no traced round
+    (``trace_round=None``) for path 5's reference."""
     import json as _json
 
     import torch
@@ -1052,24 +1090,24 @@ def run_seq_path(dev, workdir, compute_dtype=None, extra=None):
 
     fa = importlib.import_module("coinstac_dinunet_tpu_torch.ops.flash_attention")
     eng = InProcessEngine(
-        workdir, n_sites=N_SITES, trainer_cls=SeqTrainer, dataset_cls=SyntheticSeqDataset,
+        workdir, n_sites=n_sites, trainer_cls=SeqTrainer, dataset_cls=SyntheticSeqDataset,
         device=dev, task_id=SEQ_TASK,
         **{**seq_node_args(), **({"compute_dtype": compute_dtype} if compute_dtype else {}),
            **(extra or {})},
     )
-    make_seq_files(eng)
+    make_seq_files(eng, n_files)
 
     names = list(FLASH_SOURCES)
     for kern in fa.KERNELS:
         kern.launches = 0
-    need = N_SITES * SEQ_ARGS["num_layers"]
+    need = n_sites * SEQ_ARGS["num_layers"]
     grad_rounds, round_s, profiles, per_round = 0, [], [], []
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     while not eng.success and eng.rounds < 40:
         before = [kern.launches for kern in fa.KERNELS]
         tr = time.perf_counter()
-        if eng.rounds + 1 == SEQ_PROFILED_ROUND:
+        if eng.rounds + 1 == trace_round:
             site_outs, profile = profiled_round(eng)
             profiles.append(profile)
         else:
@@ -1083,7 +1121,7 @@ def run_seq_path(dev, workdir, compute_dtype=None, extra=None):
             if min(grew) < need:
                 raise AssertionError(f"round {eng.rounds}: K2/K3/K4 launched {grew} times, "
                                      f"expected >= {need} each")
-        elif eng.rounds == SEQ_PROFILED_ROUND:
+        elif eng.rounds == trace_round:
             raise AssertionError(f"the profiled round {eng.rounds} shipped no gradients")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -1109,7 +1147,8 @@ def run_seq_path(dev, workdir, compute_dtype=None, extra=None):
         "profiled_rounds": profiles, "global_test_metrics": metrics,
         "logs": {k: eng.remote_cache[k] for k in SEQ_LOGS},
         "global_test_log": eng.remote_cache["global_test_metrics"],
-        # for path 5, which holds its sites to these bit for bit (not written out)
+        # for paths 5 and 6, which hold their sites to these bit for bit (not
+        # written out)
         "final_params": {s: {k: v.detach().cpu().clone() for k, v in
                              eng.site_caches[s]["_train_state"].nn["seq_net"].state_dict().items()}
                          for s in eng.site_ids},
@@ -1477,11 +1516,12 @@ print(json.dumps(result))
 
 
 def run_fresh_process_path(dev, workdir, seq_path):
-    """Path 2's sequence federation with every node invocation a fresh
-    process (``SubprocessEngine``, the port's ``seq_classification`` entry
-    scripts, ``persist_round_state``): SUCCESS, path 2's results bit for
-    bit, K2–K4 in every gradient-round site invocation, and the cost of an
-    invocation split into start-up and compute."""
+    """Path 2's sequence federation at ``FRESH_SITES`` sites of
+    ``FRESH_SEQ_FILES`` subjects with every node invocation a fresh process (``SubprocessEngine``, the
+    port's ``seq_classification`` entry scripts, ``persist_round_state``):
+    SUCCESS, ``seq_path``'s results (the same federation in one process)
+    bit for bit, K2–K4 in every gradient-round site invocation, and the
+    cost of an invocation split into start-up and compute."""
     import torch
 
     from coinstac_dinunet_tpu_torch.engine import SubprocessEngine
@@ -1505,11 +1545,11 @@ def run_fresh_process_path(dev, workdir, seq_path):
                                          records=records, role=role))
     fed = os.path.join(workdir, "fed")
     eng = TimedEngine(
-        fed, n_sites=N_SITES, local_script=scripts["site"], remote_script=scripts["remote"],
+        fed, n_sites=FRESH_SITES, local_script=scripts["site"], remote_script=scripts["remote"],
         device=dev.type, timeout=600,
         first_input={f"{SEQ_TASK}_args": {**seq_node_args(), "persist_round_state": True}},
     )
-    make_seq_files(eng)
+    make_seq_files(eng, FRESH_SEQ_FILES)
     round_s = []
     t0 = time.perf_counter()
     while not eng.success and eng.rounds < 40:
@@ -1521,15 +1561,15 @@ def run_fresh_process_path(dev, workdir, seq_path):
         raise AssertionError(f"no SUCCESS after {eng.rounds} rounds")
     with open(records) as f:
         recs = [json.loads(line) for line in f]
-    if len(recs) != len(spans) or len(recs) != eng.rounds * (N_SITES + 1):
+    if len(recs) != len(spans) or len(recs) != eng.rounds * (FRESH_SITES + 1):
         raise AssertionError(f"{len(recs)} records for {len(spans)} invocations "
                              f"in {eng.rounds} rounds")
 
-    # the results against path 2's, bit for bit; every difference gathered
-    # before the verdict
+    # the results against the one-process run's, bit for bit; every
+    # difference gathered before the verdict
     faults = []
     if eng.rounds != seq_path["rounds"]:
-        faults.append(f"{eng.rounds} rounds against path 2's {seq_path['rounds']}")
+        faults.append(f"{eng.rounds} rounds against one process's {seq_path['rounds']}")
     for key in SEQ_LOGS:
         if eng.remote_cache[key] != seq_path["logs"][key]:
             faults.append(f"{key}: {eng.remote_cache[key]} against {seq_path['logs'][key]}")
@@ -1547,8 +1587,8 @@ def run_fresh_process_path(dev, workdir, seq_path):
                             for k in want)
         differ = sorted(k for k in want if not torch.equal(got[k], want[k]))
         if differ:
-            faults.append(f"{s}: {len(differ)} of {len(want)} parameters differ from path 2's "
-                          f"(max |d| {param_gaps[s]:.3e}): {differ[:6]}")
+            faults.append(f"{s}: {len(differ)} of {len(want)} parameters differ from the "
+                          f"one-process run's (max |d| {param_gaps[s]:.3e}): {differ[:6]}")
 
     # K2-K4 in every gradient-round site invocation, once per block at least
     need = SEQ_ARGS["num_layers"]
@@ -1563,7 +1603,7 @@ def run_fresh_process_path(dev, workdir, seq_path):
     if not any(r["reduce"] for r in recs) or min(launches.values()) == 0:
         faults.append("no gradient round ran through K2-K4")
     if faults:
-        raise AssertionError("path 5 against path 2:\n  " + "\n  ".join(faults))
+        raise AssertionError("path 5 against one process:\n  " + "\n  ".join(faults))
 
     # the cost of one invocation: start-up (process start to the node's
     # entry), the node's compute, and the total on the engine's clock
@@ -4907,6 +4947,354 @@ def log_native_examples_path(path, models_path, smi):
         f"{path['examples_s']:.1f} s, all {path['wall_s']:.1f} s")
 
 
+# path 15: the mesh planes, every rank on the one card
+# bf16 logs of sp/tp 2 against sp 1 over 3 rounds (the H100 read 1.98e-3 and
+# 1.3e-4, the same in every run): a forward check, the gradients are below
+MESH_LOSS_ATOL = 5e-3
+MESH_LR = 1e-3  # SeqTrainer's default learning rate, path 2's
+# Adam moves a parameter by about lr a step whatever its gradient, so this
+# bounds the steps taken, not the gradients: MESH_GRAD_RTOL holds those
+MESH_PARAM_ATOL = 3 * 2 * MESH_LR
+# the first round's reduced gradient (one start for both runs) against sp 1's,
+# each leaf's ‖got − want‖ / ‖want‖: bf16 activations and attention operands
+# (2^-8 a rounding) summed over B·T = 65536 positions, in another order and
+# blocking (the H100 read 3.0e-3 for sp 2 and tp 2, a CPU rehearsal at T 64
+# 4.1e-2, a LayerNorm leaf's).  Each planted fault reads 1 or more
+MESH_GRAD_RTOL = 1e-1
+# planted faults the gradient check must see: every leaf zero, doubled (a sum
+# where a mean belongs) or negated, and the one leaf the check sees least
+MESH_FAULTS = ("zero", "doubled", "negated", "one leaf zero")
+RING_SHAPE = (2, 4, 4096, 32)  # 15c: B, H, T, d
+RING_RTOL = 2e-2  # bf16: every hop's partial output is rounded before the float32 merge
+RING_CASES = (("ring", 2), ("ring", 4), ("ulysses", 2), ("ulysses", 4))
+
+
+def metered_mesh_engine(fa, rounds, first_grads=None):
+    """``MeshEngine`` whose plane's ``train_step`` records, each round, its
+    fenced step time, the flash kernels' launches and the loss; with
+    ``first_grads`` (an empty dict) also the first round's reduced
+    gradient, as the plane hands it to the optimizer (float32, on the
+    host)."""
+    import torch
+
+    from coinstac_dinunet_tpu_torch.engine import MeshEngine
+
+    class MeteredMesh(MeshEngine):
+        def _build_federation(self, rc):
+            fed = super()._build_federation(rc)
+            step = fed.train_step
+
+            def metered(site_batches):
+                before = [kern.launches for kern in fa.KERNELS]
+                trainer = fed.trainer
+                record = first_grads is not None and not first_grads
+                if record:
+                    apply = trainer.apply_grads
+
+                    def recording(grads):
+                        first_grads.update({f"{m}.{n}": g.detach().float().cpu()
+                                            for m, leaves in grads.items()
+                                            for n, g in leaves.items()})
+                        return apply(grads)
+
+                    trainer.apply_grads = recording
+                t0 = time.perf_counter()
+                try:
+                    aux = step(site_batches)
+                finally:
+                    if record:
+                        del trainer.apply_grads  # the class's method again
+                torch.cuda.synchronize()
+                rounds.append({"step_s": time.perf_counter() - t0, "loss": float(aux["loss"]),
+                               "launches": [kern.launches - b
+                                            for kern, b in zip(fa.KERNELS, before)]})
+                return aux
+
+            fed.train_step = metered
+            return fed
+
+    return MeteredMesh
+
+
+def mesh_launch_faults(tag, rounds, want):
+    """Each round's K2/K3/K4 launches against their closed form."""
+    return [f"{tag} round {i + 1}: K2/K3/K4 launched {r['launches']} times, expected {want} "
+            "each" for i, r in enumerate(rounds) if r["launches"] != [want] * 3]
+
+
+def run_mesh_engine(dev, workdir, ranks, hops, **extra):
+    """Path 2's configuration through ``MeshEngine`` with ``ranks`` ranks a
+    site on the one card; every round's launches held to sites × ranks ×
+    hops × blocks × micro-batches."""
+    import torch
+
+    from coinstac_dinunet_tpu_torch.models import SeqTrainer, SyntheticSeqDataset
+
+    fa = importlib.import_module("coinstac_dinunet_tpu_torch.ops.flash_attention")
+    rounds, first_grads = [], {}
+    eng = metered_mesh_engine(fa, rounds, first_grads)(
+        workdir, n_sites=N_SITES, trainer_cls=SeqTrainer, dataset_cls=SyntheticSeqDataset,
+        device=dev, devices=[dev] * (N_SITES * ranks), task_id=SEQ_TASK,
+        **{**seq_node_args(), **extra})
+    make_seq_files(eng)
+    for kern in fa.KERNELS:
+        kern.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if not eng.success:
+        raise AssertionError(f"path 15 {extra}: no SUCCESS")
+    k = max(int(seq_node_args().get("local_iterations", 1)), 1)
+    want = N_SITES * ranks * hops * SEQ_ARGS["num_layers"] * k
+    faults = mesh_launch_faults(str(extra), rounds, want)
+    if faults:
+        raise AssertionError("path 15:\n  " + "\n  ".join(faults))
+    launches = dict(zip(FLASH_SOURCES, (kern.launches for kern in fa.KERNELS)))
+    if min(launches.values()) == 0:
+        raise AssertionError(f"path 15 {extra}: a flash kernel was never launched")
+    return {"wall_s": wall, "rounds": rounds, "launches": launches,
+            "launches_per_round": want, "mesh": {k_: int(v) for k_, v in
+                                                 eng._last_fed.mesh.shape.items()},
+            "global_test_metrics": check_vec_outputs(eng, workdir),
+            "logs": {key: eng.cache[key] for key in (*SEQ_LOGS, "global_test_metrics")},
+            "first_grads": first_grads,
+            "params": {n: p.detach().float().cpu()
+                       for n, p in eng._trainer.nn["seq_net"].named_parameters()}}
+
+
+def mesh_gaps(got, want):
+    """The largest loss gap over the train, validation and test logs
+    (their first column) and the largest parameter gap of two runs."""
+    import numpy as np
+
+    loss = max(float(np.abs(np.asarray(got["logs"][key], np.float64)[:, 0]
+                            - np.asarray(want["logs"][key], np.float64)[:, 0]).max())
+               for key in SEQ_LOGS)
+    param = max(float((got["params"][n] - want["params"][n]).abs().max())
+                for n in want["params"])
+    return loss, param
+
+
+def grad_gaps(got, want):
+    """``got``'s first-round gradient against ``want``'s: the worst leaf's
+    relative distance ``‖got − want‖ / ‖want‖``, and that leaf."""
+    gaps = {n: float((got[n] - w).norm()) / max(float(w.norm()), 1e-30)
+            for n, w in want.items()}
+    worst = max(gaps, key=gaps.get)
+    return gaps[worst], worst
+
+
+def planted_grad_faults(got, want):
+    """What :func:`grad_gaps` reads when ``got`` carries each of
+    ``MESH_FAULTS``; "one leaf zero" is the least reading over the
+    leaves."""
+    out = {"zero": grad_gaps({n: 0 * g for n, g in got.items()}, want)[0],
+           "doubled": grad_gaps({n: 2 * g for n, g in got.items()}, want)[0],
+           "negated": grad_gaps({n: -g for n, g in got.items()}, want)[0]}
+    out["one leaf zero"] = min(grad_gaps({**got, n: 0 * got[n]}, want)[0] for n in got)
+    return out
+
+
+def check_ring_on_card(dev):
+    """15c: the ring (sp 2, 4) and Ulysses (sp 2, 4), causal and not, at
+    ``RING_SHAPE`` in bfloat16, held to one ``flash_attention`` call over
+    the whole sequence (outputs and q/k/v gradients within ``RING_RTOL``
+    of the largest magnitude); both also measured against the float32
+    plain version.  Then rank 0's fully masked hops of a causal ring of 4
+    on their own: zeros and the sentinel lse from K2, zero gradients from
+    K3/K4 under a nonzero ``g_lse``."""
+    import torch
+
+    from coinstac_dinunet_tpu_torch.ops import flash_attention
+    from coinstac_dinunet_tpu_torch.parallel import ring_attention, ulysses_attention
+    from coinstac_dinunet_tpu_torch.parallel.mesh import RankAxis
+
+    fa = importlib.import_module("coinstac_dinunet_tpu_torch.ops.flash_attention")
+    fns = {"ring": ring_attention, "ulysses": ulysses_attention}
+    b, h, t, d = RING_SHAPE
+    g = torch.Generator(device=dev).manual_seed(15)
+    q, k, v = [torch.randn((b, h, t, d), generator=g, device=dev).to(torch.bfloat16)
+               for _ in range(3)]
+    g_out = torch.randn((b, h, t, d), generator=g, device=dev)
+
+    def run(fn, n, causal):
+        full = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if fn is None:
+            out = flash_attention(*full, causal=causal)
+        else:
+            axis = RankAxis("sp", [dev] * n)
+            out = torch.cat(fn(*[list(x.chunk(n, dim=2)) for x in full], axis,
+                               causal=causal), dim=2)
+        (out.float() * g_out).sum().backward()
+        torch.cuda.synchronize()
+        return [out.detach().float()] + [x.grad.float() for x in full], time.perf_counter() - t0
+
+    def reference(causal):
+        """The float32 plain version of the same bfloat16 inputs."""
+        full = [x.float().reshape(b * h, t, d) for x in (q, k, v)]
+        scale = 1.0 / d ** 0.5
+        o, lse = fa.flash_forward_plain(*full, 0, 0, t, causal, scale)
+        dq, dk, dv = fa.flash_backward_plain(*full, o, lse, g_out.reshape(b * h, t, d),
+                                             torch.zeros_like(lse), 0, 0, t, causal, scale)
+        return [x.reshape(b, h, t, d) for x in (o, dq, dk, dv)]
+
+    def rel(got, want):
+        return max(float((x - y).abs().max()) / float(y.abs().max()) for x, y in zip(got, want))
+
+    rows, faults = [], []
+    for causal in (False, True):
+        ref = reference(causal)
+        one, one_s = run(None, 1, causal)
+        for name, n in RING_CASES:
+            before = [kern.launches for kern in fa.KERNELS]
+            got, got_s = run(fns[name], n, causal)
+            launches = [kern.launches - x for kern, x in zip(fa.KERNELS, before)]
+            want_calls = n * n if name == "ring" else n
+            row = {"fn": name, "sp": n, "causal": causal, "launches": launches,
+                   "vs_one_call": rel(got, one), "vs_float32": rel(got, ref),
+                   "one_call_vs_float32": rel(one, ref), "s": got_s, "one_call_s": one_s}
+            rows.append(row)
+            if launches != [want_calls] * 3:
+                faults.append(f"15c {name} sp {n} causal {causal}: launches {launches}, "
+                              f"expected {want_calls} each")
+            if not all(torch.isfinite(x).all() for x in got):
+                faults.append(f"15c {name} sp {n} causal {causal}: not finite")
+            if row["vs_one_call"] > RING_RTOL:
+                faults.append(f"15c {name} sp {n} causal {causal}: {row['vs_one_call']:.3e} "
+                              f"of max from the one call (tolerance {RING_RTOL})")
+    n, tl = 4, t // 4
+    masked = []
+    for src in range(1, n):  # rank 0's hops 1..3 hold ranks 3, 2, 1's blocks
+        qq = q[:, :, :tl].clone().requires_grad_(True)
+        kk = k[:, :, src * tl:(src + 1) * tl].clone().requires_grad_(True)
+        vv = v[:, :, src * tl:(src + 1) * tl].clone().requires_grad_(True)
+        out, lse = flash_attention(qq, kk, vv, q_offset=0, k_offset=src * tl, causal=True,
+                                   return_lse=True)
+        g_lse = torch.randn(lse.shape, generator=g, device=dev)
+        ((out.float() * g_out[:, :, :tl]).sum() + (lse * g_lse).sum()).backward()
+        ok = (bool(torch.all(out == 0)) and float(lse.detach().max()) <= -5e29
+              and all(bool(torch.all(x.grad == 0)) for x in (qq, kk, vv)))
+        masked.append({"src": src, "ok": ok, "lse_max": float(lse.detach().max())})
+        if not ok:
+            faults.append(f"15c rank 0's hop from rank {src}: not fully masked")
+    if faults:
+        raise AssertionError("path 15c:\n  " + "\n  ".join(faults))
+    return {"cases": rows, "masked_hops": masked}
+
+
+def run_mesh_example(dev, workdir):
+    """15d: the sequence example's ``main_mesh(sp=2)`` at its
+    ``inputspec.json`` size (head dim 16) on the card to SUCCESS, every
+    round's launches held to their closed form."""
+    import torch
+
+    fa = importlib.import_module("coinstac_dinunet_tpu_torch.ops.flash_attention")
+    mod = load_script(os.path.join(HERE, "coinstac_dinunet_tpu_torch", "examples",
+                                   "seq_classification", "run_sim.py"))
+    rounds = []
+    mod.MeshEngine = metered_mesh_engine(fa, rounds)
+    for kern in fa.KERNELS:
+        kern.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng = mod.main_mesh(workdir, device=dev.type)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if not eng.success:
+        raise AssertionError("path 15d: no SUCCESS")
+    sp = 2
+    want = len(eng.site_ids) * sp * sp * mod.ARGS["num_layers"]
+    faults = mesh_launch_faults("15d", rounds, want)
+    if faults:
+        raise AssertionError("path 15d:\n  " + "\n  ".join(faults))
+    return {"wall_s": wall, "rounds": len(rounds), "launches_per_round": want,
+            "launches": dict(zip(FLASH_SOURCES, (kern.launches for kern in fa.KERNELS))),
+            "head_dim": mod.ARGS["d_model"] // mod.ARGS["num_heads"],
+            "global_test_metrics": check_vec_outputs(eng, workdir)}
+
+
+def run_mesh_path(dev, workdir):
+    """Path 15 (phase 19): 15a sp 2 against sp 1 and 15b tp 2 against
+    it through ``MeshEngine`` at path 2's configuration, 15c the ring and
+    Ulysses against one call, 15d the example's ``main_mesh``; each part
+    timed."""
+    out = {}
+    t0 = time.perf_counter()
+    one = run_mesh_engine(dev, os.path.join(workdir, "sp1"), ranks=1, hops=1)
+    sp2 = run_mesh_engine(dev, os.path.join(workdir, "sp2"), ranks=2, hops=2,
+                          sequence_parallel=2)
+    out["15a_s"] = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    tp2 = run_mesh_engine(dev, os.path.join(workdir, "tp2"), ranks=2, hops=1,
+                          tensor_parallel=2)
+    out["15b_s"] = time.perf_counter() - t1
+    faults = []
+    for tag, run in (("sp2", sp2), ("tp2", tp2)):
+        loss, param = mesh_gaps(run, one)
+        run["loss_gap"], run["param_gap"] = loss, param
+        run["grad_gap"], run["grad_worst_leaf"] = grad_gaps(run["first_grads"],
+                                                            one["first_grads"])
+        run["planted"] = planted_grad_faults(run["first_grads"], one["first_grads"])
+        if loss > MESH_LOSS_ATOL or param > MESH_PARAM_ATOL:
+            faults.append(f"15 {tag} against sp 1: loss gap {loss:.3e} (tolerance "
+                          f"{MESH_LOSS_ATOL}), parameter gap {param:.3e} (tolerance "
+                          f"{MESH_PARAM_ATOL})")
+        if not run["grad_gap"] <= MESH_GRAD_RTOL:
+            faults.append(f"15 {tag} against sp 1: the first round's gradient, leaf "
+                          f"{run['grad_worst_leaf']}, {run['grad_gap']:.3e} of its norm "
+                          f"(tolerance {MESH_GRAD_RTOL})")
+        blind = [f for f, r in run["planted"].items() if not r > MESH_GRAD_RTOL]
+        if blind:
+            faults.append(f"15 {tag}: the gradient check would pass planted faults {blind} "
+                          f"({run['planted']})")
+    if faults:
+        raise AssertionError("path 15:\n  " + "\n  ".join(faults))
+    for run in (one, sp2, tp2):
+        run.pop("params")
+        run.pop("first_grads")
+    out.update(sp1=one, sp2=sp2, tp2=tp2)
+    t2 = time.perf_counter()
+    out["15c"] = check_ring_on_card(dev)
+    out["15c_s"] = time.perf_counter() - t2
+    t3 = time.perf_counter()
+    out["15d"] = run_mesh_example(dev, os.path.join(workdir, "example"))
+    out["15d_s"] = time.perf_counter() - t3
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def log_mesh_path(path, smi):
+    for tag in ("sp1", "sp2", "tp2"):
+        r = path[tag]
+        gaps = ("" if tag == "sp1" else f"; against sp 1: loss gap {r['loss_gap']:.3e}, "
+                f"parameter gap {r['param_gap']:.3e}, first-round gradient "
+                f"{r['grad_gap']:.3e} of its norm (leaf {r['grad_worst_leaf']}; planted "
+                + ", ".join(f"{f} {x:.3e}" for f, x in r["planted"].items()) + ")")
+        log(f"  15 {tag}: mesh {r['mesh']}, {len(r['rounds'])} gradient rounds to SUCCESS in "
+            f"{r['wall_s']:.3f} s, K2/K3/K4 {r['launches_per_round']} each a round "
+            f"({list(r['launches'].values())} in all), step s "
+            + " ".join(f"{x['step_s']:.3f}" for x in r["rounds"])
+            + f", global test {r['global_test_metrics']}{gaps} | {smi}")
+    for row in path["15c"]["cases"]:
+        log(f"  15c {row['fn']} sp {row['sp']} causal {row['causal']}: launches "
+            f"{row['launches']}, max |d| / max against one call {row['vs_one_call']:.3e}, "
+            f"against float32 {row['vs_float32']:.3e} (one call {row['one_call_vs_float32']:.3e}); "
+            f"forward+backward {row['s'] * 1e3:.2f} ms (one call {row['one_call_s'] * 1e3:.2f} ms)")
+    log("  15c rank 0's fully masked hops: " + ", ".join(
+        f"from rank {m['src']} {'ok' if m['ok'] else 'FAILED'} (lse max {m['lse_max']:.3e})"
+        for m in path["15c"]["masked_hops"]))
+    r = path["15d"]
+    log(f"  15d seq example main_mesh(sp=2), head dim {r['head_dim']}: {r['rounds']} gradient "
+        f"rounds to SUCCESS in {r['wall_s']:.3f} s, K2/K3/K4 {r['launches_per_round']} each a "
+        f"round, global test {r['global_test_metrics']} | {smi}")
+    log(f"  phase 19: 15a {path['15a_s']:.1f} s, 15b {path['15b_s']:.1f} s, 15c "
+        f"{path['15c_s']:.1f} s, 15d {path['15d_s']:.1f} s, all {path['wall_s']:.1f} s")
+
+
 def profiled_round(eng):
     """One engine round under ``torch.profiler``: the round's host wall
     time, the device time its kernels took, the idle share, and the
@@ -5127,13 +5515,15 @@ def main():
         f"(path 2's dSGD round, float32 wire: {seq_path['wire_bytes']['site_to_aggregator']})")
     log_profiles(dad_path["profiled_rounds"])
 
-    with tempfile.TemporaryDirectory() as wd:
-        fresh_path = run_fresh_process_path(dev, wd, seq_path)
-    log(f"[9 main path 5: sequence, a fresh process per invocation] {fresh_path['rounds']} "
-        f"rounds, {fresh_path['invocations']} invocations, to SUCCESS in "
-        f"{fresh_path['wall_s']:.3f} s (path 2 in one process: {seq_path['wall_s']:.3f} s); "
-        f"train_log, validation_log, test_metrics and every site's parameters equal path 2's "
-        f"bit for bit; launches {fresh_path['launches']} | {smi}")
+    with tempfile.TemporaryDirectory() as wd, tempfile.TemporaryDirectory() as ref_wd:
+        fresh_ref = run_seq_path(dev, ref_wd, n_sites=FRESH_SITES, n_files=FRESH_SEQ_FILES,
+                                 trace_round=None)
+        fresh_path = run_fresh_process_path(dev, wd, fresh_ref)
+    log(f"[9 main path 5: sequence, a fresh process per invocation] {FRESH_SITES} site of "
+        f"{FRESH_SEQ_FILES} subjects, {fresh_path['rounds']} rounds, {fresh_path['invocations']} invocations, to "
+        f"SUCCESS in {fresh_path['wall_s']:.3f} s (in one process: {fresh_ref['wall_s']:.3f} "
+        f"s); train_log, validation_log, test_metrics and every site's parameters equal the "
+        f"one-process run's bit for bit; launches {fresh_path['launches']} | {smi}")
     log("  round seconds: " + " ".join(f"{t:.3f}" for t in fresh_path["round_s"]))
     log(f"  round files (bytes): {fresh_path['round_file_bytes']}")
     for role, row in fresh_path["split"].items():
@@ -5201,6 +5591,13 @@ def main():
         main_path.pop(key)
         native_path["async"].pop(key)
 
+    log(f"[19 main path 15: the mesh planes] path 2's configuration through MeshEngine with "
+        f"sequence_parallel 2 and tensor_parallel 2 against 1 ({N_SITES} sites, every rank on "
+        f"the one card), the ring and Ulysses against one call, the example's main_mesh | {smi}")
+    with tempfile.TemporaryDirectory() as wd:
+        mesh_path = run_mesh_path(dev, wd)
+    log_mesh_path(mesh_path, smi)
+
     k1["launches_by_path"] = {"vbm_dsgd": main_path["launches"],
                               "vbm_pretrain_powersgd": psgd_path["launches"],
                               "seq_rankdad": dad_path["k1_launches"],
@@ -5226,7 +5623,12 @@ def main():
                                     "seq_flop_count": flop_path["seq"]["launches"][kern["name"]],
                                     "vbm_nifti_metrics": nifti_path["11c_launches"][kern["name"]],
                                     "seq_example_d16": native_path["examples"][
-                                        "seq_classification"]["launches"][kern["name"]]}
+                                        "seq_classification"]["launches"][kern["name"]],
+                                    "seq_mesh_sp1": mesh_path["sp1"]["launches"][kern["name"]],
+                                    "seq_mesh_sp2": mesh_path["sp2"]["launches"][kern["name"]],
+                                    "seq_mesh_tp2": mesh_path["tp2"]["launches"][kern["name"]],
+                                    "seq_example_mesh_sp2": mesh_path["15d"]["launches"][
+                                        kern["name"]]}
     kernels = [k1, *k234]
     report.update(main_path=main_path, seq_path=seq_path, powersgd_path=psgd_path,
                   rankdad_path=dad_path, fresh_process_path=fresh_path,
@@ -5239,6 +5641,7 @@ def main():
                   resnet18_config4_count=models_path["resnet_count"],
                   fused_groupnorm=models_path["fused_groupnorm"],
                   multinet_config5=models_path["multinet"], native_examples_path=native_path,
+                  mesh_path=mesh_path,
                   device=kind,
                   power=smi, kernels=kernels)
     out_dir = os.path.join(HERE, "chiprun_out")

@@ -6,7 +6,7 @@ and the aggregator, so every value is identical to the JAX package's
 dSGD path, the invocation retries, the daemon engine, the engine's
 telemetry lane, quorum, the staleness-bounded async rounds and the
 site-vectorized federation, run-ahead pipelining, the roster protocol
-of elastic membership, the health layer (metrics, anomalies, perf and
+of elastic membership, the mesh axes, the health layer (metrics, anomalies, perf and
 capture keys) and the models and torch checkpoint import use; the
 vocabularies of the features the port does not carry yet (the live ops
 plane's knobs and verdicts, analysis tiers) stay in the JAX package until
@@ -182,6 +182,28 @@ class Daemon:
     EVENT_SHUTDOWN = "worker:shutdown"
 
 
+class MeshAxis:
+    """Names of the axes of a rank mesh (``parallel/mesh.py``), the JAX
+    package's vocabulary: plain ``str`` constants.
+
+    - ``SITE``   — one rank per federated site.
+    - ``DEVICE`` — intra-site data parallelism over a site's ranks.
+    - ``DP``     — batch data parallelism (the sharded transformer steps).
+    - ``TP``     — tensor parallelism: attention heads / MLP hidden dim.
+    - ``SP``     — sequence parallelism (ring/Ulysses attention).
+    - ``EP``     — expert parallelism (switch-MoE expert dim).
+    - ``PP``     — pipeline parallelism (GPipe stages).
+    """
+
+    SITE = "site"
+    DEVICE = "device"
+    DP = "dp"
+    TP = "tp"
+    SP = "sp"
+    EP = "ep"
+    PP = "pp"
+
+
 class Metric:
     """Metric names of the telemetry ``metric`` records (the JAX package's
     strings, so its collector and doctor read the port's lanes).
@@ -311,9 +333,9 @@ class Federation:
     - ``ASYNC_POOL`` — the engine's invocation pool size;
     - ``ASYNC_DISCOUNT`` — ``gamma``: the reducer weighs a contribution
       ``j`` rounds stale by ``gamma**j`` (default 0.5);
-    - ``SITE_SHARDS`` — the number of cards the site-vectorized
-      federation's stacked site axis shards over (``federation/vector.py``;
-      one card: 1, a request for more is refused);
+    - ``SITE_SHARDS`` — the number of shards the site-vectorized
+      federation's stacked site axis splits into, each folded on its own
+      device of the shard mesh (``federation/vector.py``; default 1);
     - ``RUN_AHEAD`` — ``d``: a process-backed engine hands the reduce and
       relay to a reducer thread and lets a site compute up to ``d``
       broadcasts ahead of the last one it applied; the aggregator's window

@@ -52,6 +52,15 @@ def to_device(batch, device, cast=None):
 _PREFETCH_END = object()
 
 
+def split_batch(batch, n):
+    """A batch dict split along its first axis into ``n`` equal parts."""
+    rows = int(np.shape(next(iter(batch.values())))[0])
+    if rows % n:
+        raise ValueError(f"a batch of {rows} does not split over {n} ranks")
+    step = rows // n
+    return [{k: v[r * step:(r + 1) * step] for k, v in batch.items()} for r in range(n)]
+
+
 def device_prefetch(iterator, size=2, sharding=None, device=None, cast=None):
     """Yield ``iterator``'s host batches as device batches
     (:func:`to_device` with ``cast``), a producer thread staying ``size``
@@ -66,17 +75,30 @@ def device_prefetch(iterator, size=2, sharding=None, device=None, cast=None):
     same thread runs with no stream.  ``size <= 0`` is a plain
     pass-through of the host batches; an exception in the producer is
     raised again in the consumer; a consumer that stops early (an error, a
-    ``break``) stops the producer at its next batch.  ``sharding`` (the
-    JAX package's placement over several devices) is refused."""
+    ``break``) stops the producer at its next batch.
+
+    ``sharding``, the JAX package's placement of a batch over several
+    devices, is a rank mesh and the name of one of its axes, ``(mesh,
+    axis)`` (``parallel/mesh.py``; a 1-D mesh's axis): each batch is
+    then split along its first axis into one part per rank, rank ``r``'s
+    rows ``[r·B/n, (r+1)·B/n)`` on its device, and yielded as the list of
+    the parts.  The copy stream serves ranks on one card; ranks on several
+    cards are copied on each card's current stream."""
+    axis = None
     if sharding is not None:
-        raise NotImplementedError(
-            "device_prefetch(sharding=...): batches placed over several devices are not "
-            "ported yet (ROADMAP.md Queue 1: Multiple devices)"
-        )
+        mesh, name = sharding
+        axis = mesh.axis(name)
     if int(size) <= 0:
         yield from iterator
         return
-    dev = config.resolve_device(device)
+    dev = config.resolve_device(device if axis is None else axis.devices[0])
+    one_device = axis is None or all(d == axis.devices[0] for d in axis.devices)
+
+    def place(batch):
+        if axis is None:
+            return to_device(batch, dev, cast)
+        return [to_device(part, d, cast) for part, d in
+                zip(split_batch(batch, axis.size), axis.devices)]
     q = queue.Queue(maxsize=int(size))
     stop = threading.Event()
 
@@ -91,15 +113,15 @@ def device_prefetch(iterator, size=2, sharding=None, device=None, cast=None):
 
     def _producer():
         try:
-            on_card = dev.type == "cuda"
+            on_card = dev.type == "cuda" and one_device
             with torch.cuda.device(dev) if on_card else contextlib.nullcontext():
                 stream = torch.cuda.Stream(dev) if on_card else None
                 for batch in iterator:
                     if stream is None:
-                        item = (to_device(batch, dev, cast), None)
+                        item = (place(batch), None)
                     else:
                         with torch.cuda.stream(stream):
-                            placed = to_device(batch, dev, cast)
+                            placed = place(batch)
                             done = torch.cuda.Event()
                             done.record(stream)
                         item = (placed, done)
@@ -121,8 +143,9 @@ def device_prefetch(iterator, size=2, sharding=None, device=None, cast=None):
             if done is not None:
                 stream = torch.cuda.current_stream(dev)
                 stream.wait_event(done)
-                for t in batch.values():
-                    t.record_stream(stream)
+                for part in (batch if isinstance(batch, list) else [batch]):
+                    for t in part.values():
+                        t.record_stream(stream)
             yield batch
     finally:
         stop.set()

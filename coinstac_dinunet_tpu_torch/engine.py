@@ -79,9 +79,11 @@ port is the site-vectorized federation, whose engine
 (``federation/engine.py``) also carries elastic membership on its roster
 mask.  The daemon engine (warm workers) is ``federation/daemon.py``.
 
-``MeshEngine``'s own per-rank plane, ``MeshFederation``, and its sequence-
-and tensor-parallel variants need a card per site (``ROADMAP.md`` Queue 1:
-Multiple devices).
+``MeshEngine``'s own plane is ``MeshFederation`` (``parallel/mesh.py``):
+the sites as ranks of a rank mesh over ``devices`` (``devices_per_site``
+ranks a site), or with ``sequence_parallel``/``tensor_parallel`` its
+sequence- and tensor-parallel variants (``parallel/seq_mesh.py``,
+``parallel/tp_mesh.py``).
 """
 import datetime
 import json
@@ -120,9 +122,6 @@ from .telemetry import capture as _capture
 from .trainer import COINNTrainer
 from .utils import clean_recursive, logger
 from .utils.utils import performance_improved_, stop_training_
-
-_MULTI = "(ROADMAP.md Queue 1: Multiple devices)"
-
 
 #: test switch: drain the run-ahead pipeline inside every round, right after
 #: its reduce is submitted, so every re-submission sees the newest
@@ -1457,10 +1456,12 @@ class MeshEngine:
     autosave and ``.mesh_resume.json`` make a crashed run resumable
     (``resume``).
 
-    The JAX package's own plane here, ``MeshFederation`` (one device rank
-    per site, with its sequence- and tensor-parallel variants), needs as
-    many cards as sites and is refused; the site-vectorized engine
-    (``federation/engine.py``) overrides ``_build_federation``.  With
+    The plane is ``MeshFederation`` over a rank mesh: ``devices`` (default:
+    every visible card, each once; a name may repeat, ``["cpu"] * n`` on
+    the CPU, ``["cuda:0"] * n`` for several ranks on one card) with
+    ``devices_per_site`` ranks a site, or with ``sequence_parallel`` or
+    ``tensor_parallel`` ``sp``/``tp`` ranks a site; the site-vectorized
+    engine (``federation/engine.py``) overrides ``_build_federation``.  With
     ``capture_on_anomaly`` a round after a watchdog anomaly on the engine's
     cache runs under ``torch.profiler`` (``telemetry/capture.py``), its
     trace kept under the aggregator's output directory."""
@@ -1470,11 +1471,8 @@ class MeshEngine:
                  devices=None, devices_per_site=None, site_args=None, device=None,
                  **args):
         self.device = config.resolve_device(device)
-        if devices is not None or devices_per_site is not None:
-            raise NotImplementedError(
-                f"devices/devices_per_site place sites on several cards, which is not "
-                f"ported yet {_MULTI}"
-            )
+        self.devices = devices
+        self.devices_per_site = devices_per_site
         self.workdir = str(workdir)
         self.n_sites = int(n_sites)
         self.trainer_cls = trainer_cls
@@ -1660,17 +1658,47 @@ class MeshEngine:
 
     def _build_federation(self, rc):
         """This fold's federation plane — the hook the site-vectorized
-        engine overrides.  The JAX package's per-rank ``MeshFederation``
-        and its sequence- and tensor-parallel variants need a card per
-        site (or per site and shard)."""
+        engine overrides: ``MeshFederation``, or with ``sequence_parallel``
+        or ``tensor_parallel`` above 1 its sequence- or tensor-parallel
+        variant (one intra-site axis: the two exclude each other, and
+        ``devices_per_site`` must not contradict them)."""
+        from .parallel.mesh import MeshFederation
+
+        trainer = self._trainer
         sp = int(rc.get("sequence_parallel", 1) or 1)
         tp = int(rc.get("tensor_parallel", 1) or 1)
-        plane = ("SeqMeshFederation (sequence_parallel)" if sp > 1 else
-                 "TPMeshFederation (tensor_parallel)" if tp > 1 else "MeshFederation")
-        raise NotImplementedError(
-            f"{plane} runs one device rank per site and is not ported yet {_MULTI}; "
-            "the site-vectorized engine runs every site on one card"
-        )
+        engine = str(rc.get("agg_engine", "dSGD"))
+        if sp > 1 and tp > 1:
+            raise ValueError(
+                f"sequence_parallel={sp} and tensor_parallel={tp} are "
+                "mutually exclusive (one intra-site mesh axis); pick one"
+            )
+        if sp > 1:
+            if self.devices_per_site not in (None, sp):
+                raise ValueError(
+                    f"devices_per_site={self.devices_per_site} conflicts "
+                    f"with sequence_parallel={sp}: the intra-site axis is "
+                    "the sequence axis (sp ranks per site); drop one of the "
+                    "two settings"
+                )
+            from .parallel.seq_mesh import SeqMeshFederation
+
+            return SeqMeshFederation(trainer, self.n_sites, sp=sp, agg_engine=engine,
+                                     devices=self.devices)
+        if tp > 1:
+            if self.devices_per_site not in (None, tp):
+                raise ValueError(
+                    f"devices_per_site={self.devices_per_site} conflicts "
+                    f"with tensor_parallel={tp}: the intra-site axis is the "
+                    "tensor axis (tp ranks per site); drop one of the two "
+                    "settings"
+                )
+            from .parallel.tp_mesh import TPMeshFederation
+
+            return TPMeshFederation(trainer, self.n_sites, tp=tp, agg_engine=engine,
+                                    devices=self.devices)
+        return MeshFederation(trainer, self.n_sites, agg_engine=engine, devices=self.devices,
+                              devices_per_site=self.devices_per_site)
 
     def _recorder(self):
         """The engine's telemetry lane (``telemetry.engine.jsonl``), on

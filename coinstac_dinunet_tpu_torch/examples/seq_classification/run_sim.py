@@ -7,16 +7,16 @@ head dim 16, which the card's attention kernels K2–K4 take):
 
 - :func:`main` — 2 sites over the file wire (``InProcessEngine``), the
   engine-protocol-faithful run;
-- :func:`main_mesh` — the same lifecycle with every site's step in one
-  pass over the card (``SiteVectorizedEngine``, the port's ``MeshEngine``).
-  The JAX package's ``main_mesh(sp=2)`` runs its per-rank plane with
-  sequence parallelism over a card per rank; ``sp`` > 1 is refused here
-  (``ROADMAP.md`` Queue 1: Multiple devices).
+- :func:`main_mesh` — the mesh plane with intra-site sequence parallelism
+  (``MeshEngine`` with ``sequence_parallel=sp``, default 2): every round
+  one step over a ``(site, sp)`` rank mesh, ring attention over the ``sp``
+  ranks.  Its ranks share the run's device unless ``devices`` names them
+  (``n_sites · sp`` entries).
 
 It takes the card unless given ``--device cpu``:
 
     python run_sim.py ./seq_sim_run --sites 2 --device cpu
-    python run_sim.py ./seq_mesh_run --mesh --device cpu
+    python run_sim.py ./seq_mesh_run --mesh --sp 2 --device cpu
 """
 import argparse
 import os
@@ -27,8 +27,8 @@ try:
 except ImportError:  # run as a script in a checkout: the package is three directories up
     sys.path.insert(0, os.path.abspath(os.path.join(os.path.dirname(__file__), *[os.pardir] * 3)))
 
-from coinstac_dinunet_tpu_torch import InProcessEngine  # noqa: E402
-from coinstac_dinunet_tpu_torch.federation import SiteVectorizedEngine  # noqa: E402
+from coinstac_dinunet_tpu_torch import InProcessEngine, config  # noqa: E402
+from coinstac_dinunet_tpu_torch.engine import MeshEngine  # noqa: E402
 from coinstac_dinunet_tpu_torch.models import SeqTrainer, SyntheticSeqDataset  # noqa: E402
 
 TASK = "seq_classification"
@@ -61,14 +61,13 @@ def main(workdir="./seq_sim_run", n_sites=2, device=None):
     return eng
 
 
-def main_mesh(workdir="./seq_mesh_run", n_sites=2, sp=1, device=None):
-    if int(sp) > 1:
-        raise NotImplementedError(
-            f"sequence_parallel={int(sp)} runs a card per rank and is not ported yet "
-            "(ROADMAP.md Queue 1: Multiple devices)")
-    eng = SiteVectorizedEngine(
+def main_mesh(workdir="./seq_mesh_run", n_sites=2, sp=2, device=None, devices=None):
+    if devices is None:
+        devices = [config.resolve_device(device)] * (int(n_sites) * int(sp))
+    eng = MeshEngine(
         workdir, n_sites=int(n_sites), trainer_cls=SeqTrainer,
-        dataset_cls=SyntheticSeqDataset, device=device, task_id=TASK, patience=20, **ARGS,
+        dataset_cls=SyntheticSeqDataset, device=device, devices=devices, task_id=TASK,
+        patience=20, sequence_parallel=int(sp), **ARGS,
     )
     _fill(eng)
     eng.run()
@@ -82,9 +81,9 @@ if __name__ == "__main__":
     parser.add_argument("workdir", nargs="?", default=None)
     parser.add_argument("--sites", type=int, default=2)
     parser.add_argument("--mesh", action="store_true",
-                        help="every site's step in one pass (SiteVectorizedEngine)")
-    parser.add_argument("--sp", type=int, default=1,
-                        help="sequence-parallel ranks a site (only 1 is ported)")
+                        help="the mesh plane (MeshEngine) with sequence parallelism")
+    parser.add_argument("--sp", type=int, default=2,
+                        help="sequence-parallel ranks a site of the mesh plane")
     parser.add_argument("--device", choices=("cpu", "cuda"), default=None,
                         help="where the run goes (default: the card)")
     args = parser.parse_args()

@@ -16,14 +16,12 @@ Port of the JAX package's ``federation/``.  So far:
 - :mod:`.vector` — :class:`SiteVectorizedFederation` and
   :func:`resolve_site_shards`: every simulated site's local step and the
   cross-site reduce as one forward and one backward per micro-batch over
-  the card, the site axis folded into the batch axis.
+  the card, the site axis folded into the batch axis (or into one batch a
+  shard of a ``(site,)`` rank mesh, ``site_shards``).
 - :mod:`.engine` — :class:`SiteVectorizedEngine`: the
   :class:`~..engine.MeshEngine` lifecycle over that plane, with chaos
   kills, the site quorum and elastic membership on a fixed-capacity roster
   mask.
-
-Still to port: sharding the site axis over several cards waits for
-``ROADMAP.md`` Queue 1: Multiple devices.
 """
 from .daemon import DaemonEngine  # noqa: F401
 from .engine import SiteVectorizedEngine  # noqa: F401

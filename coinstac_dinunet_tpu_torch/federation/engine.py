@@ -173,7 +173,7 @@ class SiteVectorizedEngine(MeshEngine):
             )
         fed = SiteVectorizedFederation(
             self._trainer, self.n_sites, agg_engine=str(rc.get("agg_engine", "dSGD")),
-            site_shards=self.site_shards,
+            devices=self.devices, site_shards=self.site_shards,
         )
         # the engine's lane doubles as the plane's perf sink (fed_step)
         fed.recorder = self._recorder()

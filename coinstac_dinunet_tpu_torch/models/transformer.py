@@ -25,8 +25,23 @@ takes flax's:
   table is cast to the activations' dtype before the add, and the head, the
   logits and the loss are float32, as in the JAX model.
 
-Sequence and tensor parallelism (``sp_axis``, ``tp_axis``: ring attention
-and Megatron slicing over a mesh) need several devices and are refused.
+Sequence and tensor parallelism (the JAX package's ``sp_axis`` and
+``tp_axis``): every module computes its function in ``ranks``, over the
+ranks of a :class:`~..parallel.mesh.RankAxis` — a list in, one tensor per
+rank, and a list out — and its ``forward`` is ``ranks`` over one plain
+input with no axis, so the plain model and the sharded ones run one code
+path.  Parameters are the same in every mode (one checkpoint serves
+sp = 1, 2, 4 and tp = 1, 2, 4); a rank reads them with ``.to()`` onto its
+device, which autograd transposes into the one gradient.
+
+- ``sp_axis``: rank ``r`` holds the sequence block ``[r·T/n, (r+1)·T/n)``;
+  attention is :func:`~..parallel.ring_attention.ring_attention`, the
+  positional table is sliced at the rank's offset and the pooling mean
+  sums over the axis.
+- ``tp_axis``: every rank holds the whole input; :class:`TPDense` computes
+  its rank's column or row slice of each heavy matmul (Megatron), the
+  attention runs on the rank's head block, and the row-parallel outputs
+  sum over the axis, so the logits come out replicated.
 """
 import numpy as np
 import torch
@@ -36,19 +51,10 @@ from torch import nn
 from ..data import COINNDataset
 from ..metrics import classification_outputs
 from ..ops import flash_attention
+from ..parallel.mesh import read_on
 from ..trainer import COINNTrainer
 from ..utils import stable_file_id
 from .cnn3d import _lecun_normal_
-
-_MESH = "ROADMAP.md Queue 1 item 11: multiple devices"
-
-
-def _refuse_mesh(sp_axis=None, tp_axis=None):
-    if sp_axis or tp_axis:
-        raise NotImplementedError(
-            f"sequence/tensor parallelism (sp_axis={sp_axis!r}, tp_axis={tp_axis!r}) "
-            f"is not ported yet ({_MESH})"
-        )
 
 
 def _refuse_attn_impl(attn_impl):
@@ -61,63 +67,144 @@ def _refuse_attn_impl(attn_impl):
         )
 
 
-class TPDense(nn.Linear):
-    """The JAX package's tensor-parallel dense layer with ``tp_axis=None``:
-    exactly a dense layer (flax name ``Dense_N``, lecun-normal kernel, zero
-    bias), but not a ``flax.linen.Dense``, so rankDAD does not compress it
-    (it captures exact ``nn.Linear``s only).  The sharded modes wait for
-    multiple devices."""
+def _on(module, x):
+    """``module(x)`` with ``module``'s parameters read on ``x``'s device."""
+    return read_on(module, x.device, x)
 
-    def __init__(self, in_features, features, use_bias=True, tp_axis=None):
-        _refuse_mesh(tp_axis=tp_axis)
+
+class TPDense(nn.Linear):
+    """Dense layer whose matmul can shard over a tensor-parallel axis while
+    its parameters stay full-shape: the JAX package's ``TPDense`` (flax name
+    ``Dense_N``, lecun-normal kernel, zero bias).  Not a plain
+    ``flax.linen.Dense``, so rankDAD does not compress it (it captures
+    exact ``nn.Linear``s only).
+
+    ``forward`` is the dense layer.  :meth:`ranks` is its tensor-parallel
+    form over a rank axis of ``n``:
+
+    - ``mode='col'``: output features shard; rank ``r`` computes its column
+      block.  ``groups=g`` slices each of ``g`` equal feature blocks
+      separately (a fused qkv projection shards per head within q, k and
+      v).
+    - ``mode='row'``: input features are sharded; rank ``r`` multiplies its
+      activation block by its row block of the kernel, adds ``bias / n``,
+      and the outputs sum over the axis, so the forward value is exactly
+      ``+ bias``.
+    """
+
+    def __init__(self, in_features, features, use_bias=True, mode="col", groups=1):
         super().__init__(in_features, features, bias=use_bias)
+        if mode not in ("col", "row"):
+            raise ValueError(f"unknown TPDense mode {mode!r}")
+        self.mode = mode
+        self.groups = int(groups)
+
+    def ranks(self, xs, tp_axis):
+        """The layer over ``tp_axis``'s ranks: ``xs`` one input per rank (the
+        whole features in ``col`` mode, the rank's block in ``row`` mode)."""
+        n = tp_axis.size
+        w, b = self.weight, self.bias
+        outs = []
+        if self.mode == "col":
+            g, f = self.groups, self.out_features // self.groups
+            # a config check that must survive ``python -O``
+            if f % n != 0:
+                raise ValueError(f"tp={n} must divide the per-group features {f}")
+            fl = f // n
+            for r, x in enumerate(xs):
+                wl = w.view(g, f, -1)[:, r * fl:(r + 1) * fl].reshape(g * fl, -1)
+                bl = None if b is None else b.view(g, f)[:, r * fl:(r + 1) * fl].reshape(-1)
+                outs.append(F.linear(x, wl.to(x.device),
+                                     None if bl is None else bl.to(x.device)))
+            return outs
+        d_local = xs[0].shape[-1]
+        for r, x in enumerate(xs):
+            wl = w[:, r * d_local:(r + 1) * d_local]
+            bl = None if b is None else b / n
+            outs.append(F.linear(x, wl.to(x.device), None if bl is None else bl.to(x.device)))
+        return tp_axis.psum(outs)
 
 
 class MultiHeadSelfAttention(nn.Module):
-    """Self-attention over ``(B, T, D)`` through the fused flash kernels."""
+    """Self-attention over ``(B, T, D)`` through the fused flash kernels;
+    :meth:`ranks` over a sequence-parallel axis (the ring) or a
+    tensor-parallel one (the heads split over the ranks)."""
 
-    def __init__(self, d_model, num_heads, causal=False, attn_impl=None,
-                 sp_axis=None, tp_axis=None):
+    def __init__(self, d_model, num_heads, causal=False, attn_impl=None):
         super().__init__()
-        _refuse_mesh(sp_axis, tp_axis)
         _refuse_attn_impl(attn_impl)
         if d_model % num_heads != 0:
             raise ValueError(f"num_heads={num_heads} must divide d_model={d_model}")
         self.num_heads = int(num_heads)
         self.causal = bool(causal)
-        self.qkv = TPDense(d_model, 3 * d_model, use_bias=False)
-        self.proj = TPDense(d_model, d_model, use_bias=False)
+        self.qkv = TPDense(d_model, 3 * d_model, use_bias=False, mode="col", groups=3)
+        self.proj = TPDense(d_model, d_model, use_bias=False, mode="row")
 
     def forward(self, x):
-        b, t, d = x.shape
+        return self.ranks([x])[0]
+
+    def ranks(self, xs, sp_axis=None, tp_axis=None):
+        """One ``(B, T_rank, D)`` input per rank of ``sp_axis`` or
+        ``tp_axis`` (neither: ``xs`` is one plain input) → one output per
+        rank."""
+        b, t, d = xs[0].shape
         hd = d // self.num_heads
-        q, k, v = self.qkv(x).chunk(3, dim=-1)
+        heads = self.num_heads
+        if tp_axis is not None:
+            n = tp_axis.size
+            if heads % n != 0:
+                raise ValueError(f"tp={n} must divide num_heads={heads}")
+            heads //= n
+            qkv = self.qkv.ranks(xs, tp_axis)
+        elif sp_axis is not None:
+            qkv = [_on(self.qkv, x) for x in xs]
+        else:
+            qkv = [self.qkv(x) for x in xs]
 
         def split(a):
-            return a.reshape(b, t, self.num_heads, hd).transpose(1, 2)
+            return a.reshape(b, t, heads, hd).transpose(1, 2)
 
-        out = flash_attention(split(q), split(k), split(v), causal=self.causal)
-        return self.proj(out.transpose(1, 2).reshape(b, t, d))
+        qs, ks, vs = zip(*[[split(a) for a in y.chunk(3, dim=-1)] for y in qkv])
+        if sp_axis is not None:
+            from ..parallel.ring_attention import ring_attention
+
+            outs = ring_attention(qs, ks, vs, sp_axis, causal=self.causal)
+        else:
+            outs = [flash_attention(q, k, v, causal=self.causal) for q, k, v in zip(qs, ks, vs)]
+        outs = [o.transpose(1, 2).reshape(b, t, heads * hd) for o in outs]
+        if tp_axis is not None:
+            return self.proj.ranks(outs, tp_axis)
+        if sp_axis is not None:
+            return [_on(self.proj, o) for o in outs]
+        return [self.proj(o) for o in outs]
 
 
 class TransformerBlock(nn.Module):
     """Pre-norm block: ``x + attn(ln(x))``, then ``x + mlp(ln(x))`` with a
-    tanh-GELU MLP of width ``mlp_ratio · d``."""
+    tanh-GELU MLP of width ``mlp_ratio · d`` (column-parallel up, row-parallel
+    down under ``tp_axis``: the GELU of a feature block is exact)."""
 
-    def __init__(self, d_model, num_heads, mlp_ratio=4, causal=False,
-                 attn_impl=None, sp_axis=None, tp_axis=None):
+    def __init__(self, d_model, num_heads, mlp_ratio=4, causal=False, attn_impl=None):
         super().__init__()
         self.ln1 = nn.LayerNorm(d_model, eps=1e-6)
-        self.attn = MultiHeadSelfAttention(d_model, num_heads, causal, attn_impl,
-                                           sp_axis, tp_axis)
+        self.attn = MultiHeadSelfAttention(d_model, num_heads, causal, attn_impl)
         self.ln2 = nn.LayerNorm(d_model, eps=1e-6)
-        self.up = TPDense(d_model, mlp_ratio * d_model, tp_axis=tp_axis)
-        self.down = TPDense(mlp_ratio * d_model, d_model, tp_axis=tp_axis)
+        self.up = TPDense(d_model, mlp_ratio * d_model, mode="col")
+        self.down = TPDense(mlp_ratio * d_model, d_model, mode="row")
 
     def forward(self, x):
-        x = x + self.attn(self.ln1(x))
-        h = F.gelu(self.up(self.ln2(x)), approximate="tanh")
-        return x + self.down(h)
+        return self.ranks([x])[0]
+
+    def ranks(self, xs, sp_axis=None, tp_axis=None):
+        att = self.attn.ranks([_on(self.ln1, x) for x in xs], sp_axis, tp_axis)
+        xs = [x + a for x, a in zip(xs, att)]
+        hs = [_on(self.ln2, x) for x in xs]
+        if tp_axis is not None:
+            hs = [F.gelu(u, approximate="tanh") for u in self.up.ranks(hs, tp_axis)]
+            hs = self.down.ranks(hs, tp_axis)
+        else:
+            hs = [_on(self.down, F.gelu(_on(self.up, u), approximate="tanh")) for u in hs]
+        return [x + h for x, h in zip(xs, hs)]
 
 
 def _flax_names(num_layers):
@@ -140,13 +227,13 @@ def _flax_names(num_layers):
 
 class SeqClassifier(nn.Module):
     """Encoder over continuous feature sequences → mean-pool → classes.
-    ``num_features`` is the input width (flax infers it at init)."""
+    ``num_features`` is the input width (flax infers it at init).
+    :meth:`ranks` computes the same function over a sequence- or
+    tensor-parallel rank axis."""
 
     def __init__(self, num_classes=2, d_model=128, num_heads=4, num_layers=2,
-                 max_len=4096, causal=False, num_features=16, attn_impl=None,
-                 sp_axis=None, tp_axis=None):
+                 max_len=4096, causal=False, num_features=16, attn_impl=None):
         super().__init__()
-        _refuse_mesh(sp_axis, tp_axis)
         _refuse_attn_impl(attn_impl)
         self.max_len = int(max_len)
         self.embed = nn.Linear(int(num_features), int(d_model))
@@ -173,16 +260,37 @@ class SeqClassifier(nn.Module):
 
     def forward(self, x):
         """``x``: ``(B, T, F)`` → float32 logits ``(B, num_classes)``."""
-        t = x.shape[1]
-        if t > self.max_len:
-            raise ValueError(f"sequence length {t} exceeds max_len {self.max_len}")
-        x = self.embed(x)
-        x = x + self.pos_embed[:t].unsqueeze(0).to(x.dtype)
+        return self.ranks([x])[0]
+
+    def ranks(self, xs, sp_axis=None, tp_axis=None):
+        """The forward over the ranks of ``sp_axis`` (``xs``: rank ``r``'s
+        ``(B, T/n, F)`` sequence block) or ``tp_axis`` (``xs``: the whole
+        ``(B, T, F)`` input on every rank) → float32 logits on every rank,
+        the same on each."""
+        if sp_axis is not None and tp_axis is not None:
+            raise ValueError(
+                "sp_axis and tp_axis are mutually exclusive in this model (one "
+                "intra-site mesh axis); pick sequence OR tensor parallelism per run")
+        t = xs[0].shape[1]
+        t_global = t * sp_axis.size if sp_axis is not None else t
+        if t_global > self.max_len:
+            raise ValueError(f"global sequence length {t_global} exceeds max_len "
+                             f"{self.max_len}")
+        hs = []
+        for r, x in enumerate(xs):
+            h = _on(self.embed, x)
+            offset = r * t if sp_axis is not None else 0
+            pos = self.pos_embed[offset:offset + t].to(h.device)
+            hs.append(h + pos.unsqueeze(0).to(h.dtype))
         for block in self.blocks:
-            x = block(x)
-        pooled = self.norm(x).float().mean(dim=1)
-        with torch.autocast(device_type=pooled.device.type, enabled=False):
-            return self.head(pooled)
+            hs = block.ranks(hs, sp_axis, tp_axis)
+        normed = [_on(self.norm, h).float() for h in hs]
+        if sp_axis is not None:
+            pooled = [p / t_global for p in sp_axis.psum([h.sum(dim=1) for h in normed])]
+        else:
+            pooled = [h.mean(dim=1) for h in normed]
+        with torch.autocast(device_type=pooled[0].device.type, enabled=False):
+            return [_on(self.head, p) for p in pooled]
 
 
 class SyntheticSeqDataset(COINNDataset):
@@ -206,13 +314,14 @@ class SyntheticSeqDataset(COINNDataset):
 
 class SeqTrainer(COINNTrainer):
     """Trainer wiring for the sequence family.  ``compute_dtype`` defaults
-    to float32, as in the JAX package."""
+    to float32, as in the JAX package.  Implements ``iteration_sharded``
+    and ``iteration_tp``, so the mesh planes can shard each site's
+    sequences over an ``sp`` axis or its matmuls over a ``tp`` axis
+    (``parallel/seq_mesh.py``, ``parallel/tp_mesh.py``) with one parameter
+    set and one checkpoint format."""
 
     def _init_nn_model(self):
         c = self.cache
-        for key in ("sequence_parallel", "tensor_parallel"):
-            if int(c.get(key) or 1) > 1:
-                raise NotImplementedError(f"{key} is not ported yet ({_MESH})")
         c.setdefault("compute_dtype", "float32")
         self.nn["seq_net"] = SeqClassifier(
             num_classes=int(c.get("num_classes", 2)),
@@ -228,3 +337,20 @@ class SeqTrainer(COINNTrainer):
     def iteration(self, batch, generator=None):
         logits = self.nn["seq_net"](batch["inputs"])
         return classification_outputs(logits, batch["labels"], mask=batch.get("_mask"))
+
+    def _iteration_axis(self, batches, **axes):
+        """One iteration output per rank: the model over the ranks' inputs,
+        the loss on each rank's (replicated) logits."""
+        logits = self.nn["seq_net"].ranks([b["inputs"] for b in batches], **axes)
+        return [classification_outputs(lg, b["labels"], mask=b.get("_mask"))
+                for lg, b in zip(logits, batches)]
+
+    def iteration_sharded(self, batch, generator=None, sp_axis=None):
+        if sp_axis is None:
+            return self.iteration(batch, generator)
+        return self._iteration_axis(batch, sp_axis=sp_axis)
+
+    def iteration_tp(self, batch, generator=None, tp_axis=None):
+        if tp_axis is None:
+            return self.iteration(batch, generator)
+        return self._iteration_axis(batch, tp_axis=tp_axis)

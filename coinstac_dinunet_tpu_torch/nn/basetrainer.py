@@ -92,6 +92,15 @@ class TrainState:
     step: int
 
 
+def _on_device(tree, device):
+    """A tensor, or a dict of them, on ``device`` (None stays None)."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: v.to(device) for k, v in tree.items()}
+    return tree.to(device)
+
+
 class NNTrainer:
     """Single-node training runtime over a dict of ``nn.Module``s."""
 
@@ -133,6 +142,39 @@ class NNTrainer:
     def iteration(self, batch, generator=None):
         """Forward + loss on one device batch (user hook)."""
         raise NotImplementedError
+
+    def iteration_sharded(self, batch, generator=None, sp_axis=None):
+        """Sequence-parallel iteration (the hook of
+        :class:`~..parallel.seq_mesh.SeqMeshFederation`): ``batch`` is one
+        batch per rank of ``sp_axis`` (a :class:`~..parallel.mesh.RankAxis`),
+        each holding its sequence block of ``inputs``; returns one iteration
+        output per rank.  The model must attend globally (ring attention),
+        offset positional state by its block and reduce any pooling over
+        the axis.  Default: ``iteration`` when ``sp_axis`` is None, else a
+        refusal — attending only to the local block would change the
+        math."""
+        if sp_axis is None:
+            return self.iteration(batch, generator)
+        raise NotImplementedError(
+            f"{type(self).__name__} does not implement sequence parallelism; "
+            "override iteration_sharded() to run with sequence_parallel > 1"
+        )
+
+    def iteration_tp(self, batch, generator=None, tp_axis=None):
+        """Tensor-parallel iteration (the hook of
+        :class:`~..parallel.tp_mesh.TPMeshFederation`): ``batch`` is the
+        site's whole batch once per rank of ``tp_axis``; the model computes
+        each heavy matmul's rank slice and sums the row-parallel outputs
+        over the axis, so every rank's loss is the same.  Default:
+        ``iteration`` when ``tp_axis`` is None, else a refusal — the full
+        model on every rank would waste the axis, and slicing without the
+        sums would change the math."""
+        if tp_axis is None:
+            return self.iteration(batch, generator)
+        raise NotImplementedError(
+            f"{type(self).__name__} does not implement tensor parallelism; "
+            "override iteration_tp() to run with tensor_parallel > 1"
+        )
 
     def _init_optimizer(self):
         """One Adam per model at ``cache['learning_rate']``."""
@@ -507,12 +549,14 @@ class NNTrainer:
         _perf.sample_device_memory(self.cache, recorder=rec, device=self.device,
                                    census=self._memory_census)
 
-    def compute_grads(self, batches, loss_fn=None):
+    def compute_grads(self, batches, loss_fn=None, iteration_fn=None):
         """Mean gradients over the ``k`` device micro-batches: each batch's
         gradient accumulates into ``.grad`` and the sum is divided by ``k``
         (the JAX package's ``gsum / k``).  ``loss_fn(it, batch)`` returns
         the scalar the backward takes and the loss value to log (default:
-        the iteration's ``loss`` for both).  Returns ``(grads, aux)`` —
+        the iteration's ``loss`` for both); ``iteration_fn(batch,
+        generator)`` stands in for ``iteration`` (the mesh planes' per-rank
+        forward).  Returns ``(grads, aux)`` —
         ``grads`` is ``{model: {param name: gradient}}``; ``aux`` holds the
         round's metric/average states and the mean of the logged losses.
         With telemetry on, the step's FLOP count (first step and new
@@ -523,16 +567,17 @@ class NNTrainer:
         timer = _perf.StepTimer() if rec.enabled else None
         with self._captured(rec):
             (grads, aux), counted = self._counted_step("grads", batches, rec, self._grads,
-                                                       batches, loss_fn)
+                                                       batches, loss_fn, iteration_fn)
             if rec.enabled:
                 _health.record_grad_health(self.cache, grads, aux, recorder=rec)
         if timer is not None:
             self._perf_round_end(timer, "grads", batches, rec, counted)
         return grads, aux
 
-    def _grads(self, batches, loss_fn=None):
+    def _grads(self, batches, loss_fn=None, iteration_fn=None):
         """:meth:`compute_grads` without its telemetry."""
         loss_fn = loss_fn or self._own_loss
+        iteration_fn = iteration_fn or self.iteration
         for m in self.nn.values():
             m.zero_grad(set_to_none=True)
         metrics_shell, averages_shell = self.new_metrics(), self.new_averages()
@@ -543,7 +588,7 @@ class NNTrainer:
         losses, scores = [], []
         for batch in batches:
             with self._autocast():
-                it = self.iteration(batch, self.generator)
+                it = iteration_fn(batch, self.generator)
             loss, logged = loss_fn(it, batch)
             loss.backward()
             with torch.no_grad():
@@ -552,11 +597,15 @@ class NNTrainer:
                 if collect_host:
                     hs = self.host_scores_payload(it, batch)
                     if hs is not None:
-                        scores.append(hs)
+                        scores.append(_on_device(hs, self.device))
+            # micro-batches may lie on other devices (a mesh plane's
+            # shards): the round's states gather on the trainer's
+            m_state = _on_device(m_state, self.device)
+            a_state = _on_device(a_state, self.device)
             if m_state is not None:
                 msum = m_state if msum is None else {k: msum[k] + m_state[k] for k in msum}
             asum = a_state if asum is None else {k: asum[k] + a_state[k] for k in asum}
-            losses.append(logged)
+            losses.append(logged.to(self.device))
         k = len(batches)
         grads = {}
         for name, m in self.nn.items():
@@ -587,7 +636,7 @@ class NNTrainer:
             self.optimizer[name].step()
         self.step += 1
 
-    def train_step(self, batches, loss_fn=None):
+    def train_step(self, batches, loss_fn=None, iteration_fn=None):
         """compute_grads + the optimizer step (the local training path);
         with telemetry on, counted as :meth:`compute_grads` is, timed after
         a fence and under the armed capture, without the gradient-health
@@ -597,24 +646,24 @@ class NNTrainer:
         timer = _perf.StepTimer() if rec.enabled else None
         with self._captured(rec):
             aux, counted = self._counted_step("train", batches, rec, self._train,
-                                              batches, loss_fn)
+                                              batches, loss_fn, iteration_fn)
             if timer is not None:
                 self._fence()
         if timer is not None:
             self._perf_round_end(timer, "train", batches, rec, counted)
         return aux
 
-    def _train(self, batches, loss_fn=None):
+    def _train(self, batches, loss_fn=None, iteration_fn=None):
         """:meth:`train_step` without its telemetry."""
-        _, aux = self._grads(batches, loss_fn)
+        _, aux = self._grads(batches, loss_fn, iteration_fn)
         for opt in self.optimizer.values():
             opt.step()
         self.step += 1
         return aux
 
-    def eval_step(self, batch):
+    def eval_step(self, batch, iteration_fn=None):
         with torch.no_grad(), self._autocast():
-            it = self.iteration(batch, None)
+            it = (iteration_fn or self.iteration)(batch, None)
         with torch.no_grad():
             m_state, a_state = self._step_outputs(
                 it, batch, self.new_metrics(), self.new_averages())

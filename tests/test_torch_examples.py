@@ -3,8 +3,10 @@ and a mixed JAX/port federation.
 
 - the three ``run_sim.main`` (FSV, VBM, sequence) reach SUCCESS on the CPU
   at their ``inputspec.json`` sizes with finite global test metrics; the
-  sequence example's ``main_mesh`` too, on the site-vectorized engine, and
-  ``sp`` > 1 is refused naming the roadmap item;
+  sequence example's ``main_mesh(sp=2)`` (the mesh plane, ring attention
+  over 2 CPU ranks a site) against the JAX example's ``main_mesh(sp=2)``,
+  both from one JAX-written checkpoint: logs within 1e-4 (float32 over
+  six epochs of Adam; the ring sums in another order on each side);
 - both ``run_local.main`` run a site's pretrain to its logs;
 - every script's ``ARGS`` equal the values of the example's
   ``inputspec.json`` (read by the JAX package's ``load_inputspec``);
@@ -66,13 +68,42 @@ def test_run_sim_reaches_success_on_the_cpu(tmp_path, example):
     assert os.path.exists(os.path.join(task_dir, "global_test_metrics.csv"))
 
 
-def test_seq_main_mesh_runs_sites_on_one_device_and_refuses_sp(tmp_path):
+def test_seq_main_mesh_matches_the_jax_sp2_run(tmp_path, monkeypatch):
+    """Both examples' ``main_mesh`` at their defaults (sp = 2) from one
+    JAX-written checkpoint: the port's on ``MeshEngine`` over ``["cpu"] *
+    4`` ranks, the JAX package's on its forced CPU devices."""
+    import jax
+    from coinstac_dinunet_tpu.engine import MeshEngine as JaxMesh
+    from coinstac_dinunet_tpu.models import SeqTrainer as JaxSeqTrainer
+
     mod = port_script("seq_classification", "run_sim.py")
-    eng = mod.main_mesh(str(tmp_path / "mesh"), device="cpu")
-    assert eng.success
+    jax_mod = load(os.path.join(JAX_EXAMPLES, "seq_classification", "run_sim.py"))
+    path = str(tmp_path / "init.ckpt")
+    jt = JaxSeqTrainer(cache=dict(mod.ARGS, seed=3, local_data_parallel=False))
+    jt.init_nn()
+    jt.train_state = jt.train_state.replace(params=jax.tree_util.tree_map(
+        lambda a: np.asarray(a, np.float32), jt.train_state.params))
+    jt.save_checkpoint(full_path=path)
+    runs = []
+
+    class WarmJaxMesh(JaxMesh):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, pretrained_path=path, seed=3, **kw)
+            runs.append(self)
+
+    monkeypatch.setattr(jax_mod, "MeshEngine", WarmJaxMesh)
+    jax_mod.main_mesh(str(tmp_path / "jax"))
+    monkeypatch.setitem(mod.ARGS, "pretrained_path", path)
+    monkeypatch.setitem(mod.ARGS, "seed", 3)
+    eng = mod.main_mesh(str(tmp_path / "port"), device="cpu")
+    theirs = runs[0]
+    assert eng.success and theirs.success
+    assert eng._last_fed.mesh.shape == {"site": 2, "sp": 2}
     _finite_metrics(eng.cache["global_test_metrics"])
-    with pytest.raises(NotImplementedError, match="Multiple devices"):
-        mod.main_mesh(str(tmp_path / "sp"), sp=2, device="cpu")
+    for key in ("train_log", "validation_log", "test_metrics", "global_test_metrics"):
+        np.testing.assert_allclose(np.asarray(eng.cache[key], np.float64),
+                                   np.asarray(theirs.cache[key], np.float64),
+                                   rtol=0, atol=1e-4, err_msg=key)
 
 
 @pytest.mark.parametrize("example", ["fsv_classification", "vbm_classification"])

@@ -10,6 +10,7 @@ import subprocess
 import sys
 import textwrap
 
+import numpy as np
 import pytest
 import torch
 
@@ -103,6 +104,31 @@ def test_metrics_and_data_modules_import_no_jax():
     """)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          env=dict(os.environ, PYTHONPATH=REPO), cwd=REPO, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "BAD []"
+
+
+def test_mesh_plane_modules_import_no_jax():
+    """The mesh planes (``parallel/{mesh,seq_mesh,tp_mesh,hosts,
+    ring_attention}.py``), alone in a fresh interpreter: nothing of JAX,
+    msgpack or the JAX package."""
+    code = textwrap.dedent("""
+        import importlib, sys
+        for name in ("parallel.mesh", "parallel.seq_mesh", "parallel.tp_mesh",
+                     "parallel.hosts", "parallel.ring_attention"):
+            importlib.import_module("coinstac_dinunet_tpu_torch." + name)
+        from coinstac_dinunet_tpu_torch.parallel import hosts, ring_attention
+        from coinstac_dinunet_tpu_torch.parallel.mesh import MeshFederation
+        assert hosts.initialize_multihost() is False  # one process: a no-op
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "msgpack")
+                     or m == "coinstac_dinunet_tpu" or m.startswith("coinstac_dinunet_tpu."))
+        print("BAD", bad)
+    """)
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK")}
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env=dict(env, PYTHONPATH=REPO), cwd=REPO, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1] == "BAD []"
 
@@ -288,12 +314,17 @@ def test_unported_options_are_refused(tmp_path):
                        ("async_stale_discount", 0.5), ("run_ahead", 1), ("reduce_fanin", 2)):
         assert COINNLocal(cache={}, device="cpu", **{key: value}).cache[key] == value
     # carried since the other metrics and data were ported; batches placed
-    # over several devices are refused
+    # over several devices since the mesh planes were (a rank mesh and an
+    # axis: one part per rank)
     assert isinstance(port.metrics.new_metrics(num_classes=3), port.metrics.ConfusionMatrix)
     assert isinstance(port.metrics.new_metrics(2, binary_as_auc=True),
                       port.metrics.AUCROCMetrics)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        next(port.data.device_prefetch(iter([{}]), size=2, sharding="site"))
+    from coinstac_dinunet_tpu_torch.parallel.mesh import build_site_only_mesh
+
+    mesh = build_site_only_mesh(2, ["cpu"] * 2)
+    parts = next(port.data.device_prefetch(iter([{"x": np.arange(4.0)}]), size=2,
+                                           sharding=(mesh, "site")))
+    assert [p["x"].tolist() for p in parts] == [[0.0, 1.0], [2.0, 3.0]]
 
 
 def test_every_aggregation_engine_is_carried():

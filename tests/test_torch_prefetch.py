@@ -4,7 +4,7 @@
 The JAX package's ``test_device_prefetch_preserves_batches`` on the port
 (order, a producer error raised again in the consumer, ``size <= 0`` a
 pass-through), a consumer that breaks early stopping the producer thread,
-the refused ``sharding=``, and a local training run with
+``sharding=`` over a rank mesh, and a local training run with
 ``prefetch_batches`` 0 and 2 ending on bit-equal parameters (the same
 batches in the same order through the same ops).  The copy stream and the
 cross-stream lifetime are the card's: ``tests/test_torch_prefetch_card.py``.
@@ -90,9 +90,21 @@ def test_early_break_stops_the_producer():
     assert n <= 4 + 2 + 1
 
 
-def test_sharding_is_refused():
-    with pytest.raises(NotImplementedError, match="Multiple devices"):
-        next(device_prefetch(iter([{"x": np.zeros(1)}]), size=2, sharding=object()))
+def test_sharding_splits_each_batch_over_the_ranks():
+    """``sharding=(mesh, axis)``: each batch as one part per rank of the
+    axis, rank r's rows on its device, in the order of the unsharded
+    prefetch; a batch that does not split evenly raises in the consumer."""
+    from coinstac_dinunet_tpu_torch.parallel.mesh import build_site_only_mesh
+
+    mesh = build_site_only_mesh(3, ["cpu"] * 3)
+    host = [{"x": np.arange(6.0) + 10 * i} for i in range(4)]
+    got = list(device_prefetch(iter(host), size=2, sharding=(mesh, "site")))
+    assert [[p["x"].tolist() for p in parts] for parts in got] == [
+        [[10 * i + 0.0, 10 * i + 1.0], [10 * i + 2.0, 10 * i + 3.0],
+         [10 * i + 4.0, 10 * i + 5.0]] for i in range(4)]
+    assert _wait_no_producer()
+    with pytest.raises(ValueError, match="does not split"):
+        next(device_prefetch(iter([{"x": np.zeros(4)}]), size=2, sharding=(mesh, "site")))
 
 
 def _local_trainer(root, prefetch):

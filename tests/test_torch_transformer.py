@@ -180,19 +180,35 @@ def test_dataset_items_bit_identical_to_jax():
         assert a["labels"] == b["labels"]
 
 
-def test_jax_options_and_mesh_axes_are_refused():
+def test_jax_options_are_refused_and_mesh_axes_run():
+    """A JAX ``attn_impl`` is refused; the mesh axes run: attention and the
+    model over 2 sequence- or tensor-parallel CPU ranks give the plain
+    forward's output (float32, 1e-5), and a trainer with
+    ``sequence_parallel`` builds the one model."""
+    from coinstac_dinunet_tpu_torch.parallel.mesh import RankAxis
+
     for impl in ("pallas", "xla", "pallas_interpret"):
         with pytest.raises(ValueError, match="attn_impl"):
             SeqClassifier(attn_impl=impl)
         with pytest.raises(ValueError, match="attn_impl"):
             SeqTrainer(cache={"attn_impl": impl}, device="cpu").init_nn()
-    for axes in ({"sp_axis": "sp"}, {"tp_axis": "tp"}):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-            MultiHeadSelfAttention(32, 4, **axes)
-        with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-            SeqClassifier(**axes)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        SeqTrainer(cache={"sequence_parallel": 2}, device="cpu").init_nn()
+    torch.manual_seed(0)
+    attn = MultiHeadSelfAttention(32, 4)
+    model = SeqClassifier(num_features=FEATURES, **SMALL)
+    x = torch.randn(2, 16, 32)
+    xf = torch.randn(2, 16, FEATURES)
+    axis = RankAxis("r", ["cpu"] * 2)
+    with torch.no_grad():
+        sp = torch.cat(attn.ranks(list(x.chunk(2, dim=1)), sp_axis=axis), dim=1)
+        tp = attn.ranks([x, x], tp_axis=axis)
+        np.testing.assert_allclose(sp.numpy(), attn(x).numpy(), atol=1e-5)
+        np.testing.assert_allclose(tp[0].numpy(), attn(x).numpy(), atol=1e-5)
+        for logits in (model.ranks(list(xf.chunk(2, dim=1)), sp_axis=axis),
+                       model.ranks([xf, xf], tp_axis=axis)):
+            for lg in logits:
+                np.testing.assert_allclose(lg.numpy(), model(xf).numpy(), atol=1e-5)
+    trainer = SeqTrainer(cache={"sequence_parallel": 2}, device="cpu").init_nn()
+    assert isinstance(trainer.nn["seq_net"], SeqClassifier)
     with pytest.raises(ValueError, match="max_len"):
         SeqClassifier(num_features=FEATURES, **SMALL)(torch.zeros(1, 65, FEATURES))
 

@@ -407,12 +407,17 @@ def test_refusals(tmp_path, weights):
         with pytest.raises(ValueError, match="site-vectorized"):
             cls(None, n_sites=4, agg_engine="powerSGD")
     assert resolve_site_shards(4) == 1
-    with pytest.raises(NotImplementedError, match="Multiple devices"):
-        resolve_site_shards(4, requested=2)
+    # the site axis shards over a rank mesh since the mesh planes were
+    # ported: as many shards as asked, which must divide the sites and
+    # find as many devices
+    assert resolve_site_shards(4, requested=2) == 2
+    assert resolve_site_shards(4, devices=["cpu"] * 2) == 2
     with pytest.raises(ValueError, match="must divide"):
         resolve_site_shards(5, requested=2)
-    with pytest.raises(NotImplementedError, match="Multiple devices"):
-        port_vec(tmp_path / "shards", 4, weights, site_shards=2).run()
+    assert outcome(port_vec(tmp_path / "shards", 4, weights, site_shards=2,
+                            devices=["cpu"] * 2)) == "SUCCESS"
+    with pytest.raises(ValueError, match="site-only mesh needs 2 devices"):
+        port_vec(tmp_path / "shards_nodev", 4, weights, site_shards=2).run()
     with pytest.raises(ValueError, match="site-vectorized"):
         port_vec(tmp_path / "psgd", 2, weights, agg_engine="powerSGD").run()
     for key in ("sequence_parallel", "tensor_parallel"):
@@ -420,14 +425,22 @@ def test_refusals(tmp_path, weights):
         theirs = jax_vec(tmp_path / f"jax_{key}", 2, weights, **{key: 2})
         assert outcome(ours) == outcome(theirs)
         assert outcome(ours).startswith("ValueError: SiteVectorizedEngine vectorizes")
-    # MeshEngine's own per-rank plane needs a card per site
+    # MeshEngine's own plane, MeshFederation, runs over a rank mesh since
+    # the mesh planes were ported (tests/test_torch_mesh.py): the same logs
+    # as the vectorized plane, and a list of too few ranks raises
     mesh = MeshEngine(tmp_path / "mesh", n_sites=2, trainer_cls=FSVTrainer,
-                      dataset_cls=FSVDataset, device="cpu", task_id=TASK, **ARGS)
+                      dataset_cls=FSVDataset, device="cpu", devices=["cpu"] * 2,
+                      task_id=TASK, **{**ARGS, **weights})
     fill(mesh, 10)
-    with pytest.raises(NotImplementedError, match="Multiple devices"):
-        mesh.run()
-    with pytest.raises(NotImplementedError, match="Multiple devices"):
-        MeshEngine(tmp_path / "m2", n_sites=2, device="cpu", devices_per_site=2)
+    vec = port_vec(tmp_path / "vec", 2, weights)
+    assert outcome(mesh) == outcome(vec) == "SUCCESS"
+    assert_logs_close(mesh.cache, vec.cache, 1e-6)
+    with pytest.raises(ValueError, match="Mesh needs 4 devices"):
+        short = MeshEngine(tmp_path / "m2", n_sites=2, trainer_cls=FSVTrainer,
+                           dataset_cls=FSVDataset, device="cpu", devices=["cpu"] * 2,
+                           devices_per_site=2, task_id=TASK, **{**ARGS, **weights})
+        fill(short, 10)
+        short.run()
     # carried since the health layer was ported: the option arms the
     # engine's capture as the JAX engine's (a run under it is
     # tests/test_torch_perf.py's)
