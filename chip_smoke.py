@@ -266,6 +266,28 @@ Phases, in order; any failure exits non-zero before the last line:
    (head dim 16) to SUCCESS, its launches counted a round.  Each part
    timed.
 
+20. main path 16 — the sharded transformer steps (``parallel/sequence.py``,
+   ``parallel/pipeline.py``), every rank on the one card, at
+   ``TSPConfig``'s full width (``TSP_ARGS``: d_model 128, 8 heads of 16, 2
+   layers, d_ff 512; T 4096, batch 16), each mesh against one rank from the
+   same weights and batches: first a float32 pair (the logits, the aux
+   loss and the first step's gradient, leaf by leaf, within
+   ``TSP_F32_RTOL``, the MoE's within ``TSP_F32_MOE_RTOL``), then bfloat16,
+   the logits within ``TSP_LOGITS_RTOL``, the first gradient within
+   ``TSP_GRAD_RTOL`` of each leaf's norm (``MESH_FAULTS`` planted in it
+   read above the gate), three donated steps whose losses lie within
+   ``TSP_LOSS_ATOL`` and whose updates within ``TSP_GRAD_RTOL`` of one
+   rank's, each fenced (the MoE's bfloat16 gates: ``TSP_MOE_LOGITS_RTOL``,
+   ``TSP_MOE_GRAD_RTOL``).  16a: the dense causal step on dp2 x tp2 x sp2,
+   K2/K3/K4 exactly 32 a step (2 on one rank).  16b: the switch MoE (4
+   experts, capacity factor 1.25) on tp2 x sp2 x ep2: 16 a step (attention
+   is not replicated over ``ep``), the dropped-token share of each layer
+   and the tokens routed otherwise than on one rank printed, the steps'
+   peak memory below one ``(N, E, C)`` float32 dispatch tensor.  16c: GPipe
+   on pp2 x dp2 with 4 microbatches against pp 1 on 16a's weights stacked:
+   16 a step (8 on pp 1), each stage holding one of the two layers, its
+   bytes printed.
+
 Then one JSON line ``{"kernels": [...]}``, the ``nvidia-smi`` name/power
 line, and the last line ``{"ok": true, "device": {...}}``.  Per-shape
 numbers go to ``chiprun_out/chip_smoke.json``.
@@ -5295,6 +5317,344 @@ def log_mesh_path(path, smi):
         f"{path['15c_s']:.1f} s, 15d {path['15d_s']:.1f} s, all {path['wall_s']:.1f} s")
 
 
+# path 16: the sharded transformer steps, every rank on the one card, at
+# TSPConfig's full width (d_model 128, 8 heads of 16, 2 layers, d_ff 512)
+TSP_ARGS = dict(num_features=16, num_classes=2, d_model=128, num_heads=8, num_layers=2,
+                mlp_ratio=4, max_len=4096)
+TSP_BATCH, TSP_T = 16, 4096
+TSP_STEPS = 3
+TSP_LR = 1e-3  # the default of make_tsp_train_step and make_pp_train_step
+TSP_EXPERTS, TSP_CAPACITY = 4, 1.25
+PP_MICROBATCHES = 4
+# float32, the mesh against one rank: the same function in another blocking
+# and sum order (the CPU tests hold it to JAX within 2e-5; the H100 read
+# 3.6e-7 and 2.8e-6): the logits within TSP_F32_RTOL of their largest
+# magnitude, the aux loss within TSP_F32_RTOL of itself, each first-step
+# gradient leaf within TSP_F32_RTOL of its norm
+TSP_F32_RTOL = 1e-3
+# the MoE's float32 pair: a near tie between two gates may route a token to
+# another expert in the other blocking, and with capacity binding that moves
+# one token's place in two experts' buffers; each such token moves the logits
+# by about 2e-4 of their largest magnitude (1/T of a token's FFN output
+# through the pool and the head), so the gate allows a few dozen; the tokens
+# routed differently are counted and printed
+TSP_F32_MOE_RTOL = 1e-2
+# bfloat16: each blocking rounds its activations and projections (the tp
+# partials before their sum) to 2^-8, so the mesh and one rank differ by the
+# format's error, which the float32 pair above shows is all they differ by:
+# logits within TSP_LOGITS_RTOL of their largest magnitude (the aux loss of
+# itself), the steps' losses within TSP_LOSS_ATOL (path 15's gate), each
+# first-step gradient leaf and each leaf's update over the steps within
+# TSP_GRAD_RTOL of one rank's (path 15's MESH_GRAD_RTOL: its planted faults,
+# MESH_FAULTS, read 1 or more)
+TSP_LOGITS_RTOL = 2e-2
+TSP_LOSS_ATOL = 5e-3
+TSP_GRAD_RTOL = 1e-1
+# the MoE in bfloat16: the router's input differs by the format's rounding
+# between the blockings, so near ties route tokens to other experts.  The
+# gates were set from a CPU rehearsal at d_model 32, T 64-256 (0.1-0.5 % of
+# the tokens rerouted, logits 2.4e-2-2.9e-2 of max, the router's gradient
+# 7e-2 and its update 1.6e-1 of one rank's); the H100 at full width read
+# 0.13 % and 0.33 % rerouted, logits 2.9e-3, the worst gradient leaf 2.6e-2.
+# The planted faults (1 or more) read above them
+TSP_MOE_LOGITS_RTOL = 5e-2
+TSP_MOE_GRAD_RTOL = 3e-1
+
+
+def tsp_batches(n, seed):
+    """``n`` batches of the JAX tests' recipe (a label-dependent sine under
+    noise) at ``(TSP_BATCH, TSP_T, num_features)``."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    t = np.arange(TSP_T)[None, :, None]
+    out = []
+    for _ in range(n):
+        y = rng.integers(0, TSP_ARGS["num_classes"], size=TSP_BATCH)
+        sig = np.sin(2 * np.pi * (y[:, None, None] + 1) * t / TSP_T)
+        x = rng.normal(size=(TSP_BATCH, TSP_T, TSP_ARGS["num_features"])) * 0.3 + sig
+        out.append((x.astype(np.float32), y))
+    return out
+
+
+def named_leaves(tree, prefix=""):
+    """``{path: float32 host tensor}`` of a whole parameter tree (dicts and
+    the layer list)."""
+    import torch
+
+    if not isinstance(tree, (dict, list)):
+        return {prefix.rstrip("/"): torch.as_tensor(tree).detach().float().cpu()}
+    out = {}
+    for k, v in (tree.items() if isinstance(tree, dict) else enumerate(tree)):
+        out.update(named_leaves(v, f"{prefix}{k}/"))
+    return out
+
+
+def update_gaps(got, want, base):
+    """Each leaf's update from ``base`` against ``want``'s: the worst
+    ``‖got − want‖ / ‖want − base‖`` and its leaf."""
+    return grad_gaps({n: g - base[n] for n, g in got.items()},
+                     {n: w - base[n] for n, w in want.items()})
+
+
+def run_tsp_case(dev, shape, cfg, whole, batches, steps=TSP_STEPS):
+    """The sharded step on ``shape`` ranks of the one card from the whole
+    tree ``whole``: the logits, aux loss and MoE stats on ``batches[0]``,
+    the first step's gradient, then ``steps`` donated steps, each fenced,
+    its K2/K3/K4 launches counted from 0; the peak memory of the steps and
+    the gathered tree after them."""
+    import torch
+
+    from coinstac_dinunet_tpu_torch.parallel import sequence as seq
+
+    fa = importlib.import_module("coinstac_dinunet_tpu_torch.ops.flash_attention")
+    n = 1
+    for s in shape:
+        n *= s
+    mesh = seq.build_tsp_mesh(*shape, devices=[dev] * n)
+    params = seq.shard_tsp_params(whole, mesh)
+    stats = []
+    with torch.no_grad():
+        logits, aux = seq.tsp_forward(params, batches[0][0], cfg, mesh, stats=stats)
+    xs, ys = seq.shard_tsp_batch(*batches[0], mesh)
+    _, grads = seq.value_and_grad(lambda p, x, y: seq.tsp_loss(p, x, y, cfg, mesh),
+                                  params, xs, ys)
+    out = {"shape": list(shape), "logits": logits.float().cpu(), "aux": float(aux),
+           "dropped": [float(s["dropped"]) for s in stats],
+           "capacity": [s["capacity"] for s in stats],
+           "experts": [s["expert"].cpu() for s in stats],
+           "grads": named_leaves(seq.gather_tsp_params(grads)), "steps": []}
+    del grads
+    step = seq.make_tsp_train_step(cfg, mesh, lr=TSP_LR)
+    torch.cuda.reset_peak_memory_stats()
+    for x, y in batches[:steps]:
+        xs, ys = seq.shard_tsp_batch(x, y, mesh)
+        for kern in fa.KERNELS:
+            kern.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, loss = step(params, xs, ys)
+        torch.cuda.synchronize()
+        out["steps"].append({"step_s": time.perf_counter() - t0, "loss": float(loss),
+                             "launches": [kern.launches for kern in fa.KERNELS]})
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    out["params"] = named_leaves(seq.gather_tsp_params(params))
+    return out
+
+
+def launch_faults(tag, run, want):
+    """Each step's K2/K3/K4 launches against their closed form."""
+    return [f"{tag} {run['shape']} step {i + 1}: K2/K3/K4 launched {s['launches']} times, "
+            f"expected {want} each" for i, s in enumerate(run["steps"])
+            if s["launches"] != [want] * 3]
+
+
+def tsp_gaps(tag, mesh, one, base, logits_rtol, grad_rtol, loss_atol=TSP_LOSS_ATOL):
+    """``mesh`` against ``one`` (the same weights and batches on one rank),
+    each reading stored in ``mesh``: logits, aux loss, losses, the first
+    gradient (with the planted faults) and the updates."""
+    faults = []
+    mesh["logits_gap"] = (float((mesh["logits"] - one["logits"]).abs().max())
+                          / float(one["logits"].abs().max()))
+    if not mesh["logits_gap"] <= logits_rtol:
+        faults.append(f"{tag}: logits {mesh['logits_gap']:.3e} of max from one rank's "
+                      f"(tolerance {logits_rtol})")
+    if one["aux"]:
+        mesh["aux_gap"] = abs(mesh["aux"] - one["aux"]) / abs(one["aux"])
+        if not mesh["aux_gap"] <= logits_rtol:
+            faults.append(f"{tag}: aux loss {mesh['aux_gap']:.3e} of one rank's (tolerance "
+                          f"{logits_rtol})")
+    mesh["grad_gap"], mesh["grad_worst_leaf"] = grad_gaps(mesh["grads"], one["grads"])
+    mesh["planted"] = planted_grad_faults(mesh["grads"], one["grads"])
+    if not mesh["grad_gap"] <= grad_rtol:
+        faults.append(f"{tag}: first gradient, leaf {mesh['grad_worst_leaf']}, "
+                      f"{mesh['grad_gap']:.3e} of its norm (tolerance {grad_rtol})")
+    blind = [f for f, r in mesh["planted"].items() if not r > grad_rtol]
+    if blind:
+        faults.append(f"{tag}: the gradient check would pass planted faults {blind} "
+                      f"({mesh['planted']})")
+    if mesh["steps"]:
+        mesh["loss_gap"] = max(abs(a["loss"] - b["loss"])
+                               for a, b in zip(mesh["steps"], one["steps"]))
+        if not mesh["loss_gap"] <= loss_atol:
+            faults.append(f"{tag}: losses {mesh['loss_gap']:.3e} from one rank's (tolerance "
+                          f"{loss_atol})")
+        mesh["update_gap"], mesh["update_worst_leaf"] = update_gaps(mesh["params"],
+                                                                    one["params"], base)
+        if not mesh["update_gap"] <= grad_rtol:
+            faults.append(f"{tag}: leaf {mesh['update_worst_leaf']}'s update "
+                          f"{mesh['update_gap']:.3e} of one rank's (tolerance {grad_rtol})")
+    return faults
+
+
+def run_tsp_pair(dev, tag, shape, moe, seed):
+    """``shape`` against one rank from the same weights and batches: a
+    float32 pair (logits, aux loss, first gradient; no steps), then the
+    bfloat16 pair with ``TSP_STEPS`` steps each."""
+    import torch
+
+    from coinstac_dinunet_tpu_torch.parallel import sequence as seq
+
+    extra = dict(num_experts=TSP_EXPERTS, capacity_factor=TSP_CAPACITY) if moe else {}
+    batches = tsp_batches(TSP_STEPS, seed)
+    cfg = seq.TSPConfig(**TSP_ARGS, causal=not moe, dtype=torch.float32, **extra)
+    whole = seq.init_tsp_params(torch.Generator().manual_seed(seed), cfg, device=dev)
+    base = named_leaves(whole)
+    f32 = [run_tsp_case(dev, s, cfg, whole, batches, steps=0) for s in (shape, (1, 1, 1, 1))]
+    rtol = TSP_F32_MOE_RTOL if moe else TSP_F32_RTOL
+    faults = tsp_gaps(f"{tag} float32", *f32, base, rtol, rtol)
+    cfg.dtype = torch.bfloat16
+    one = run_tsp_case(dev, (1, 1, 1, 1), cfg, whole, batches)
+    mesh = run_tsp_case(dev, shape, cfg, whole, batches)
+    faults += tsp_gaps(tag, mesh, one, base, *((TSP_MOE_LOGITS_RTOL, TSP_MOE_GRAD_RTOL) if moe
+                                                else (TSP_LOGITS_RTOL, TSP_GRAD_RTOL)))
+    for got, want in ((f32[0], f32[1]), (mesh, one)):  # tokens routed differently a layer
+        got["rerouted"] = [int((a != b).sum()) for a, b in zip(got["experts"], want["experts"])]
+    dp, tp, sp, _ = shape
+    faults += launch_faults(tag, mesh, TSP_ARGS["num_layers"] * dp * tp * sp * sp)
+    faults += launch_faults(tag, one, TSP_ARGS["num_layers"])
+    for run in (*f32, one, mesh):  # what the report keeps is JSON
+        for key in ("grads", "logits", "experts", "params"):
+            run.pop(key)
+    return {"float32": f32[0], "one": one, "mesh": mesh, "whole": whole, "cfg": cfg,
+            "batches": batches}, faults
+
+
+def run_pp_case(dev, pp_size, dp, cfg, whole, batches):
+    """The GPipe step on ``pp_size × dp`` ranks of the one card from the
+    whole tree ``whole`` (stacked here), ``PP_MICROBATCHES`` microbatches:
+    each donated step fenced with its launches counted from 0; each stage
+    rank's parameter bytes and the gathered tree after the steps."""
+    import torch
+
+    from coinstac_dinunet_tpu_torch.parallel import pipeline as pp
+    from coinstac_dinunet_tpu_torch.parallel import sequence as seq
+
+    fa = importlib.import_module("coinstac_dinunet_tpu_torch.ops.flash_attention")
+    mesh = pp.build_pp_mesh(pp_size, dp, devices=[dev] * (pp_size * dp))
+    params = pp.shard_pp_params(pp.stack_layers(whole), mesh)
+    layers = seq.tensors(params["layers"])  # leaf by leaf, each leaf's pp shards in turn
+    rest = seq.tensors({k: v for k, v in params.items() if k != "layers"})
+    stage_bytes = [sum(t.numel() * t.element_size() for t in layers[p::pp_size])
+                   for p in range(pp_size)]
+    stage_layers = sorted({t.shape[0] for t in layers})
+    step = pp.make_pp_train_step(cfg, mesh, lr=TSP_LR, num_microbatches=PP_MICROBATCHES)
+    steps = []
+    for x, y in batches:
+        xs, ys = pp.shard_pp_batch(x, y, mesh)
+        for kern in fa.KERNELS:
+            kern.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, loss = step(params, xs, ys)
+        torch.cuda.synchronize()
+        steps.append({"step_s": time.perf_counter() - t0, "loss": float(loss),
+                      "launches": [kern.launches for kern in fa.KERNELS]})
+    return {"shape": [pp_size, dp], "steps": steps, "stage_layer_bytes": stage_bytes,
+            "replicated_bytes": sum(t.numel() * t.element_size() for t in rest),
+            "layers_a_stage": stage_layers,
+            "params": named_leaves(pp.gather_pp_params(params))}
+
+
+def run_sharded_path(dev):
+    """Path 16 (phase 20): 16a the dense causal step on dp2×tp2×sp2, 16b
+    the switch MoE on tp2×sp2×ep2, each against one rank from the same
+    weights and batches (a float32 pair, then bfloat16 steps); 16c GPipe on
+    pp2×dp2 against pp 1 on 16a's weights; each part timed."""
+    from coinstac_dinunet_tpu_torch.parallel import pipeline as pp
+
+    out, faults = {}, []
+    t0 = time.perf_counter()
+    dense, f = run_tsp_pair(dev, "16a", (2, 2, 2, 1), moe=False, seed=16)
+    faults += f
+    out["16a_s"] = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    moe, f = run_tsp_pair(dev, "16b", (1, 2, 2, 2), moe=True, seed=17)
+    faults += f
+    n_tok = TSP_BATCH * TSP_T
+    dispatch_bytes = n_tok * TSP_EXPERTS * moe["mesh"]["capacity"][0] * 4
+    if not moe["mesh"]["peak_bytes"] < dispatch_bytes:
+        faults.append(f"16b: the steps' peak memory {moe['mesh']['peak_bytes']} B reaches one "
+                      f"(N, E, C) float32 dispatch tensor's {dispatch_bytes} B")
+    out["16b_s"] = time.perf_counter() - t1
+    t2 = time.perf_counter()
+    base = named_leaves(pp.stack_layers(dense["whole"]))
+    one = run_pp_case(dev, 1, 1, dense["cfg"], dense["whole"], dense["batches"])
+    mesh = run_pp_case(dev, 2, 2, dense["cfg"], dense["whole"], dense["batches"])
+    mesh["loss_gap"] = max(abs(a["loss"] - b["loss"]) for a, b in zip(mesh["steps"],
+                                                                       one["steps"]))
+    mesh["update_gap"], mesh["update_worst_leaf"] = update_gaps(mesh["params"], one["params"],
+                                                                base)
+    if not mesh["loss_gap"] <= TSP_LOSS_ATOL:
+        faults.append(f"16c: losses {mesh['loss_gap']:.3e} from pp 1's (tolerance "
+                      f"{TSP_LOSS_ATOL})")
+    if not mesh["update_gap"] <= TSP_GRAD_RTOL:
+        faults.append(f"16c: leaf {mesh['update_worst_leaf']}'s update {mesh['update_gap']:.3e}"
+                      f" of pp 1's (tolerance {TSP_GRAD_RTOL})")
+    layers = TSP_ARGS["num_layers"]
+    faults += launch_faults("16c", mesh, 2 * PP_MICROBATCHES * layers)
+    faults += launch_faults("16c", one, PP_MICROBATCHES * layers)
+    if mesh["layers_a_stage"] != [layers // 2]:
+        faults.append(f"16c: a stage holds {mesh['layers_a_stage']} layers, not {layers // 2}")
+    for run in (one, mesh):
+        run.pop("params")
+    out["16c_s"] = time.perf_counter() - t2
+    if faults:
+        raise AssertionError("path 16:\n  " + "\n  ".join(faults))
+    for part in (dense, moe):
+        for key in ("whole", "cfg", "batches"):
+            part.pop(key)
+    out.update({"16a": dense, "16b": moe, "16c": {"one": one, "mesh": mesh},
+                "dispatch_bytes": dispatch_bytes, "wall_s": time.perf_counter() - t0})
+    fa = importlib.import_module("coinstac_dinunet_tpu_torch.ops.flash_attention")
+    out["launches"] = {
+        path: dict(zip(FLASH_SOURCES, (sum(s["launches"][i] for s in run["steps"])
+                                       for i in range(len(fa.KERNELS)))))
+        for path, run in (("tsp_dense_mesh", dense["mesh"]), ("tsp_dense_one_rank", dense["one"]),
+                          ("tsp_moe_mesh", moe["mesh"]), ("tsp_moe_one_rank", moe["one"]),
+                          ("pp_gpipe", mesh), ("pp_one_stage", one))}
+    return out
+
+
+def log_sharded_path(path, smi):
+    def steps(run):
+        return " ".join(f"{s['step_s']:.4f}" for s in run["steps"])
+
+    for tag, key in (("16a dense causal dp2 x tp2 x sp2", "16a"),
+                     ("16b switch MoE tp2 x sp2 x ep2", "16b")):
+        part = path[key]
+        m, one, f32 = part["mesh"], part["one"], part["float32"]
+        aux = (f"; aux {m['aux']:.6f} against {one['aux']:.6f} ({m['aux_gap']:.3e}, float32 "
+               f"{f32['aux_gap']:.3e})" if "aux_gap" in m else "")
+        log(f"  {tag}: float32 against one rank: logits {f32['logits_gap']:.3e} of max, first "
+            f"gradient {f32['grad_gap']:.3e} (leaf {f32['grad_worst_leaf']}); bf16: logits "
+            f"{m['logits_gap']:.3e} of max, losses {m['loss_gap']:.3e}, first gradient "
+            f"{m['grad_gap']:.3e} (leaf {m['grad_worst_leaf']}; planted "
+            + ", ".join(f"{f} {x:.3e}" for f, x in m["planted"].items())
+            + f"), updates {m['update_gap']:.3e} (leaf {m['update_worst_leaf']}){aux}")
+        log(f"    K2/K3/K4 a step {m['steps'][0]['launches']} (one rank "
+            f"{one['steps'][0]['launches']}); losses " + " ".join(
+                f"{s['loss']:.5f}" for s in m["steps"])
+            + f"; fenced step s {steps(m)} against one rank's {steps(one)}; peak memory "
+            f"{m['peak_bytes'] / 2**30:.3f} GiB (one rank {one['peak_bytes'] / 2**30:.3f})"
+            + (f"; dropped tokens a layer {[round(x, 4) for x in m['dropped']]} (one rank "
+               f"{[round(x, 4) for x in one['dropped']]}), capacity {m['capacity'][0]}, tokens "
+               f"routed otherwise than on one rank {m['rerouted']} (float32 "
+               f"{f32['rerouted']}); one "
+               f"(N, E, C) float32 dispatch tensor would take "
+               f"{path['dispatch_bytes'] / 2**30:.2f} GiB" if m["dropped"] else "")
+            + f" | {smi}")
+    m, one = path["16c"]["mesh"], path["16c"]["one"]
+    log(f"  16c GPipe pp2 x dp2, M {PP_MICROBATCHES}, against pp 1: losses {m['loss_gap']:.3e} "
+        f"apart, updates {m['update_gap']:.3e} (leaf {m['update_worst_leaf']}); K2/K3/K4 a step "
+        f"{m['steps'][0]['launches']} (pp 1 {one['steps'][0]['launches']}); layer bytes a stage "
+        f"{m['stage_layer_bytes']} ({m['layers_a_stage']} layer each; pp 1 "
+        f"{one['stage_layer_bytes']}), replicated {m['replicated_bytes']}; fenced step s "
+        f"{steps(m)} against pp 1's {steps(one)} | {smi}")
+    log(f"  phase 20: 16a {path['16a_s']:.1f} s, 16b {path['16b_s']:.1f} s, 16c "
+        f"{path['16c_s']:.1f} s, all {path['wall_s']:.1f} s")
+
+
 def profiled_round(eng):
     """One engine round under ``torch.profiler``: the round's host wall
     time, the device time its kernels took, the idle share, and the
@@ -5598,6 +5958,14 @@ def main():
         mesh_path = run_mesh_path(dev, wd)
     log_mesh_path(mesh_path, smi)
 
+    log(f"[20 main path 16: the sharded transformer steps] TSPConfig's full width (d_model "
+        f"{TSP_ARGS['d_model']}, {TSP_ARGS['num_heads']} heads of "
+        f"{TSP_ARGS['d_model'] // TSP_ARGS['num_heads']}, T {TSP_T}, batch {TSP_BATCH}, bf16): "
+        f"dp2 x tp2 x sp2, a switch MoE on tp2 x sp2 x ep2 and GPipe on pp2 x dp2 against one "
+        f"rank, every rank on the one card | {smi}")
+    sharded_path = run_sharded_path(dev)
+    log_sharded_path(sharded_path, smi)
+
     k1["launches_by_path"] = {"vbm_dsgd": main_path["launches"],
                               "vbm_pretrain_powersgd": psgd_path["launches"],
                               "seq_rankdad": dad_path["k1_launches"],
@@ -5628,7 +5996,9 @@ def main():
                                     "seq_mesh_sp2": mesh_path["sp2"]["launches"][kern["name"]],
                                     "seq_mesh_tp2": mesh_path["tp2"]["launches"][kern["name"]],
                                     "seq_example_mesh_sp2": mesh_path["15d"]["launches"][
-                                        kern["name"]]}
+                                        kern["name"]],
+                                    **{path: counts[kern["name"]] for path, counts in
+                                       sharded_path["launches"].items()}}
     kernels = [k1, *k234]
     report.update(main_path=main_path, seq_path=seq_path, powersgd_path=psgd_path,
                   rankdad_path=dad_path, fresh_process_path=fresh_path,
@@ -5641,7 +6011,7 @@ def main():
                   resnet18_config4_count=models_path["resnet_count"],
                   fused_groupnorm=models_path["fused_groupnorm"],
                   multinet_config5=models_path["multinet"], native_examples_path=native_path,
-                  mesh_path=mesh_path,
+                  mesh_path=mesh_path, sharded_path=sharded_path,
                   device=kind,
                   power=smi, kernels=kernels)
     out_dir = os.path.join(HERE, "chiprun_out")

@@ -132,3 +132,28 @@ def params_from_jax(flax_params, model):
         # np.array copies: the source may be a read-only (jax) buffer
         state[pname] = torch.from_numpy(np.array(from_flax(model, pname, a)))
     return state
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def tsp_params_from_jax(tree, device):
+    """The JAX package's sharded-transformer parameter tree (``parallel/
+    sequence.py`` ``init_tsp_params``, or after ``stack_layers``; numpy or
+    jax arrays) as the port's: the same dicts and lists, every leaf a
+    float32 tensor on ``device`` (the JAX tree's norms and biases are
+    float64 under x64)."""
+    return _tree_map(lambda a: torch.from_numpy(np.array(a, dtype=np.float32)).to(device),
+                     tree)
+
+
+def tsp_params_to_jax(tree):
+    """The port's whole (unsharded) sharded-transformer tree as the JAX
+    package's: float32 numpy arrays (``parallel.sequence.gather_tsp_params``
+    first for a sharded one)."""
+    return _tree_map(lambda t: t.detach().cpu().float().numpy(), tree)

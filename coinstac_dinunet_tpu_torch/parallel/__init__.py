@@ -4,11 +4,12 @@ Site-side :class:`COINNLearner` and aggregator-side :class:`COINNReducer`
 (dSGD), with the gradient-compressed variants (PowerSGD, rankDAD), plus
 :mod:`.mesh` (sites as ranks of a rank mesh, with its sequence- and
 tensor-parallel variants :mod:`.seq_mesh` and :mod:`.tp_mesh`),
-:func:`ring_attention` and :mod:`.hosts` (several processes).  The sharded
-transformer steps (the JAX package's ``parallel/sequence.py`` and
-``parallel/pipeline.py``) wait for a later slice (``ROADMAP.md``).
+:func:`ring_attention` and :mod:`.hosts` (several processes), and the
+sharded transformer steps: :mod:`.sequence` (the dp × tp × sp × ep step
+with a switch mixture of experts) and :mod:`.pipeline` (GPipe over a
+``pp`` axis), which shard parameter storage over the ranks.
 """
-from . import hosts  # noqa: F401
+from . import hosts, pipeline, sequence  # noqa: F401
 from .learner import COINNLearner
 from .powersgd import PowerSGDLearner, PowerSGDReducer
 from .rankdad import DADLearner, DADReducer
@@ -18,4 +19,5 @@ from .ring_attention import ring_attention, ulysses_attention
 __all__ = [
     "COINNLearner", "COINNReducer", "PowerSGDLearner", "PowerSGDReducer",
     "DADLearner", "DADReducer", "ring_attention", "ulysses_attention", "hosts",
+    "sequence", "pipeline",
 ]

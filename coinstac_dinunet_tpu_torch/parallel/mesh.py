@@ -3,9 +3,10 @@
 Port of the JAX package's ``parallel/mesh.py``.  There a whole federated
 round (N sites' forward and backward, the cross-site mean, the optimizer
 step) is one ``shard_map`` step over a ``(site, device)`` mesh.  The port
-keeps its single controller (:mod:`.axis`): one process holds every rank,
-computes the sites one after another in site order, and sums over the
-site axis in rank order.  The round's function is the JAX package's:
+keeps its single controller (the rank mesh below): one process holds
+every rank, computes the sites one after another in site order, and sums
+over the site axis in rank order.  The round's function is the JAX
+package's:
 
 - each site ``s`` computes the mean over its ``k`` micro-batches of the
   gradient of its loss, its ranks' gradients reduced over the intra-site
@@ -207,16 +208,25 @@ class Mesh:
         return dict(zip(self.axis_names, self.devices.shape))
 
     def axis(self, name, row=None):
-        """The ranks of axis ``name``: a 1-D mesh's whole axis, or of a 2-D
-        mesh's second axis the ranks of ``row``."""
+        """The ranks of axis ``name``: a 1-D mesh's whole axis; of an N-D
+        mesh the ranks through one coordinate of the other axes, ``row``,
+        their indices in axis order (an int where there is one other axis:
+        ``axis("device", s)`` of a ``(site, device)`` mesh is site ``s``'s
+        ranks, ``axis("sp", (d, t, e))`` of a ``(dp, tp, sp, ep)`` one the
+        sequence ring of data block ``d``, head block ``t``, expert group
+        ``e``)."""
         if name not in self.axis_names:
             raise ValueError(f"no axis '{name}' in the mesh {self.axis_names}")
         if self.devices.ndim == 1:
             return RankAxis(name, list(self.devices))
-        if self.axis_names.index(name) != 1 or row is None:
-            raise ValueError(f"axis '{name}' of a {self.axis_names} mesh is taken one "
-                             "row of its first axis at a time")
-        return RankAxis(name, list(self.devices[row]))
+        coords = (row,) if isinstance(row, (int, np.integer)) else tuple(row or ())
+        if len(coords) != self.devices.ndim - 1:
+            raise ValueError(f"axis '{name}' of a {self.axis_names} mesh is taken through "
+                             f"one coordinate of the other {self.devices.ndim - 1} axes, "
+                             f"not {row!r}")
+        ix = list(coords)
+        ix.insert(self.axis_names.index(name), slice(None))
+        return RankAxis(name, list(self.devices[tuple(ix)]))
 
     def rename(self, axis_names):
         """The same devices and owners under other axis names."""

@@ -6,7 +6,7 @@ global sequence of ``T = n·T_local``.  In the JAX package each function
 runs inside ``shard_map`` and sees its own rank's block; one controller
 cannot write that per-rank signature, so here each function takes and
 returns one block per rank: lists of ``(batch, heads, T_local, head_dim)``
-tensors, rank ``r``'s on ``axis.devices[r]`` (:class:`~.axis.RankAxis`).
+tensors, rank ``r``'s on ``axis.devices[r]`` (:class:`~.mesh.RankAxis`).
 
 Every attention call is :func:`~..ops.flash_attention.flash_attention`:
 on a CUDA tensor the hand-written kernels K2 (forward) and K3/K4 (the
@@ -48,7 +48,7 @@ def ring_attention(qs, ks, vs, axis, causal=False, scale=None):
       qs, ks, vs: one ``(batch, heads, T_local, head_dim)`` block per rank
         of ``axis`` (rank ``r`` holds global positions ``[r·T_local,
         (r+1)·T_local)``), each on its rank's device.
-      axis: the :class:`~.axis.RankAxis` to ring over (the ``sp`` axis).
+      axis: the :class:`~.mesh.RankAxis` to ring over (the ``sp`` axis).
       causal, scale: forwarded to :func:`flash_attention`.
 
     Returns:

@@ -133,6 +133,53 @@ def test_mesh_plane_modules_import_no_jax():
     assert out.stdout.strip().splitlines()[-1] == "BAD []"
 
 
+def test_sharded_step_modules_import_no_jax():
+    """The sharded transformer steps (``parallel/{sequence,pipeline}.py``),
+    alone in a fresh interpreter: nothing of JAX, msgpack or the JAX
+    package."""
+    code = textwrap.dedent("""
+        import importlib, sys
+        for name in ("parallel.sequence", "parallel.pipeline"):
+            importlib.import_module("coinstac_dinunet_tpu_torch." + name)
+        from coinstac_dinunet_tpu_torch.parallel import pipeline, sequence
+        from coinstac_dinunet_tpu_torch.parallel.pipeline import (
+            build_pp_mesh, make_pp_train_step, shard_pp_batch, shard_pp_params, stack_layers)
+        from coinstac_dinunet_tpu_torch.parallel.sequence import (
+            TSPConfig, build_tsp_mesh, init_tsp_params, make_tsp_train_step, shard_tsp_batch,
+            shard_tsp_params, transformer_block, tsp_forward)
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "msgpack")
+                     or m == "coinstac_dinunet_tpu" or m.startswith("coinstac_dinunet_tpu."))
+        print("BAD", bad)
+    """)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env=dict(os.environ, PYTHONPATH=REPO), cwd=REPO, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "BAD []"
+
+
+def test_sharded_steps_need_a_card_unless_given_cpu(monkeypatch):
+    """The meshes default to every visible card and the weights to the
+    card: without one they raise; named CPU ranks run."""
+    from coinstac_dinunet_tpu_torch.parallel import pipeline, sequence
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
+    for build in (sequence.build_tsp_mesh, pipeline.build_pp_mesh):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            build()
+        with pytest.raises(RuntimeError, match="CUDA"):
+            build(devices=["cuda:0"] * 4)
+    cfg = sequence.TSPConfig(d_model=16, num_heads=2, num_layers=1, max_len=8)
+    for dev in (None, "cuda"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            sequence.init_tsp_params(torch.Generator(), cfg, device=dev)
+    params = sequence.init_tsp_params(torch.Generator(), cfg, device="cpu")
+    assert params["pos"].device == torch.device("cpu")
+    assert sequence.build_tsp_mesh(devices=["cpu"]).shape == {"dp": 1, "tp": 1, "sp": 1,
+                                                               "ep": 1}
+
+
 def test_telemetry_tools_and_flop_count_import_no_jax():
     """The collector, the doctor, the live plane, the exporter, the CLI
     (run as ``python -m``) and the FLOP count's modules, alone in a fresh
