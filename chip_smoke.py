@@ -133,11 +133,10 @@ Phases, in order; any failure exits non-zero before the last line:
    the engine lane, a ``pipeline:drain`` (membership) in each operation's
    round, the aggregator's tree mean within 2e-6 of the flat guarded mean
    of the same payloads in two gradient rounds, K1–K4 launched in every
-   site worker (the joiners' included), no worker left on the card.  13b:
-   two sites, no faults, k 0, a pool of 2, three runs — d 1 under the
-   engine's ``_PIPELINE_FORCE_DRAIN``, d 0, d 1 pipelined: the first two
-   end on the same ``avg_grads``, cursors and logs bit for bit; the steady
-   rounds of the last two side by side.  The aggregator's quorum, window,
+   site worker (the joiners' included), no worker left on the card.  (13b,
+   the drained d = 1 run held bit for bit to d = 0, was cut to keep the
+   script in its time: ``tests/test_torch_run_ahead.py`` holds it on the
+   CPU.)  The aggregator's quorum, window,
    discount and membership records of paths 7 and 9 are read from its own
    lane (``remote_out/telemetry.remote.jsonl``) merged with the engine's;
 14. main path 10 — the health layer, run right after phase 2 (late in a
@@ -287,6 +286,34 @@ Phases, in order; any failure exits non-zero before the last line:
    on pp2 x dp2 with 4 microbatches against pp 1 on 16a's weights stacked:
    16 a step (8 on pp 1), each stage holding one of the two layers, its
    bytes printed.
+
+21. main path 17 — the trainer's local data parallelism, two ranks on the
+   one card (``local_ranks=["cuda:0"] * 2``).  17a: path 2's trainer on one
+   batch of 16 (13 real) at two ranks against one, the gradient leaf by
+   leaf within ``DP_F32_RTOL`` of its norm in float32 and
+   ``MESH_GRAD_RTOL`` in bfloat16, each check shown to fail on a planted
+   fault (rank 1's shard weighted twice), K2–K4 twice the one rank's
+   launches; then path 2's federation with every site on two ranks: K2–K4
+   exactly twice path 2's launches in every round, the losses of its logs
+   within ``MESH_LOSS_ATOL`` and site_0's final parameters within
+   ``MESH_PARAM_ATOL`` of path 2's.  17b: path 1 with two ranks a site: the
+   wire bytes and K1's launches and segments of every round as path 1's,
+   the parameters within Adam's bound (``ADAM_STEP_BOUND``; dropout's
+   streams differ by rank).
+
+22. main path 18 — the sharded steps across processes: two worker
+   processes on the one card join a gloo group at 127.0.0.1 (the card's
+   tensors cross through host memory) and each computes its block of path
+   16's meshes at its full width: 18a the dense causal step on dp2 x tp2 x
+   sp2 split along dp, 18b the switch MoE on tp2 x sp2 x ep2 split along ep,
+   18c GPipe pp2 x dp2 one stage a process.  Each held to path 16's
+   one-process run of the same mesh: float32 logits, aux loss and every
+   first-gradient leaf within ``SPLIT_F32_RTOL``, the bfloat16 steps gated
+   as path 16 gates its mesh (with its planted faults); the processes'
+   gradients and parameters bit for bit; each process's K2/K3/K4 launches a
+   step its block's closed form (16 and 16; 16 and 0, the attention on ep
+   0's process; 8 and 8); each worker killed after
+   ``SPLIT_WORKER_TIMEOUT_S``.
 
 Then one JSON line ``{"kernels": [...]}``, the ``nvidia-smi`` name/power
 line, and the last line ``{"ok": true, "device": {...}}``.  Per-shape
@@ -1017,6 +1044,23 @@ def param_digests(eng):
             for s in eng.site_ids}
 
 
+def wire_section(path):
+    """A payload file's layout without its checksum: the manifest's entries
+    (shapes, types, codecs, groups) and its data bytes.  The file's size
+    also holds the CRC's decimal digits, which vary with the values."""
+    import struct
+
+    from coinstac_dinunet_tpu_torch.utils import tensorutils
+
+    with open(path, "rb") as f:
+        magic = f.read(len(tensorutils._MAGIC_V2))
+        (n,) = struct.unpack("<Q", f.read(8))
+        manifest = json.loads(f.read(n))
+    if magic != tensorutils._MAGIC_V2:
+        raise AssertionError(f"{path}: not a v2 payload")
+    return {"entries": manifest["e"], "data_bytes": manifest["size"]}
+
+
 def run_main_path(dev, workdir, profiled=PROFILED_ROUNDS, **args):
     """Federated dSGD of the width-16 VBM at precision_bits=8 to SUCCESS
     (``args`` add to the configuration: path 14b's background commits),
@@ -1076,21 +1120,27 @@ def run_main_path(dev, workdir, profiled=PROFILED_ROUNDS, **args):
     metrics = check_outputs(eng, workdir)
     # wire bytes of the last gradient round (the payload files persist):
     # int8 values + float32 scales against float32 values of the gradient
-    grads_bytes = [os.path.getsize(os.path.join(workdir, "remote_base", s, "grads.npy"))
-                   for s in eng.site_ids]
-    avg_bytes = os.path.getsize(os.path.join(workdir, "remote_xfer", "avg_grads.npy"))
+    payloads = [os.path.join(workdir, "remote_base", s, "grads.npy") for s in eng.site_ids]
+    payloads.append(os.path.join(workdir, "remote_xfer", "avg_grads.npy"))
+    grads_bytes = [os.path.getsize(p) for p in payloads[:-1]]
+    avg_bytes = os.path.getsize(payloads[-1])
     n_values = sum(p.numel() for m in eng.site_caches[eng.site_ids[0]]["_train_state"].nn.values()
                    for p in m.parameters())
     samples = grad_rounds * N_SITES * VBM_BATCH
     return {
         "wire_bytes": {"site_to_aggregator": grads_bytes, "aggregator_to_site": avg_bytes,
                        "float32_values": 4 * n_values},
+        "wire_sections": [wire_section(p) for p in payloads],
         "rounds": eng.rounds, "grad_rounds": grad_rounds, "launches": launches,
         "segments": q.KERNEL.segments, "launches_segments_per_round": per_round,
         "wall_s": wall, "samples_per_s": samples / wall, "round_s": round_s,
         "profiled_rounds": profiles, "global_test_metrics": metrics, "native_calls": counts,
-        # for path 14b, which holds its run to these bit for bit (not written out)
+        # for path 14b, which holds its run to these bit for bit, and path 17b
+        # (not written out)
         "payload_digests": digests, "final_params": param_digests(eng),
+        "final_tensors": {s: {k: v.detach().float().cpu() for m in
+                              eng.site_caches[s]["_train_state"].nn.values()
+                              for k, v in m.state_dict().items()} for s in eng.site_ids},
         "logs": {k: eng.remote_cache[k] for k in SEQ_LOGS},
     }
 
@@ -2592,11 +2642,6 @@ MEM_FAULTS = [
 ]
 MEM_TREE_TOL = 2e-6  # the JAX package's tolerance between its tree and flat means
 MEM_TREE_CHECKS = 2  # gradient rounds whose tree mean is held to the flat mean
-# 13b: two sites, no fault, k 0, a pool of 2, 128 sequences a site (96
-# training: six gradient rounds in the one epoch); the first gradient round
-# holds each worker's torch._dynamo import and is left out of the medians
-DRAIN_FILES = 128
-DRAIN_NODE_ARGS = dict(precision_bits=8, async_staleness=0, async_invoke_pool=2)
 
 # path 9's worker module: DAEMON_WRAPPER plus one more JSON-lines file of
 # the invocation: its input round, whether it applied an update, the
@@ -2966,90 +3011,7 @@ def run_membership_path(dev, workdir):
     }
 
 
-def run_drain_path(dev, workdir):
-    """13b: two sites, no faults, k 0, a pool of 2, three runs: d 1 under
-    ``_PIPELINE_FORCE_DRAIN``, d 0, d 1 pipelined.  Runs 1 and 2 end on the
-    same ``avg_grads`` bit for bit, with the same site cursors and logs;
-    the steady rounds of runs 2 and 3 are timed."""
-    import numpy as np
-    import torch
-
-    from coinstac_dinunet_tpu_torch import config
-    from coinstac_dinunet_tpu_torch import engine as engine_module
-    from coinstac_dinunet_tpu_torch.federation import DaemonEngine
-    from coinstac_dinunet_tpu_torch.utils import tensorutils
-
-    def run(tag, extra, force):
-        torch.cuda.empty_cache()
-        wd = os.path.join(workdir, tag)
-        os.makedirs(wd)
-        records = os.path.join(wd, "invocations.jsonl")
-        scripts = write_daemon_wrappers(wd, records)
-        fed = os.path.join(wd, "fed")
-        engine_module._PIPELINE_FORCE_DRAIN = force
-        rounds = []
-        try:
-            with DaemonEngine(
-                fed, n_sites=N_SITES, local_script=scripts["site"],
-                remote_script=scripts["remote"], device=dev.type, timeout=600,
-                first_input={f"{SEQ_TASK}_args": {**seq_node_args(), **DRAIN_NODE_ARGS,
-                                                  **extra, "persist_round_state": True,
-                                                  "profile": True}},
-            ) as eng:
-                make_seq_files(eng, DRAIN_FILES)
-                while not eng.success and eng.rounds < 40:
-                    tr = time.perf_counter()
-                    site_outs, _ = eng.step_round()
-                    rounds.append({"round": eng.rounds, "wall_s": time.perf_counter() - tr,
-                                   "grad": all(o.get("reduce") for o in site_outs.values())
-                                   and len(site_outs) == N_SITES})
-                eng._pipeline_drain(eng._recorder())
-                cursors = {s: (c.get("cursor"), c.get("epoch"))
-                           for s, c in eng.site_caches.items()}
-                logs = {k: eng.remote_cache[k] for k in SEQ_LOGS}
-                d = eng._async_config()["run_ahead"]
-        finally:
-            engine_module._PIPELINE_FORCE_DRAIN = False
-        if not eng.success:
-            raise AssertionError(f"13b {tag}: no SUCCESS after {eng.rounds} rounds")
-        avg = tensorutils.load_arrays(os.path.join(fed, "remote_xfer", config.avg_grads_file))
-        lane = _read_jsonl(os.path.join(fed, "telemetry.engine.jsonl"))
-        grad = [r for r in rounds if r["grad"]]
-        return {"tag": tag, "d": d, "rounds": rounds, "avg": avg, "cursors": cursors,
-                "logs": logs, "grad_rounds": len(grad),
-                "steady_round_s": _spread([r["wall_s"] for r in grad[1:]]),
-                "forced_drains": sum(1 for e in lane if e.get("name") == "pipeline:drain"
-                                     and e.get("reason") == "forced"),
-                "overlap_s": sum(e.get("secs", 0.0) for e in lane
-                                 if e.get("name") == "pipeline:reduce_concurrent")}
-
-    drained = run("drained", {"run_ahead": 1}, True)
-    d0 = run("d0", {}, False)
-    pipelined = run("pipelined", {"run_ahead": 1}, False)
-    faults = []
-    if (drained["d"], d0["d"], pipelined["d"]) != (1, 0, 1):
-        faults.append(f"depths {drained['d']}, {d0['d']}, {pipelined['d']}")
-    if not drained["forced_drains"]:
-        faults.append("the forced run never drained")
-    same = len(drained["avg"]) == len(d0["avg"]) > 0 and all(
-        torch.equal(torch.from_numpy(np.array(a)), torch.from_numpy(np.array(b)))
-        for a, b in zip(drained["avg"], d0["avg"]))
-    if not same:
-        faults.append("the drained d=1 run's final avg_grads differ from d=0's")
-    if drained["cursors"] != d0["cursors"] or drained["logs"] != d0["logs"]:
-        faults.append(f"cursors {drained['cursors']} / {d0['cursors']}, or logs, differ")
-    if drained["grad_rounds"] != 6 or d0["grad_rounds"] != 6:
-        faults.append(f"gradient rounds {drained['grad_rounds']}, {d0['grad_rounds']}")
-    if pipelined["overlap_s"] <= 0:
-        faults.append("the pipelined run overlapped no reduce")
-    if faults:
-        raise AssertionError("path 9 (13b):\n  " + "\n  ".join(faults))
-    for r in (drained, d0, pipelined):
-        r.pop("avg")
-    return {"drained": drained, "d0": d0, "pipelined": pipelined}
-
-
-def log_membership_path(path, drain, smi):
+def log_membership_path(path, smi):
     """Phase 13's lines."""
     log(f"[13 main path 9: sequence, membership + run-ahead + tree fan-in] 13a: "
         f"{path['rounds']} rounds to SUCCESS in {path['wall_s']:.3f} s; membership "
@@ -3087,18 +3049,6 @@ def log_membership_path(path, drain, smi):
         f"at round 6 {len(path['card_compute_pids'].get('workers_up', []))}, after close "
         f"{len(path['card_compute_pids']['after_close'])}; global test metrics "
         f"{path['global_test_metrics']}")
-    log(f"  13b: d=1 drained == d=0 bit for bit (final avg_grads, cursors, logs); gradient "
-        f"rounds {drain['drained']['grad_rounds']}/{drain['d0']['grad_rounds']}/"
-        f"{drain['pipelined']['grad_rounds']}; forced drains {drain['drained']['forced_drains']}; "
-        f"pipelined overlap {drain['pipelined']['overlap_s']:.4f} s | {smi}")
-    for tag in ("drained", "d0", "pipelined"):
-        log(f"  13b {tag} round seconds: " + " ".join(
-            f"r{r['round']}:{r['wall_s']:.3f}{'*' if r['grad'] else ''}"
-            for r in drain[tag]["rounds"]))
-    a, b = drain["d0"]["steady_round_s"], drain["pipelined"]["steady_round_s"]
-    log(f"  13b steady gradient rounds (after the first): d=0 median {a['median']:.4f} "
-        f"({a['min']:.4f}-{a['max']:.4f}, n {a['n']}) | d=1 pipelined median "
-        f"{b['median']:.4f} ({b['min']:.4f}-{b['max']:.4f}, n {b['n']})")
 
 
 # path 10: the health layer at path 2's width on 3 sites through the tree
@@ -5397,12 +5347,14 @@ def update_gaps(got, want, base):
                      {n: w - base[n] for n, w in want.items()})
 
 
-def run_tsp_case(dev, shape, cfg, whole, batches, steps=TSP_STEPS):
+def run_tsp_case(dev, shape, cfg, whole, batches, steps=TSP_STEPS, split=None):
     """The sharded step on ``shape`` ranks of the one card from the whole
     tree ``whole``: the logits, aux loss and MoE stats on ``batches[0]``,
     the first step's gradient, then ``steps`` donated steps, each fenced,
     its K2/K3/K4 launches counted from 0; the peak memory of the steps and
-    the gathered tree after them."""
+    the gathered tree after them.  In a process group (path 18) the mesh
+    spans the processes, its blocks along ``split``: this process's
+    launches, the MoE stats only where the mesh's first rank is."""
     import torch
 
     from coinstac_dinunet_tpu_torch.parallel import sequence as seq
@@ -5411,7 +5363,7 @@ def run_tsp_case(dev, shape, cfg, whole, batches, steps=TSP_STEPS):
     n = 1
     for s in shape:
         n *= s
-    mesh = seq.build_tsp_mesh(*shape, devices=[dev] * n)
+    mesh = seq.build_tsp_mesh(*shape, devices=[dev] * n, split=split)
     params = seq.shard_tsp_params(whole, mesh)
     stats = []
     with torch.no_grad():
@@ -5419,6 +5371,7 @@ def run_tsp_case(dev, shape, cfg, whole, batches, steps=TSP_STEPS):
     xs, ys = seq.shard_tsp_batch(*batches[0], mesh)
     _, grads = seq.value_and_grad(lambda p, x, y: seq.tsp_loss(p, x, y, cfg, mesh),
                                   params, xs, ys)
+    stats = [s for s in stats if not s["dropped"].is_meta]
     out = {"shape": list(shape), "logits": logits.float().cpu(), "aux": float(aux),
            "dropped": [float(s["dropped"]) for s in stats],
            "capacity": [s["capacity"] for s in stats],
@@ -5513,18 +5466,22 @@ def run_tsp_pair(dev, tag, shape, moe, seed):
     dp, tp, sp, _ = shape
     faults += launch_faults(tag, mesh, TSP_ARGS["num_layers"] * dp * tp * sp * sp)
     faults += launch_faults(tag, one, TSP_ARGS["num_layers"])
+    # path 18 holds two processes to this process's mesh runs
+    keep = {"float32": dict(f32[0]), "bf16": dict(mesh), "base": base}
     for run in (*f32, one, mesh):  # what the report keeps is JSON
         for key in ("grads", "logits", "experts", "params"):
             run.pop(key)
     return {"float32": f32[0], "one": one, "mesh": mesh, "whole": whole, "cfg": cfg,
-            "batches": batches}, faults
+            "batches": batches, "keep": keep}, faults
 
 
 def run_pp_case(dev, pp_size, dp, cfg, whole, batches):
     """The GPipe step on ``pp_size × dp`` ranks of the one card from the
     whole tree ``whole`` (stacked here), ``PP_MICROBATCHES`` microbatches:
     each donated step fenced with its launches counted from 0; each stage
-    rank's parameter bytes and the gathered tree after the steps."""
+    rank's parameter bytes and the gathered tree after the steps (in a
+    process group, path 18: one stage a process, this process's launches
+    and the stage bytes it holds)."""
     import torch
 
     from coinstac_dinunet_tpu_torch.parallel import pipeline as pp
@@ -5535,8 +5492,8 @@ def run_pp_case(dev, pp_size, dp, cfg, whole, batches):
     params = pp.shard_pp_params(pp.stack_layers(whole), mesh)
     layers = seq.tensors(params["layers"])  # leaf by leaf, each leaf's pp shards in turn
     rest = seq.tensors({k: v for k, v in params.items() if k != "layers"})
-    stage_bytes = [sum(t.numel() * t.element_size() for t in layers[p::pp_size])
-                   for p in range(pp_size)]
+    stage_bytes = [sum(t.numel() * t.element_size() for t in layers[p::pp_size]
+                       if not t.is_meta) for p in range(pp_size)]
     stage_layers = sorted({t.shape[0] for t in layers})
     step = pp.make_pp_train_step(cfg, mesh, lr=TSP_LR, num_microbatches=PP_MICROBATCHES)
     steps = []
@@ -5596,6 +5553,8 @@ def run_sharded_path(dev):
     faults += launch_faults("16c", one, PP_MICROBATCHES * layers)
     if mesh["layers_a_stage"] != [layers // 2]:
         faults.append(f"16c: a stage holds {mesh['layers_a_stage']} layers, not {layers // 2}")
+    keep = {"16a": dense.pop("keep"), "16b": moe.pop("keep"),
+            "16c": {"bf16": dict(mesh), "base": base}}
     for run in (one, mesh):
         run.pop("params")
     out["16c_s"] = time.perf_counter() - t2
@@ -5613,6 +5572,7 @@ def run_sharded_path(dev):
         for path, run in (("tsp_dense_mesh", dense["mesh"]), ("tsp_dense_one_rank", dense["one"]),
                           ("tsp_moe_mesh", moe["mesh"]), ("tsp_moe_one_rank", moe["one"]),
                           ("pp_gpipe", mesh), ("pp_one_stage", one))}
+    out["keep"] = keep  # for path 18, not written out
     return out
 
 
@@ -5653,6 +5613,378 @@ def log_sharded_path(path, smi):
         f"{steps(m)} against pp 1's {steps(one)} | {smi}")
     log(f"  phase 20: 16a {path['16a_s']:.1f} s, 16b {path['16b_s']:.1f} s, 16c "
         f"{path['16c_s']:.1f} s, all {path['wall_s']:.1f} s")
+
+
+# path 17: the trainer's local data parallelism, two ranks on the one card
+DP_RANKS = 2
+# float32, one batch's gradient on 2 ranks against one rank: the same
+# function, the batch's rows summed in two halves (each leaf's ‖got − want‖
+# / ‖want‖)
+DP_F32_RTOL = 1e-5
+# the batch of the gradient checks: 16 rows, a padded tail of 13 real
+DP_REAL_ROWS = 13
+# path 1 at 2 ranks: dropout's streams differ from one rank's (one generator
+# a rank), so only Adam's step bounds the parameters: each moves at most
+# lr·(1 − β1)/√(1 − β2) a gradient round (optax's and torch's defaults), two
+# runs at most twice that apart
+VBM_LR = 1e-3
+ADAM_STEP_BOUND = (1 - 0.9) / (1 - 0.999) ** 0.5
+
+
+def dp_batch(seed):
+    """A host batch of path 2's shape: 16 sequences of 4096, the last three
+    padding."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    b, t, f = SEQ_ARGS["batch_size"], SEQ_ARGS["seq_len"], SEQ_ARGS["num_features"]
+    mask = np.zeros(b, np.float32)
+    mask[:DP_REAL_ROWS] = 1.0
+    y = rng.integers(0, SEQ_ARGS["num_classes"], size=b).astype(np.int32)
+    sig = np.sin(2 * np.pi * (y[:, None, None] + 1) * np.arange(t)[None, :, None] / t)
+    x = (rng.normal(size=(b, t, f)) * 0.5 + sig).astype(np.float32)
+    return {"inputs": x, "labels": y, "_mask": mask}
+
+
+def dp_first_grads(dev, compute_dtype, ranks, planted=False):
+    """Path 2's trainer (seed 7) at ``compute_dtype`` on ``ranks`` ranks of
+    the one card: one batch's gradient by leaf (float32 on the host) and the
+    step's K2/K3/K4 launches; ``planted`` weighs rank 1's shard twice."""
+    import torch
+
+    from coinstac_dinunet_tpu_torch.models import SeqTrainer
+    from coinstac_dinunet_tpu_torch.nn import basetrainer
+
+    fa = importlib.import_module("coinstac_dinunet_tpu_torch.ops.flash_attention")
+    cache = dict(seq_node_args(), compute_dtype=compute_dtype,
+                 local_ranks=[str(dev)] * ranks)
+    trainer = SeqTrainer(cache=cache, device=dev).init_nn()
+    mean = basetrainer.weighted_mean
+    if planted:
+        basetrainer.weighted_mean = lambda xs, ws, device: mean(
+            xs, [w * (2 if i == 1 else 1) for i, w in enumerate(ws)], device)
+    before = [kern.launches for kern in fa.KERNELS]
+    try:
+        grads, _ = trainer.compute_grads(trainer._stack_batches([dp_batch(17)]))
+    finally:
+        basetrainer.weighted_mean = mean
+    torch.cuda.synchronize()
+    return ({f"{m}.{n}": g.detach().float().cpu() for m, leaves in grads.items()
+             for n, g in leaves.items()},
+            [kern.launches - b for kern, b in zip(fa.KERNELS, before)])
+
+
+def run_local_dp_path(dev, workdir, seq_path, seq_final, main_path):
+    """Path 17 (phase 21).  17a: path 2's trainer on two ranks of the one
+    card against one rank — one batch's gradient in float32 (each leaf
+    within ``DP_F32_RTOL`` of its norm) and in bf16 (``MESH_GRAD_RTOL``),
+    each check shown to fail on a planted fault (rank 1's shard weighted
+    twice); then path 2's federation with every site on two ranks: K2–K4
+    twice path 2's launches in every round, the losses of its logs within
+    ``MESH_LOSS_ATOL`` and site_0's parameters within ``MESH_PARAM_ATOL``
+    of path 2's.  17b: path 1 with two ranks a site: the same wire bytes,
+    K1 launches and segments in every round, the parameters within Adam's
+    bound."""
+    import torch
+
+    out, faults = {}, []
+    t0 = time.perf_counter()
+    for dtype, rtol in (("float32", DP_F32_RTOL), ("bfloat16", MESH_GRAD_RTOL)):
+        one, one_launches = dp_first_grads(dev, dtype, 1)
+        two, two_launches = dp_first_grads(dev, dtype, DP_RANKS)
+        bad, _ = dp_first_grads(dev, dtype, DP_RANKS, planted=True)
+        gap, worst = grad_gaps(two, one)
+        planted = grad_gaps(bad, one)[0]
+        out[dtype] = {"grad_gap": gap, "worst_leaf": worst, "planted": planted,
+                      "launches": [one_launches, two_launches]}
+        if not gap <= rtol:
+            faults.append(f"17a {dtype}: gradient leaf {worst} {gap:.3e} of its norm from one "
+                          f"rank's (tolerance {rtol})")
+        if not planted > rtol:
+            faults.append(f"17a {dtype}: the check would pass rank 1's shard weighted twice "
+                          f"({planted:.3e})")
+        if two_launches != [2 * n for n in one_launches]:
+            faults.append(f"17a {dtype}: K2/K3/K4 launched {two_launches} on two ranks, "
+                          f"{one_launches} on one")
+    with tempfile.TemporaryDirectory() as wd:
+        dp_seq = run_seq_path(dev, os.path.join(wd, "seq"), trace_round=None,
+                              extra={"local_ranks": [str(dev)] * DP_RANKS})
+    want = [{k: 2 * n for k, n in r.items()} for r in seq_path["launches_per_round"]]
+    if dp_seq["launches_per_round"] != want:
+        faults.append(f"17a: K2/K3/K4 a round {dp_seq['launches_per_round']}, expected twice "
+                      f"path 2's {seq_path['launches_per_round']}")
+    got = {"logs": dp_seq["logs"], "params": {n: t.float() for n, t in
+                                              dp_seq["final_params"]["site_0"].items()}}
+    ref = {"logs": seq_path["logs"], "params": {n: t.float() for n, t in
+                                                seq_final["site_0"].items()}}
+    loss_gap, param_gap = mesh_gaps(got, ref)
+    if not loss_gap <= MESH_LOSS_ATOL:
+        faults.append(f"17a: losses {loss_gap:.3e} from path 2's (tolerance {MESH_LOSS_ATOL})")
+    if not param_gap <= MESH_PARAM_ATOL:
+        faults.append(f"17a: parameters {param_gap:.3e} from path 2's (tolerance "
+                      f"{MESH_PARAM_ATOL})")
+    out["17a"] = {"rounds": dp_seq["rounds"], "grad_rounds": dp_seq["grad_rounds"],
+                  "wall_s": dp_seq["wall_s"], "round_s": dp_seq["round_s"],
+                  "launches": dp_seq["launches"], "loss_gap": loss_gap, "param_gap": param_gap,
+                  "path2_round_s": seq_path["round_s"]}
+    out["17a_s"] = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as wd:
+        dp_vbm = run_main_path(dev, wd, profiled=(), local_ranks=[str(dev)] * DP_RANKS)
+    for key in ("wire_sections", "launches", "segments", "launches_segments_per_round"):
+        if dp_vbm[key] != main_path[key]:
+            faults.append(f"17b: {key} {dp_vbm[key]} on two ranks, path 1's {main_path[key]}")
+    bound = 2 * VBM_LR * ADAM_STEP_BOUND * main_path["grad_rounds"]
+    vbm_gap = max(float((dp_vbm["final_tensors"][s][k] - t).abs().max())
+                  for s, leaves in main_path["final_tensors"].items() for k, t in leaves.items())
+    if not vbm_gap <= bound:
+        faults.append(f"17b: parameters {vbm_gap:.3e} from path 1's (Adam's bound {bound})")
+    out["17b"] = {"rounds": dp_vbm["rounds"], "wall_s": dp_vbm["wall_s"],
+                  "round_s": dp_vbm["round_s"], "launches": dp_vbm["launches"],
+                  "segments": dp_vbm["segments"], "wire_bytes": dp_vbm["wire_bytes"],
+                  "path1_wire_bytes": main_path["wire_bytes"],
+                  "data_bytes": [w["data_bytes"] for w in dp_vbm["wire_sections"]],
+                  "param_gap": vbm_gap, "param_bound": bound,
+                  "path1_round_s": main_path["round_s"]}
+    out["17b_s"] = time.perf_counter() - t1
+    torch.cuda.empty_cache()
+    if faults:
+        raise AssertionError("path 17:\n  " + "\n  ".join(faults))
+    return out
+
+
+def log_local_dp_path(path, smi):
+    f32, bf = path["float32"], path["bfloat16"]
+    a, b = path["17a"], path["17b"]
+    log(f"  17a one batch's gradient, 2 ranks against 1: float32 worst leaf {f32['grad_gap']:.3e}"
+        f" ({f32['worst_leaf']}; planted {f32['planted']:.3e}), bf16 {bf['grad_gap']:.3e} "
+        f"({bf['worst_leaf']}; planted {bf['planted']:.3e}); K2/K3/K4 {f32['launches'][1]} "
+        f"against {f32['launches'][0]} | {smi}")
+    log(f"  17a path 2 on 2 ranks a site: {a['rounds']} rounds ({a['grad_rounds']} with "
+        f"gradients) in {a['wall_s']:.3f} s, launches {a['launches']}, losses {a['loss_gap']:.3e}"
+        f" and parameters {a['param_gap']:.3e} from path 2's; round s "
+        + " ".join(f"{t:.3f}" for t in a["round_s"]) + " (path 2: "
+        + " ".join(f"{t:.3f}" for t in a["path2_round_s"]) + f") | {smi}")
+    log(f"  17b path 1 on 2 ranks a site: {b['rounds']} rounds in {b['wall_s']:.3f} s, K1 "
+        f"{b['launches']} launches over {b['segments']} segments and payload data sections "
+        f"{b['data_bytes']} B (as path 1), files {b['wire_bytes']['site_to_aggregator']}/"
+        f"{b['wire_bytes']['aggregator_to_site']} B (path 1 "
+        f"{b['path1_wire_bytes']['site_to_aggregator']}/"
+        f"{b['path1_wire_bytes']['aggregator_to_site']}: the headers' CRC digits), "
+        f"parameters {b['param_gap']:.3e} from path 1's (bound {b['param_bound']:.3e}); round s "
+        + " ".join(f"{t:.3f}" for t in b["round_s"]) + " (path 1: "
+        + " ".join(f"{t:.3f}" for t in b["path1_round_s"]) + f") | {smi}")
+    log(f"  phase 21: 17a {path['17a_s']:.1f} s, 17b {path['17b_s']:.1f} s")
+
+
+# path 18: path 16's steps with the mesh split over two processes on the one
+# card, joined over gloo at 127.0.0.1 (the card's tensors staged through host
+# memory); float32 against path 16's one-process mesh: the same function, the
+# processes' partial sums added in another order
+SPLIT_F32_RTOL = 1e-5
+SPLIT_WORKER_TIMEOUT_S = 300
+SPLIT_CASES = (("18a", "16a", (2, 2, 2, 1), None, False),   # split along dp
+               ("18b", "16b", (1, 2, 2, 2), "ep", True))   # split along ep
+SPLIT_WORKER = """\
+import sys
+import time
+T_START = time.time()
+ROOT, PID, PORT, OUT = sys.argv[1], int(sys.argv[2]), sys.argv[3], sys.argv[4]
+sys.path.insert(0, ROOT)
+import torch
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_tf32 = False
+from coinstac_dinunet_tpu_torch.parallel import hosts
+assert hosts.initialize_multihost(f"127.0.0.1:{PORT}", 2, PID, backend="gloo")
+import chip_smoke
+try:
+    result = chip_smoke.run_split_worker(torch.device("cuda", 0))
+    result["start_s"] = result.pop("t0") - T_START
+    torch.save(result, OUT)
+finally:
+    torch.distributed.destroy_process_group()
+print(f"SPLIT_WORKER_OK {PID}", flush=True)
+"""
+
+
+def run_split_worker(dev):
+    """One process's part of path 18: 18a and 18b as path 16 runs them
+    (float32 logits, aux and first gradient; three bf16 steps), the mesh
+    split over the process group; 18c GPipe pp2×dp2, one stage a process."""
+    import torch
+
+    from coinstac_dinunet_tpu_torch.parallel import sequence as seq
+
+    t0 = time.time()
+    out = {"t0": t0}
+    for tag, _, shape, split, moe in SPLIT_CASES:
+        seed = 17 if moe else 16
+        extra = dict(num_experts=TSP_EXPERTS, capacity_factor=TSP_CAPACITY) if moe else {}
+        batches = tsp_batches(TSP_STEPS, seed)
+        cfg = seq.TSPConfig(**TSP_ARGS, causal=not moe, dtype=torch.float32, **extra)
+        whole = seq.init_tsp_params(torch.Generator().manual_seed(seed), cfg, device=dev)
+        t = time.perf_counter()
+        f32 = run_tsp_case(dev, shape, cfg, whole, batches, steps=0, split=split)
+        cfg.dtype = torch.bfloat16
+        bf16 = run_tsp_case(dev, shape, cfg, whole, batches, split=split)
+        out[tag] = {"float32": f32, "bf16": bf16, "s": time.perf_counter() - t}
+    batches = tsp_batches(TSP_STEPS, 16)
+    cfg = seq.TSPConfig(**TSP_ARGS, causal=True, dtype=torch.bfloat16)
+    whole = seq.init_tsp_params(torch.Generator().manual_seed(16), cfg, device=dev)
+    t = time.perf_counter()
+    out["18c"] = {"bf16": run_pp_case(dev, 2, 2, cfg, whole, batches),
+                  "s": time.perf_counter() - t}
+    return out
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def split_faults(tag, got, want, base, moe):
+    """A two-process run against path 16's one-process mesh: float32 logits,
+    aux and every first-gradient leaf within ``SPLIT_F32_RTOL``, the bf16
+    steps gated as path 16 gates its mesh against one rank."""
+    f32, ref = got["float32"], want["float32"]
+    gaps = {"logits": float((f32["logits"] - ref["logits"]).abs().max())
+            / float(ref["logits"].abs().max())}
+    gaps["grad"], gaps["grad_leaf"] = grad_gaps(f32["grads"], ref["grads"])
+    gaps["aux"] = abs(f32["aux"] - ref["aux"]) / abs(ref["aux"]) if ref["aux"] else 0.0
+    faults = [f"{tag} float32: {k} {gaps[k]:.3e} from one process's (tolerance "
+              f"{SPLIT_F32_RTOL})" for k in ("logits", "grad", "aux")
+              if not gaps[k] <= SPLIT_F32_RTOL]
+    bf16 = dict(got["bf16"])
+    faults += tsp_gaps(tag, bf16, want["bf16"], base,
+                       *((TSP_MOE_LOGITS_RTOL, TSP_MOE_GRAD_RTOL) if moe
+                         else (TSP_LOGITS_RTOL, TSP_GRAD_RTOL)))
+    gaps.update({k: bf16[k] for k in ("logits_gap", "grad_gap", "loss_gap", "update_gap")})
+    return gaps, faults
+
+
+def run_split_path(dev, keep):
+    """Path 18 (phase 22): two processes on the one card joined over gloo,
+    each computing its block of path 16's meshes — 18a dp2×tp2×sp2 split
+    along dp, 18b the switch MoE on tp2×sp2×ep2 split along ep, 18c GPipe
+    pp2×dp2 one stage a process — held to path 16's one-process results
+    (``keep``): float32 within ``SPLIT_F32_RTOL``, bf16 as path 16 gates
+    its mesh, the processes' parameters bit for bit, each process's K2/K3/K4
+    launches its block's closed form; each worker killed after
+    ``SPLIT_WORKER_TIMEOUT_S``."""
+    import torch
+
+    t0 = time.perf_counter()
+    port = free_port()
+    faults = []
+    with tempfile.TemporaryDirectory() as wd:
+        script = os.path.join(wd, "split_worker.py")
+        with open(script, "w") as f:
+            f.write(SPLIT_WORKER)
+        outs = [os.path.join(wd, f"worker{i}.pt") for i in range(2)]
+        procs = [subprocess.Popen([sys.executable, script, HERE, str(i), str(port), outs[i]],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for i in range(2)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=SPLIT_WORKER_TIMEOUT_S)[0])
+        except subprocess.TimeoutExpired:
+            for p in procs:
+                p.kill()
+            for p in procs:
+                p.communicate()
+            raise AssertionError(f"path 18: a worker ran past {SPLIT_WORKER_TIMEOUT_S} s")
+        for i, (p, text) in enumerate(zip(procs, logs)):
+            if p.returncode != 0 or f"SPLIT_WORKER_OK {i}" not in text:
+                raise AssertionError(f"path 18: worker {i} failed:\n{text[-4000:]}")
+        workers = [torch.load(o, weights_only=False) for o in outs]
+    layers = TSP_ARGS["num_layers"]
+    report = {"start_s": [w["start_s"] for w in workers]}
+    for tag, ref_tag, shape, split, moe in SPLIT_CASES:
+        dp, tp, sp, ep = shape
+        per_block = layers * tp * sp * sp * (dp // 2 if split is None else dp)
+        want_launches = [per_block, per_block] if split is None else [per_block, 0]
+        for run in ("float32", "bf16"):
+            a, b = (w[tag][run] for w in workers)
+            same = all(torch.equal(a["grads"][n], b["grads"][n]) for n in a["grads"])
+            if run == "bf16":
+                same = same and all(torch.equal(a["params"][n], b["params"][n])
+                                    for n in a["params"])
+            if not same:
+                faults.append(f"{tag} {run}: the processes' gradients or parameters differ")
+        for i, w in enumerate(workers):
+            faults += launch_faults(f"{tag} process {i}", w[tag]["bf16"], want_launches[i])
+        gaps, f = split_faults(tag, workers[0][tag], keep[ref_tag], keep[ref_tag]["base"], moe)
+        faults += f
+        report[tag] = {"gaps": gaps, "s": [w[tag]["s"] for w in workers],
+                       "steps": [[s["step_s"] for s in w[tag]["bf16"]["steps"]]
+                                 for w in workers],
+                       "launches": [w[tag]["bf16"]["steps"][0]["launches"] for w in workers],
+                       "peak_bytes": [w[tag]["bf16"]["peak_bytes"] for w in workers],
+                       "one_process_steps": [s["step_s"] for s in keep[ref_tag]["bf16"]["steps"]]}
+    a, b = (w["18c"]["bf16"] for w in workers)
+    if not all(torch.equal(a["params"][n], b["params"][n]) for n in a["params"]):
+        faults.append("18c: the processes' parameters differ")
+    ref = keep["16c"]["bf16"]
+    loss_gap = max(abs(x["loss"] - y["loss"]) for x, y in zip(a["steps"], ref["steps"]))
+    update_gap, update_leaf = update_gaps(a["params"], ref["params"], keep["16c"]["base"])
+    if not loss_gap <= TSP_LOSS_ATOL:
+        faults.append(f"18c: losses {loss_gap:.3e} from one process's (tolerance "
+                      f"{TSP_LOSS_ATOL})")
+    if not update_gap <= TSP_GRAD_RTOL:
+        faults.append(f"18c: leaf {update_leaf}'s update {update_gap:.3e} of one process's "
+                      f"(tolerance {TSP_GRAD_RTOL})")
+    for i, w in enumerate(workers):  # one stage a process: dp · M · L/pp
+        faults += launch_faults(f"18c process {i}", w["18c"]["bf16"],
+                                2 * PP_MICROBATCHES * layers // 2)
+    report["18c"] = {"gaps": {"loss_gap": loss_gap, "update_gap": update_gap,
+                              "update_leaf": update_leaf},
+                     "s": [w["18c"]["s"] for w in workers],
+                     "steps": [[s["step_s"] for s in w["18c"]["bf16"]["steps"]]
+                               for w in workers],
+                     "launches": [w["18c"]["bf16"]["steps"][0]["launches"] for w in workers],
+                     "stage_layer_bytes": [w["18c"]["bf16"]["stage_layer_bytes"]
+                                           for w in workers],
+                     "one_process_steps": [s["step_s"] for s in ref["steps"]]}
+    report["wall_s"] = time.perf_counter() - t0
+    # both processes' launches over the steps, by kernel (the JSON line's)
+    report["launches"] = {
+        path: dict(zip(FLASH_SOURCES, (sum(s["launches"][i] for w in workers
+                                           for s in w[tag]["bf16"]["steps"])
+                                       for i in range(3))))
+        for path, tag in (("tsp_dense_two_processes", "18a"), ("tsp_moe_two_processes", "18b"),
+                          ("pp_gpipe_two_processes", "18c"))}
+    if faults:
+        raise AssertionError("path 18:\n  " + "\n  ".join(faults))
+    return report
+
+
+def log_split_path(path, smi):
+    def ms(xs):
+        return " ".join(f"{1e3 * x:.1f}" for x in xs)
+
+    for tag, name in (("18a", "dense dp2 x tp2 x sp2 split along dp"),
+                      ("18b", "switch MoE tp2 x sp2 x ep2 split along ep"),
+                      ("18c", "GPipe pp2 x dp2, one stage a process")):
+        r, g = path[tag], path[tag]["gaps"]
+        if tag == "18c":
+            gap = (f"losses {g['loss_gap']:.3e}, updates {g['update_gap']:.3e} (leaf "
+                   f"{g['update_leaf']}); layer bytes held {r['stage_layer_bytes']}")
+        else:
+            gap = (f"float32 logits {g['logits']:.3e}, first gradient {g['grad']:.3e} (leaf "
+                   f"{g['grad_leaf']}), aux {g['aux']:.3e}; bf16 logits {g['logits_gap']:.3e}, "
+                   f"gradient {g['grad_gap']:.3e}, losses {g['loss_gap']:.3e}, updates "
+                   f"{g['update_gap']:.3e}; peak {[round(b / 2**30, 3) for b in r['peak_bytes']]}"
+                   " GiB")
+        log(f"  {tag} {name}, against one process: {gap}; K2/K3/K4 a step by process "
+            f"{r['launches']}; fenced step ms process 0 {ms(r['steps'][0])}, process 1 "
+            f"{ms(r['steps'][1])} (one process {ms(r['one_process_steps'])}); part s "
+            f"{[round(x, 1) for x in r['s']]} | {smi}")
+    log(f"  phase 22: workers' start-up s {[round(x, 1) for x in path['start_s']]}, all "
+        f"{path['wall_s']:.1f} s")
 
 
 def profiled_round(eng):
@@ -5904,7 +6236,7 @@ def main():
     log(f"[10 main path 6: sequence, one warm worker per node] starting {N_SITES + 1} workers | {smi}")
     with tempfile.TemporaryDirectory() as wd:
         daemon_path = run_daemon_path(dev, wd, seq_path)
-    seq_path.pop("final_params")
+    seq_final = seq_path.pop("final_params")  # path 17a's reference
     log_daemon_path(daemon_path, seq_path, fresh_path, smi)
 
     log(f"[11 main path 7: sequence, async rounds, quorum and chaos] starting "
@@ -5923,9 +6255,7 @@ def main():
         f"{MEM_SITES + 2} workers (a spare among them) | {smi}")
     with tempfile.TemporaryDirectory() as wd:
         mem_path = run_membership_path(dev, wd)
-    with tempfile.TemporaryDirectory() as wd:
-        drain_path = run_drain_path(dev, wd)
-    log_membership_path(mem_path, drain_path, smi)
+    log_membership_path(mem_path, smi)
 
     log(f"[15 main path 11: VBM on NIfTI files, ConfusionMatrix, AUC, device prefetch] "
         f"{N_SITES} sites x {NIFTI_SUBJECTS} subjects on the {'x'.join(map(str, NIFTI_GRID))} "
@@ -5950,6 +6280,7 @@ def main():
     for key in ("payload_digests", "final_params"):
         main_path.pop(key)
         native_path["async"].pop(key)
+    native_path["async"].pop("final_tensors")
 
     log(f"[19 main path 15: the mesh planes] path 2's configuration through MeshEngine with "
         f"sequence_parallel 2 and tensor_parallel 2 against 1 ({N_SITES} sites, every rank on "
@@ -5966,6 +6297,19 @@ def main():
     sharded_path = run_sharded_path(dev)
     log_sharded_path(sharded_path, smi)
 
+    log(f"[21 main path 17: the trainer's local data parallelism] path 2's trainer and "
+        f"federation and path 1's on {DP_RANKS} ranks of the one card against one rank | {smi}")
+    with tempfile.TemporaryDirectory() as wd:
+        dp_path = run_local_dp_path(dev, wd, seq_path, seq_final, main_path)
+    main_path.pop("final_tensors")
+    del seq_final
+    log_local_dp_path(dp_path, smi)
+
+    log(f"[22 main path 18: the sharded steps across processes] path 16's meshes split over "
+        f"two processes on the one card, joined over gloo at 127.0.0.1 | {smi}")
+    split_path = run_split_path(dev, sharded_path.pop("keep"))
+    log_split_path(split_path, smi)
+
     k1["launches_by_path"] = {"vbm_dsgd": main_path["launches"],
                               "vbm_pretrain_powersgd": psgd_path["launches"],
                               "seq_rankdad": dad_path["k1_launches"],
@@ -5977,7 +6321,8 @@ def main():
                               "resnet18_config4": models_path["resnet"]["launches"],
                               "multinet_config5": models_path["multinet"]["launches"],
                               "native_wire_resnet18_payloads": native_path["native"]["k1_launches"],
-                              "vbm_async_commit": native_path["async"]["launches"]}
+                              "vbm_async_commit": native_path["async"]["launches"],
+                              "vbm_local_dp2": dp_path["17b"]["launches"]}
     for kern in k234:
         kern["launches_by_path"] = {"seq_dsgd": seq_path["launches"][kern["name"]],
                                     "seq_rankdad": dad_path["launches"][kern["name"]],
@@ -5998,20 +6343,24 @@ def main():
                                     "seq_example_mesh_sp2": mesh_path["15d"]["launches"][
                                         kern["name"]],
                                     **{path: counts[kern["name"]] for path, counts in
-                                       sharded_path["launches"].items()}}
+                                       sharded_path["launches"].items()},
+                                    "seq_local_dp2": dp_path["17a"]["launches"][kern["name"]],
+                                    **{path: split_path["launches"][path][kern["name"]]
+                                       for path in split_path["launches"]}}
     kernels = [k1, *k234]
     report.update(main_path=main_path, seq_path=seq_path, powersgd_path=psgd_path,
                   rankdad_path=dad_path, fresh_process_path=fresh_path,
                   daemon_path=daemon_path, async_chaos_path=async_path,
                   vectorized_path=vec_path, membership_path=mem_path,
-                  drain_path=drain_path, health_path=health_path,
+                  health_path=health_path,
                   health_vectorized_path=health_vec, nifti_path=nifti_path,
                   flop_count_path=flop_path, tools_path=tools_path,
                   resnet18_config4=models_path["resnet"],
                   resnet18_config4_count=models_path["resnet_count"],
                   fused_groupnorm=models_path["fused_groupnorm"],
                   multinet_config5=models_path["multinet"], native_examples_path=native_path,
-                  mesh_path=mesh_path, sharded_path=sharded_path,
+                  mesh_path=mesh_path, sharded_path=sharded_path, local_dp_path=dp_path,
+                  split_path=split_path,
                   device=kind,
                   power=smi, kernels=kernels)
     out_dir = os.path.join(HERE, "chiprun_out")

@@ -314,13 +314,23 @@ class Model:
     - ``IMPORT_TORCH_OPTIMIZER`` — ``False`` starts an imported model's
       optimizer fresh even when the file carries its Adam state;
     - ``ALLOW_UNSAFE_TORCH_PICKLE`` — loads a torch file that needs full
-      unpickling (which runs code from the file): trusted local files only.
+      unpickling (which runs code from the file): trusted local files only;
+    - ``LOCAL_DATA_PARALLEL`` — ``False`` keeps a site's trainer on one
+      rank; otherwise (the default) each step splits its batch over the
+      trainer's local ranks (``nn/basetrainer.py``);
+    - ``LOCAL_DEVICES`` — caps that number of ranks;
+    - ``LOCAL_RANKS`` — the port's: the trainer's local ranks by device
+      name, as ``MeshEngine(devices=)`` names them (a name may repeat,
+      ``["cuda:0"] * 2``); default every visible card once.
     """
 
     FUSED_GROUPNORM = "fused_groupnorm"
     TORCH_NAME_MAP = "torch_name_map"
     IMPORT_TORCH_OPTIMIZER = "import_torch_optimizer"
     ALLOW_UNSAFE_TORCH_PICKLE = "allow_unsafe_torch_pickle"
+    LOCAL_DATA_PARALLEL = "local_data_parallel"
+    LOCAL_DEVICES = "local_devices"
+    LOCAL_RANKS = "local_ranks"
 
 
 class Federation:

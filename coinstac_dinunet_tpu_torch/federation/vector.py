@@ -165,11 +165,13 @@ class SiteVectorizedFederation:
         return it["sample_loss"].float().reshape(mask.shape)
 
     def _iteration_fn(self):
-        """The trainer's ``iteration`` on each shard's device (None: every
-        shard on the trainer's own)."""
+        """The trainer's ``iteration`` on each shard's device (its own
+        ``iteration`` when every shard lies on the trainer's; passed all the
+        same, so the trainer's local data parallelism never nests inside
+        the plane)."""
         trainer = self.trainer
         if all(same_device(d, trainer.device) for d in self._shard_devices()):
-            return None
+            return trainer.iteration
 
         def shard_iteration(batch, generator):
             with on_rank_device(trainer, batch["_mask"].device):

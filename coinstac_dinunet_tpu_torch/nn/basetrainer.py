@@ -27,8 +27,29 @@ so either package loads the other's.  ``count``, ``mu`` and ``nu`` are
 one, the port ignores ``rng`` (the dropout generator does not map; it
 keeps its own).  Any other ``torch.save`` file is a checkpoint of the
 reference framework, imported as the JAX package imports it
-(:mod:`..utils.torch_import`).  Local data parallelism waits for a later
-slice (``ROADMAP.md``).
+(:mod:`..utils.torch_import`).
+
+Local data parallelism, on by default as in the JAX package (the
+counterpart of the reference's automatic ``DataParallel`` over a site's
+cards): ``compute_grads``, ``train_step`` and ``eval_step`` split each
+batch into row shards over the trainer's local ranks (:meth:`NNTrainer.
+local_ranks`; every visible card once, or ``cache['local_ranks']`` named
+as ``MeshEngine(devices=)`` names them), the largest count, capped by
+``cache['local_devices']``, that divides the batch;
+``cache['local_data_parallel'] = False`` keeps one rank.  Each rank runs
+``iteration`` on its own device, reading the one parameter set with
+``.to()`` (which autograd transposes into the parameters' gradients), and
+the backward takes the mask-weighted site loss ``Σ n_r·L_r / max(Σ n_r,
+1)`` (:func:`weighted_mean`), whose gradient is ``make_grad_reduce``'s; the
+metric and average states are summed over the ranks, host scores and
+per-sample outputs gathered in rank order (the batch's order), and the
+logged loss weighted by each shard's samples.  Dropout draws from one
+``torch.Generator`` per rank and step, seeded from the trainer's generator
+(JAX folds the rank index into one key: the streams differ).  The steps
+are counted and timed as ``grads_dp:{n}``, ``train_dp:{n}`` and
+``eval_dp:{n}``.  A call that brings its own ``iteration_fn`` or
+``loss_fn`` (the mesh and site-vectorized planes) runs on the caller's
+ranks: local data parallelism never nests inside a plane.
 
 With telemetry on (an ambient recorder, ``telemetry.get_active()``), as
 in the JAX package: ``compute_grads`` records the gradient-health series
@@ -64,8 +85,9 @@ import numpy as np
 import torch
 
 from .. import config, interop
-from ..config.keys import Mode, Model
+from ..config.keys import MeshAxis, Mode, Model
 from ..data import device_prefetch, to_device
+from ..data.data import split_batch
 from ..metrics import COINNAverages, Prf1a
 from ..telemetry import capture as _capture
 from ..telemetry import health as _health
@@ -92,6 +114,73 @@ class TrainState:
     step: int
 
 
+# ---- a batch split into row shards over ranks -------------------------
+# Shared by the local data parallelism below (the JAX package's
+# ``make_grad_reduce`` and ``_reduce_dp_aux``) and the mesh plane's
+# ``device`` axis (``parallel/mesh.py``): the site loss ``Σ_r n_r·L_r /
+# max(Σ n_r, 1)`` over the ranks' shards, ``n_r`` each shard's unmasked
+# samples, whose gradient is the mask-weighted mean of the ranks' gradients
+# — the full-batch masked mean, exact where a padded tail splits unevenly.
+def shard_rows(batch):
+    """Rows of a batch dict (its first axis)."""
+    return int(next(iter(batch.values())).shape[0])
+
+
+def shard_samples(batch):
+    """Unmasked samples of a device batch (its rows without a mask)."""
+    mask = batch.get("_mask")
+    return (mask.to(torch.float32).sum() if mask is not None
+            else torch.tensor(float(shard_rows(batch)), device=next(iter(batch.values())).device))
+
+
+def weighted_mean(xs, ws, device):
+    """``Σ_r w_r·x_r / max(Σ w, 1)`` on ``device``, in rank order."""
+    total = sum(w.to(device) for w in ws)
+    scale = 1.0 / torch.clamp_min(total, 1.0)
+    acc = None
+    for x, w in zip(xs, ws):
+        term = x.to(device) * (w.to(device) * scale)
+        acc = term if acc is None else acc + term
+    return acc
+
+
+def combine_shards(its, parts, device):
+    """One iteration output for a batch from its ranks' shards: the loss
+    the masked mean over the whole batch (``Σ n_r·L_r / max(N, 1)``, whose
+    gradient is the mask-weighted mean of the ranks'), ``averages`` alike,
+    the per-sample outputs concatenated in rank order, and ``_rank_loss``
+    the ranks' mean loss (the JAX ``pmean``, logged)."""
+    ns = [shard_samples(p) for p in parts]
+    out = {}
+    for key, v in its[0].items():
+        vs = [it[key] for it in its]
+        if key in ("loss", "averages"):
+            out[key] = weighted_mean(vs, ns, device)
+        elif isinstance(v, torch.Tensor) and v.ndim >= 1 and v.shape[0] == shard_rows(parts[0]):
+            out[key] = torch.cat([t.to(device) for t in vs])
+        else:
+            out[key] = v
+    out["_rank_loss"] = torch.stack([it["loss"].detach().to(device) for it in its]).mean()
+    return out
+
+
+def gather_outputs(its, parts, device):
+    """The ranks' evaluation outputs as one batch's (the JAX package's
+    ``_eval_step_dp``): per-sample tensors concatenated in rank order, the
+    full batch's order (the AUC and ``save_predictions`` read them), 0-d
+    values averaged over the ranks, anything else rank 0's as it is."""
+    rows = shard_rows(parts[0])
+    out = {}
+    for key, v in its[0].items():
+        if isinstance(v, torch.Tensor) and v.ndim >= 1 and v.shape[0] == rows:
+            out[key] = torch.cat([it[key].to(device) for it in its])
+        elif isinstance(v, torch.Tensor) and v.ndim == 0:
+            out[key] = torch.stack([it[key].to(device) for it in its]).mean()
+        else:
+            out[key] = v
+    return out
+
+
 def _on_device(tree, device):
     """A tensor, or a dict of them, on ``device`` (None stays None)."""
     if tree is None:
@@ -99,6 +188,15 @@ def _on_device(tree, device):
     if isinstance(tree, dict):
         return {k: v.to(device) for k, v in tree.items()}
     return tree.to(device)
+
+
+def _add_states(total, state, device):
+    """A metric or average state (None adds nothing) added on ``device`` to
+    the running ``total`` (None before the first)."""
+    if state is None:
+        return total
+    state = _on_device(state, device)
+    return state if total is None else {k: total[k] + state[k] for k in total}
 
 
 class NNTrainer:
@@ -421,11 +519,13 @@ class NNTrainer:
         return self
 
     # -------------------------------------------------------------- the steps
-    def _autocast(self):
-        """bfloat16 autocast when ``cache['compute_dtype']`` asks for it;
-        models keep their head and loss in float32 themselves."""
+    def _autocast(self, device=None):
+        """bfloat16 autocast (on ``device``'s type, default the trainer's)
+        when ``cache['compute_dtype']`` asks for it; models keep their head
+        and loss in float32 themselves."""
         if str(self.cache.get("compute_dtype", "float32")) == "bfloat16":
-            return torch.autocast(device_type=self.device.type, dtype=torch.bfloat16)
+            return torch.autocast(device_type=(device or self.device).type,
+                                  dtype=torch.bfloat16)
         return contextlib.nullcontext()
 
     def _input_cast_dtype(self):
@@ -439,9 +539,10 @@ class NNTrainer:
     def _stack_batches(self, batches):
         """Host batches → device batches (the list of ``k`` micro-batches
         one round consumes); a batch already on the device (from
-        :func:`..data.device_prefetch`) is taken as it is."""
+        :func:`..data.device_prefetch`, or its list of rank shards) is taken
+        as it is."""
         cast = self._input_cast_dtype()
-        return [to_device(b, self.device, cast) for b in batches]
+        return [b if isinstance(b, list) else to_device(b, self.device, cast) for b in batches]
 
     def _step_outputs(self, it, batch, metrics_shell, averages_shell):
         """Metric/average state deltas of one micro-batch, on the device."""
@@ -517,9 +618,20 @@ class NNTrainer:
     @staticmethod
     def _batch_shapes(batches):
         """The shapes a step's micro-batches give it: what a compiled JAX
-        step keys its executable on."""
-        return tuple(tuple((name, tuple(t.shape)) for name, t in sorted(b.items())
-                           if isinstance(t, torch.Tensor)) for b in batches)
+        step keys its executable on (a batch of rank shards: its shards')."""
+        def shapes(b):
+            if isinstance(b, list):
+                return tuple(shapes(part) for part in b)
+            return tuple((name, tuple(t.shape)) for name, t in sorted(b.items())
+                         if isinstance(t, torch.Tensor))
+        return tuple(shapes(b) for b in batches)
+
+    @staticmethod
+    def _batch_rows(batch):
+        """Rows of a device batch, or of a batch's rank shards together."""
+        if isinstance(batch, list):
+            return sum(shard_rows(part) for part in batch)
+        return shard_rows(batch)
 
     def _counted_step(self, key, batches, rec, fn, *args):
         """``fn(*args)``, counted (:func:`~..telemetry.perf.record_jit_cost`)
@@ -543,12 +655,155 @@ class NNTrainer:
         micro-batches of the padded batch size), except on a counted step,
         whose wall time holds the counter's, and one device-memory sample."""
         if not counted:
-            rows = next(iter(batches[0].values())).shape[0]
+            rows = self._batch_rows(batches[0])
             timer.done(self.cache, key, len(batches) * int(rows), recorder=rec,
                        device=self.device)
         _perf.sample_device_memory(self.cache, recorder=rec, device=self.device,
                                    census=self._memory_census)
 
+    # ------------------------------------------------ local data parallelism
+    def local_ranks(self):
+        """The devices a step's batch splits over: ``cache['local_ranks']``
+        by name (``resolve_devices``: a name may repeat, a named card that
+        is not there raises), else every visible card once, the trainer's
+        own first; a trainer on the CPU has its one rank."""
+        from ..parallel.mesh import resolve_devices, same_device
+
+        named = self.cache.get(Model.LOCAL_RANKS)
+        if named:
+            return resolve_devices(named)
+        if self.device.type != "cuda":
+            return [self.device]
+        return [self.device] + [d for d in resolve_devices()
+                                if not same_device(d, self.device)]
+
+    def _dp_count(self, batch_dim):
+        """The JAX package's ``_dp_device_count``: the largest number of
+        local ranks (capped by ``cache['local_devices']``) that divides the
+        padded batch dimension; 1 when ``cache['local_data_parallel']`` is
+        False."""
+        if self.cache.get(Model.LOCAL_DATA_PARALLEL, True) is False:
+            return 1
+        n = len(self.local_ranks())
+        cap = self.cache.get(Model.LOCAL_DEVICES)
+        if cap:
+            n = min(n, int(cap))
+        while n > 1 and batch_dim % n:
+            n -= 1
+        return max(n, 1)
+
+    def _step_ranks(self, batches, loss_fn=None, iteration_fn=None):
+        """The ranks a step splits over: one (``[]``) for a call that brings
+        its own ``loss_fn``/``iteration_fn`` (a plane's) or when the count
+        is 1."""
+        if loss_fn is not None or iteration_fn is not None:
+            return []
+        n = self._dp_count(self._batch_rows(batches[0]))
+        return self.local_ranks()[:n] if n > 1 else []
+
+    def _rank_parts(self, batch, ranks):
+        """A device batch as one row shard per rank, each on its rank's
+        device (a batch already split over these ranks as it is)."""
+        if isinstance(batch, list):
+            if len(batch) == len(ranks):
+                return [{k: v.to(dev) for k, v in part.items()}
+                        for part, dev in zip(batch, ranks)]
+            batch = {k: torch.cat([part[k].to(self.device) for part in batch])
+                     for k in batch[0]}
+        return [{k: v.to(dev) for k, v in part.items()}
+                for part, dev in zip(split_batch(batch, len(ranks)), ranks)]
+
+    def _rank_generators(self, ranks):
+        """One dropout generator per rank for this step, seeded from the
+        trainer's generator (None without one)."""
+        if self.generator is None:
+            return [None] * len(ranks)
+        seeds = torch.randint(0, 2 ** 62, (len(ranks),), generator=self.generator,
+                              device=self.generator.device).tolist()
+        return [torch.Generator(device=dev).manual_seed(int(seed))
+                for dev, seed in zip(ranks, seeds)]
+
+    def _rank_iterations(self, parts, ranks, generators):
+        """``iteration`` on each rank's shard, the models read on its device."""
+        from ..parallel.mesh import on_rank_device
+
+        its = []
+        for part, dev, gen in zip(parts, ranks, generators):
+            with on_rank_device(self, dev), self._autocast(dev):
+                its.append(self.iteration(part, gen))
+        return its
+
+    def _grads_dp(self, batches, ranks):
+        """:meth:`_grads` over ``ranks``: each micro-batch's backward takes
+        the mask-weighted site loss of its shards, whose gradient is the
+        full batch's masked mean (JAX's ``make_grad_reduce``); states summed
+        over the ranks, host scores gathered in rank order, and the logged
+        loss each rank's mean over the ``k`` micro-batches weighted by its
+        samples in them (JAX's ``_reduce_dp_aux``)."""
+        for m in self.nn.values():
+            m.zero_grad(set_to_none=True)
+        metrics_shell, averages_shell = self.new_metrics(), self.new_averages()
+        collect_host = not metrics_shell.jit_safe
+        generators = self._rank_generators(ranks)
+        msum = asum = None
+        rank_losses, rank_samples, scores, masked = [], [], [], False
+        for batch in batches:
+            parts = self._rank_parts(batch, ranks)
+            masked = masked or "_mask" in parts[0]
+            its = self._rank_iterations(parts, ranks, generators)
+            ns = [shard_samples(p) for p in parts]
+            weighted_mean([it["loss"] for it in its], ns, self.device).backward()
+            hs_parts = []
+            with torch.no_grad():
+                for it, part in zip(its, parts):
+                    m_state, a_state = self._step_outputs(it, part, metrics_shell,
+                                                          averages_shell)
+                    msum = _add_states(msum, m_state, self.device)
+                    asum = _add_states(asum, a_state, self.device)
+                    if collect_host:
+                        hs = self.host_scores_payload(it, part)
+                        if hs is not None:
+                            hs_parts.append(_on_device(hs, self.device))
+            if hs_parts:
+                scores.append({key: torch.cat([hs[key] for hs in hs_parts])
+                               for key in hs_parts[0]})
+            rank_losses.append(torch.stack([it["loss"].detach().to(self.device) for it in its]))
+            rank_samples.append(torch.stack([n.to(self.device) for n in ns]))
+        grads = self._mean_grads(len(batches))
+        per_rank = torch.stack(rank_losses).mean(0)  # each rank's mean over the k
+        if masked:
+            n = torch.stack(rank_samples).sum(0)
+            loss = (per_rank * n).sum() / torch.clamp_min(n.sum(), 1.0)
+        else:
+            loss = per_rank.mean()
+        aux = {"metrics": msum, "averages": asum, "loss": loss}
+        if scores:
+            aux["host_scores"] = {key: torch.stack([hs[key] for hs in scores])
+                                  for key in scores[0]}
+        return grads, aux
+
+    def _train_dp(self, batches, ranks):
+        """:meth:`_train` over ``ranks``."""
+        _, aux = self._grads_dp(batches, ranks)
+        for opt in self.optimizer.values():
+            opt.step()
+        self.step += 1
+        return aux
+
+    def _eval_dp(self, batch, ranks):
+        """The JAX package's ``_eval_step_dp``: the states summed over the
+        ranks, the outputs gathered (:func:`gather_outputs`)."""
+        parts = self._rank_parts(batch, ranks)
+        with torch.no_grad():
+            its = self._rank_iterations(parts, ranks, [None] * len(ranks))
+            m_state = a_state = None
+            for it, part in zip(its, parts):
+                m, a = self._step_outputs(it, part, self.new_metrics(), self.new_averages())
+                m_state = _add_states(m_state, m, self.device)
+                a_state = _add_states(a_state, a, self.device)
+        return m_state, a_state, gather_outputs(its, parts, self.device)
+
+    # ------------------------------------------------------------- the steps
     def compute_grads(self, batches, loss_fn=None, iteration_fn=None):
         """Mean gradients over the ``k`` device micro-batches: each batch's
         gradient accumulates into ``.grad`` and the sum is divided by ``k``
@@ -556,22 +811,25 @@ class NNTrainer:
         the scalar the backward takes and the loss value to log (default:
         the iteration's ``loss`` for both); ``iteration_fn(batch,
         generator)`` stands in for ``iteration`` (the mesh planes' per-rank
-        forward).  Returns ``(grads, aux)`` —
-        ``grads`` is ``{model: {param name: gradient}}``; ``aux`` holds the
-        round's metric/average states and the mean of the logged losses.
-        With telemetry on, the step's FLOP count (first step and new
-        shapes), the gradient-health series (whose norm is the host fence),
-        the round's perf samples and the armed capture."""
+        forward).  Without either, each batch splits over the local ranks
+        (``grads_dp:{n}``, see the module docstring).  Returns ``(grads,
+        aux)`` — ``grads`` is ``{model: {param name: gradient}}``; ``aux``
+        holds the round's metric/average states and the mean of the logged
+        losses.  With telemetry on, the step's FLOP count (first step and
+        new shapes), the gradient-health series (whose norm is the host
+        fence), the round's perf samples and the armed capture."""
         rec = _telemetry()
         rec.count("grad_steps")
         timer = _perf.StepTimer() if rec.enabled else None
+        ranks = self._step_ranks(batches, loss_fn, iteration_fn)
+        key, fn, args = ((f"grads_dp:{len(ranks)}", self._grads_dp, (batches, ranks)) if ranks
+                         else ("grads", self._grads, (batches, loss_fn, iteration_fn)))
         with self._captured(rec):
-            (grads, aux), counted = self._counted_step("grads", batches, rec, self._grads,
-                                                       batches, loss_fn, iteration_fn)
+            (grads, aux), counted = self._counted_step(key, batches, rec, fn, *args)
             if rec.enabled:
                 _health.record_grad_health(self.cache, grads, aux, recorder=rec)
         if timer is not None:
-            self._perf_round_end(timer, "grads", batches, rec, counted)
+            self._perf_round_end(timer, key, batches, rec, counted)
         return grads, aux
 
     def _grads(self, batches, loss_fn=None, iteration_fn=None):
@@ -600,13 +858,22 @@ class NNTrainer:
                         scores.append(_on_device(hs, self.device))
             # micro-batches may lie on other devices (a mesh plane's
             # shards): the round's states gather on the trainer's
-            m_state = _on_device(m_state, self.device)
-            a_state = _on_device(a_state, self.device)
-            if m_state is not None:
-                msum = m_state if msum is None else {k: msum[k] + m_state[k] for k in msum}
-            asum = a_state if asum is None else {k: asum[k] + a_state[k] for k in asum}
+            msum = _add_states(msum, m_state, self.device)
+            asum = _add_states(asum, a_state, self.device)
             losses.append(logged.to(self.device))
-        k = len(batches)
+        grads = self._mean_grads(len(batches))
+        aux = {"metrics": msum, "averages": asum,
+               "loss": torch.stack(losses).mean()}
+        if scores:
+            # (k, ...) per key, the micro-batch axis first, as in JAX
+            aux["host_scores"] = {key: torch.stack([hs[key] for hs in scores])
+                                  for key in scores[0]}
+        return grads, aux
+
+    def _mean_grads(self, k):
+        """``{model: {param name: gradient}}``: the accumulated ``.grad``
+        of every parameter divided by the ``k`` micro-batches (zeros where
+        none flowed)."""
         grads = {}
         for name, m in self.nn.items():
             grads[name] = {}
@@ -615,13 +882,7 @@ class NNTrainer:
                     p.grad = torch.zeros_like(p)
                 p.grad.div_(k)
                 grads[name][pname] = p.grad
-        aux = {"metrics": msum, "averages": asum,
-               "loss": torch.stack(losses).mean()}
-        if scores:
-            # (k, ...) per key, the micro-batch axis first, as in JAX
-            aux["host_scores"] = {key: torch.stack([hs[key] for hs in scores])
-                                  for key in scores[0]}
-        return grads, aux
+        return grads
 
     def apply_grads(self, grads):
         """One optimizer step from externally supplied (e.g. averaged)
@@ -644,13 +905,15 @@ class NNTrainer:
         rec = _telemetry()
         rec.count("train_steps")
         timer = _perf.StepTimer() if rec.enabled else None
+        ranks = self._step_ranks(batches, loss_fn, iteration_fn)
+        key, fn, args = ((f"train_dp:{len(ranks)}", self._train_dp, (batches, ranks)) if ranks
+                         else ("train", self._train, (batches, loss_fn, iteration_fn)))
         with self._captured(rec):
-            aux, counted = self._counted_step("train", batches, rec, self._train,
-                                              batches, loss_fn, iteration_fn)
+            aux, counted = self._counted_step(key, batches, rec, fn, *args)
             if timer is not None:
                 self._fence()
         if timer is not None:
-            self._perf_round_end(timer, "train", batches, rec, counted)
+            self._perf_round_end(timer, key, batches, rec, counted)
         return aux
 
     def _train(self, batches, loss_fn=None, iteration_fn=None):
@@ -662,6 +925,16 @@ class NNTrainer:
         return aux
 
     def eval_step(self, batch, iteration_fn=None):
+        """``(metric state, average state, iteration outputs)`` of one
+        device batch, without gradients; without ``iteration_fn`` the batch
+        splits over the local ranks (``eval_dp:{n}``, counted as the
+        training steps are)."""
+        ranks = self._step_ranks([batch], iteration_fn=iteration_fn)
+        if ranks:
+            rec = _telemetry()
+            out, _ = self._counted_step(f"eval_dp:{len(ranks)}", [batch], rec, self._eval_dp,
+                                        batch, ranks)
+            return out
         with torch.no_grad(), self._autocast():
             it = (iteration_fn or self.iteration)(batch, None)
         with torch.no_grad():
@@ -756,10 +1029,18 @@ class NNTrainer:
                 seed=int(cache.get("seed", 0)), epoch=epoch, drop_last=False,
             )
             # a thread stays a few batches ahead: reading, casting and the
-            # copy to the device overlap the step on the previous batch
+            # copy to the device overlap the step on the previous batch; with
+            # local data parallelism each batch lands split over the ranks
+            n_dp = self._dp_count(int(cache.get("batch_size", 16)))
+            sharding = None
+            if n_dp > 1:
+                from ..parallel.mesh import Mesh
+
+                sharding = (Mesh(self.local_ranks()[:n_dp], (MeshAxis.DEVICE,)),
+                            MeshAxis.DEVICE)
             batches = device_prefetch(
                 iter(loader), size=int(cache.get("prefetch_batches", 2)),
-                device=self.device, cast=self._input_cast_dtype(),
+                sharding=sharding, device=self.device, cast=self._input_cast_dtype(),
             )
             batch_buf = []
             for i, batch in enumerate(batches):

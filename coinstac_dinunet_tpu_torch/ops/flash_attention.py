@@ -352,6 +352,20 @@ def _flash_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.
     return bwd(q, k, v, out, lse, g_out, g_lse, q_offset, k_offset, kv_len, causal, scale)
 
 
+# shapes alone, for ``meta`` tensors: the ranks another process computes
+# (``parallel/hosts.py``) run the program on them, launching nothing
+@_flash_fwd_op.register_fake
+def _flash_fwd_fake(q, k, v, q_offset, k_offset, kv_len, causal, scale):
+    return (torch.empty(q.shape, dtype=torch.float32, device=q.device),
+            torch.empty(q.shape[:2], dtype=torch.float32, device=q.device))
+
+
+@_flash_bwd_op.register_fake
+def _flash_bwd_fake(q, k, v, out, lse, g_out, g_lse, q_offset, k_offset, kv_len, causal,
+                    scale):
+    return tuple(torch.empty(t.shape, dtype=torch.float32, device=t.device) for t in (q, k, v))
+
+
 @register_flop_formula(torch.ops.coinn.flash_fwd)
 def _flash_fwd_flops(q_shape, k_shape, *args, **kwargs):
     return attention_flops(q_shape[0], q_shape[1], k_shape[1], q_shape[2])

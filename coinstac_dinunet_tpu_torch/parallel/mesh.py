@@ -71,9 +71,11 @@ from .. import interop
 from ..config.keys import MeshAxis
 from ..data import to_device
 from ..data.data import split_batch
+from ..nn.basetrainer import combine_shards
 from ..ops.power_iteration import float32_math, orthogonalize
 from ..utils import tensorutils
 from . import powersgd as _psgd
+from .hosts import Rank, move, world
 
 
 def _normalized(dev):
@@ -115,15 +117,6 @@ def resolve_devices(devices=None):
     return out
 
 
-def world():
-    """``(process index, process count)`` of the default process group,
-    ``(0, 1)`` without one."""
-    dist = torch.distributed
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_rank(), dist.get_world_size()
-    return 0, 1
-
-
 def process_sum(t):
     """``t`` summed over the processes (itself in one process)."""
     if world()[1] == 1:
@@ -146,16 +139,23 @@ def process_cat(t):
 
 
 class RankAxis:
-    """One axis of a rank mesh, seen from the single controller: its name
-    and its ranks' devices, with the collectives over per-rank lists."""
+    """One axis of a rank mesh, seen from the single controller: its name,
+    its ranks' devices and the processes that own them (this one by
+    default), with the collectives over per-rank lists."""
 
-    def __init__(self, name, devices):
+    def __init__(self, name, devices, owners=None):
         self.name = str(name)
         self.devices = [torch.device(d) for d in devices]
+        self.owners = [world()[0]] * len(self.devices) if owners is None else list(owners)
 
     @property
     def size(self):
         return len(self.devices)
+
+    @property
+    def ranks(self):
+        """The axis's ranks (:class:`~.hosts.Rank`)."""
+        return [Rank(d, o) for d, o in zip(self.devices, self.owners)]
 
     def _check(self, xs):
         if len(xs) != self.size:
@@ -171,10 +171,12 @@ class RankAxis:
         return [total.to(d) for d in self.devices]
 
     def ppermute(self, xs, shift=1):
-        """Rank ``r``'s tensor onto rank ``(r + shift) % n``."""
+        """Rank ``r``'s tensor onto rank ``(r + shift) % n`` (across
+        processes, :func:`~.hosts.move`'s send and receive)."""
         self._check(xs)
         n = self.size
-        return [xs[(r - shift) % n].to(self.devices[r]) for r in range(n)]
+        ranks = self.ranks
+        return [move(xs[(r - shift) % n], ranks[(r - shift) % n], ranks[r]) for r in range(n)]
 
     def all_to_all(self, chunks):
         """``chunks[j][r]`` (what rank ``j`` sends to rank ``r``) → for each
@@ -187,8 +189,9 @@ class RankAxis:
 
 class Mesh:
     """A rank mesh: ``devices``, a numpy object array of ``torch.device``,
-    with one name per axis.  ``owners[i]`` is the process that computes
-    the ranks of row ``i`` of the first axis (all 0 in one process)."""
+    with one name per axis.  ``procs`` (the same shape) holds the process
+    that computes each rank, given per rank or per row of the first axis
+    (``owners``; all 0 in one process)."""
 
     def __init__(self, devices, axis_names, owners=None):
         src = np.asarray(devices, dtype=object)
@@ -200,12 +203,25 @@ class Mesh:
                              f"not {tuple(axis_names)}")
         self.devices = arr
         self.axis_names = tuple(axis_names)
-        self.owners = (np.zeros(arr.shape[0], dtype=np.int64) if owners is None
-                       else np.asarray(owners, dtype=np.int64))
+        owners = np.zeros(arr.shape[:1], np.int64) if owners is None else np.asarray(owners,
+                                                                                    np.int64)
+        if owners.shape != arr.shape:
+            owners = np.broadcast_to(owners.reshape(owners.shape + (1,) * (arr.ndim - 1)),
+                                     arr.shape)
+        self.procs = np.array(owners)
 
     @property
     def shape(self):
         return dict(zip(self.axis_names, self.devices.shape))
+
+    @property
+    def owners(self):
+        """The process of each row of the first axis (its first rank's)."""
+        return self.procs.reshape(self.procs.shape[0], -1)[:, 0]
+
+    def rank(self, ix):
+        """The rank at index ``ix`` (:class:`~.hosts.Rank`)."""
+        return Rank(self.devices[ix], self.procs[ix])
 
     def axis(self, name, row=None):
         """The ranks of axis ``name``: a 1-D mesh's whole axis; of an N-D
@@ -218,7 +234,7 @@ class Mesh:
         if name not in self.axis_names:
             raise ValueError(f"no axis '{name}' in the mesh {self.axis_names}")
         if self.devices.ndim == 1:
-            return RankAxis(name, list(self.devices))
+            return RankAxis(name, list(self.devices), list(self.procs))
         coords = (row,) if isinstance(row, (int, np.integer)) else tuple(row or ())
         if len(coords) != self.devices.ndim - 1:
             raise ValueError(f"axis '{name}' of a {self.axis_names} mesh is taken through "
@@ -226,11 +242,11 @@ class Mesh:
                              f"not {row!r}")
         ix = list(coords)
         ix.insert(self.axis_names.index(name), slice(None))
-        return RankAxis(name, list(self.devices[tuple(ix)]))
+        return RankAxis(name, list(self.devices[tuple(ix)]), list(self.procs[tuple(ix)]))
 
     def rename(self, axis_names):
         """The same devices and owners under other axis names."""
-        return Mesh(self.devices, axis_names, self.owners)
+        return Mesh(self.devices, axis_names, self.procs)
 
     def local_rows(self):
         """The rows of the first axis this process computes."""
@@ -329,48 +345,6 @@ def on_rank_device(trainer, device):
         trainer.nn = models
 
 
-def _rows(batch):
-    return int(next(iter(batch.values())).shape[0])
-
-
-def _samples(batch):
-    """Unmasked samples of a device batch (its rows without a mask)."""
-    mask = batch.get("_mask")
-    return (mask.to(torch.float32).sum() if mask is not None
-            else torch.tensor(float(_rows(batch)), device=next(iter(batch.values())).device))
-
-
-def _weighted_mean(xs, ws, device):
-    """``Σ_r w_r·x_r / max(Σ w, 1)`` on ``device``, in rank order."""
-    total = sum(w.to(device) for w in ws)
-    scale = 1.0 / torch.clamp_min(total, 1.0)
-    acc = None
-    for x, w in zip(xs, ws):
-        term = x.to(device) * (w.to(device) * scale)
-        acc = term if acc is None else acc + term
-    return acc
-
-
-def _combine_shards(its, parts, device):
-    """One iteration output for a site from its ranks' batch shards: the
-    loss the masked mean over the whole batch (``Σ n_r·L_r / max(N, 1)``,
-    whose gradient is the mask-weighted mean of the ranks'), ``averages``
-    alike, the per-sample outputs concatenated in rank order, and
-    ``_rank_loss`` the ranks' mean loss (the JAX ``pmean``, logged)."""
-    ns = [_samples(p) for p in parts]
-    out = {}
-    for key, v in its[0].items():
-        vs = [it[key] for it in its]
-        if key in ("loss", "averages"):
-            out[key] = _weighted_mean(vs, ns, device)
-        elif isinstance(v, torch.Tensor) and v.ndim >= 1 and v.shape[0] == _rows(parts[0]):
-            out[key] = torch.cat([t.to(device) for t in vs])
-        else:
-            out[key] = v
-    out["_rank_loss"] = torch.stack([it["loss"].detach().to(device) for it in its]).mean()
-    return out
-
-
 def _combine_replicated(its, device):
     """One iteration output for a site from its ranks' replicated outputs
     (``sp``/``tp``): rank 0's, with the loss the ranks' mean, whose
@@ -451,13 +425,14 @@ class MeshFederation:
         return self.mesh.devices[s, 0]
 
     def _iteration_fn(self, s):
-        """Site ``s``'s forward over its ranks (None: the trainer's own
-        ``iteration`` on its device).  Here the batch splits over the
-        ``device`` ranks."""
+        """Site ``s``'s forward over its ranks (the trainer's own
+        ``iteration`` for one rank on its device; passed all the same, so
+        the trainer's local data parallelism never nests inside the plane).
+        Here the batch splits over the ``device`` ranks."""
         trainer = self.trainer
         devs = list(self.mesh.devices[s])
         if len(devs) == 1 and same_device(devs[0], trainer.device):
-            return None
+            return trainer.iteration
 
         def dp_iteration(batch, generator):
             parts = [{k: v.to(dev) for k, v in part.items()}
@@ -466,7 +441,7 @@ class MeshFederation:
             for part, dev in zip(parts, devs):
                 with on_rank_device(trainer, dev):
                     its.append(trainer.iteration(part, generator))
-            return _combine_shards(its, parts, devs[0])
+            return combine_shards(its, parts, devs[0])
 
         return dp_iteration
 

@@ -24,24 +24,33 @@ schedule gives the gradient that JAX assembles by hand (replicated leaves
 summed over ``pp``, everything averaged over ``dp``).  The block math is
 :func:`.sequence.transformer_block` on a one-rank mesh a stage, with plain
 flash attention; the dense FFN only (``num_experts > 0`` raises).
+
+Across processes (:mod:`.hosts`, as :mod:`.sequence`): each process
+computes the stages of its block — with ``split=None`` and one process per
+``pp`` rank, one stage a process — the activations hop between the stages'
+processes by send and receive (their gradients back), each process holds
+its stages' layers and a copy of the rest, and the copies' gradients are
+summed over the processes.
 """
 import numpy as np
 import torch
 
 from ..config.keys import MeshAxis
 from ..ops.flash_attention import flash_attention
+from .hosts import gather_leaves, move
 from .mesh import Mesh
-from .sequence import (TSP_AXES, _layernorm, build_mesh, cross_entropy, map_named,
-                       one_process, placed, rank_device, sgd_step, split_rows, tensors,
+from .sequence import (TSP_AXES, _layernorm, build_mesh, cross_entropy, holder, map_named,
+                       placed, rank_of, rebuild, sgd_step, split_rows, tensors,
                        transformer_block)
 
 __all__ = ["build_pp_mesh", "stack_layers", "make_pp_train_step", "shard_pp_params",
            "gather_pp_params", "shard_pp_batch"]
 
 
-def build_pp_mesh(pp=2, dp=1, devices=None):
-    """The ``(pp, dp)`` rank mesh."""
-    return build_mesh((pp, dp), (MeshAxis.PP, MeshAxis.DP), devices)
+def build_pp_mesh(pp=2, dp=1, devices=None, split=None):
+    """The ``(pp, dp)`` rank mesh (``split``: see
+    :func:`.sequence.build_mesh`)."""
+    return build_mesh((pp, dp), (MeshAxis.PP, MeshAxis.DP), devices, split)
 
 
 def _zip_map(fn, trees):
@@ -66,45 +75,48 @@ def stack_layers(params):
 def shard_pp_params(params, mesh):
     """A stacked tree → every layer leaf split into ``pp`` shards of
     ``L/pp`` layers, shard ``p`` on rank ``(p, 0)``; the rest copied to the
-    mesh's first rank."""
+    mesh's first rank (in several processes: each where this process keeps
+    it, :func:`.sequence.holder`)."""
     pp = mesh.shape[MeshAxis.PP]
 
     def split(name, x):
         x = torch.as_tensor(x)
         if x.shape[0] % pp:
             raise ValueError(f"pp={pp} must divide the {x.shape[0]} layers")
-        return [placed(part, rank_device(mesh, pp=p)) for p, part in
+        return [placed(part, holder(mesh, pp=p)) for p, part in
                 enumerate(torch.chunk(x, pp, 0))]
 
-    out = {k: map_named(lambda name, x: placed(x, rank_device(mesh)), v, k)
+    out = {k: map_named(lambda name, x: placed(x, holder(mesh)), v, k)
            for k, v in params.items() if k != "layers"}
     out["layers"] = _zip_map(lambda xs: split(None, xs[0]), [params["layers"]])
     return out
 
 
 def gather_pp_params(params):
-    """The whole stacked tree of a sharded one, as float32 numpy arrays."""
+    """The whole stacked tree of a sharded one, as float32 numpy arrays, in
+    every process."""
+    whole = rebuild(params, iter(gather_leaves(tensors(params))))
+
     def join(x):
-        if isinstance(x, list):
-            return torch.cat([s.detach().cpu() for s in x]).numpy()
-        return x.detach().cpu().numpy()
-    out = {k: map_named(lambda name, x: join(x), v, k) for k, v in params.items()
+        return (torch.cat(x) if isinstance(x, list) else x).numpy()
+    out = {k: map_named(lambda name, x: join(x), v, k) for k, v in whole.items()
            if k != "layers"}
-    out["layers"] = _zip_map(lambda xs: join(xs[0]), [params["layers"]])
+    out["layers"] = _zip_map(lambda xs: join(xs[0]), [whole["layers"]])
     return out
 
 
 def shard_pp_batch(x, y, mesh):
-    """``x`` ``(B, T, F)`` and ``y`` ``(B,)`` as one block per ``dp`` rank,
-    on stage 0's rank ``(0, d)``."""
-    return split_rows(x, mesh), split_rows(y, mesh)
+    """``x`` ``(B, T, F)`` as one block per ``dp`` rank on stage 0's rank
+    ``(0, d)``, and ``y`` ``(B,)`` on the last stage's ``(pp − 1, d)``,
+    where the loss reads it."""
+    return split_rows(x, mesh), split_rows(y, mesh, pp=mesh.shape[MeshAxis.PP] - 1)
 
 
-def _stage_mesh(device):
+def _stage_mesh(rank):
     """A one-rank ``(dp, tp, sp, ep)`` mesh: a stage's block runs there."""
     arr = np.empty(1, dtype=object)
-    arr[0] = device
-    return Mesh(arr.reshape(1, 1, 1, 1), TSP_AXES)
+    arr[0] = rank.device
+    return Mesh(arr.reshape(1, 1, 1, 1), TSP_AXES, np.full((1, 1, 1, 1), rank.owner))
 
 
 def make_pp_train_step(cfg, mesh, lr=1e-3, num_microbatches=None, donate=True):
@@ -116,13 +128,13 @@ def make_pp_train_step(cfg, mesh, lr=1e-3, num_microbatches=None, donate=True):
     defaults to the pp size (the least that fills the pipe; more shrink
     the bubble) and must divide each ``dp`` block.  ``donate`` as in
     :func:`.sequence.make_tsp_train_step`."""
-    one_process(mesh)
     if cfg.num_experts:
         raise ValueError(f"the pipeline runs the dense-FFN layers; num_experts="
                          f"{cfg.num_experts} is the dp×tp×sp×ep step's (parallel.sequence)")
     pp, dp = mesh.shape[MeshAxis.PP], mesh.shape[MeshAxis.DP]
     m = int(num_microbatches or pp)
-    stages = [[_stage_mesh(mesh.devices[p, d]) for d in range(dp)] for p in range(pp)]
+    ranks = [[mesh.rank((p, d)) for d in range(dp)] for p in range(pp)]
+    stages = [[_stage_mesh(r) for r in row] for row in ranks]
     dtype = cfg.dtype
 
     def flash(qs, ks, vs, axis):
@@ -138,14 +150,14 @@ def make_pp_train_step(cfg, mesh, lr=1e-3, num_microbatches=None, donate=True):
         return h
 
     def loss_fn(params, xs, ys):
-        acts, dev_last = [], [mesh.devices[pp - 1, d] for d in range(dp)]
+        acts = []
         for d, x in enumerate(xs):
             b, t = x.shape[0], x.shape[1]
             if b % m:
                 raise ValueError(f"the dp block's batch {b} must divide into {m} microbatches")
             if t > cfg.max_len:
                 raise ValueError(f"global sequence length {t} exceeds max_len {cfg.max_len}")
-            dev = mesh.devices[0, d]
+            dev = ranks[0][d].place
             emb = (x.to(dev, dtype) @ params["in_proj"].to(dev, dtype)
                    + params["pos"][:t][None].to(dev, dtype))
             acts.append(list(emb.reshape(m, b // m, t, cfg.d_model)))
@@ -155,16 +167,16 @@ def make_pp_train_step(cfg, mesh, lr=1e-3, num_microbatches=None, donate=True):
                 j = i - p
                 if 0 <= j < m:
                     for d in range(dp):
-                        h = acts[d][j].to(mesh.devices[p, d])
+                        h = move(acts[d][j], ranks[max(p - 1, 0)][d], ranks[p][d])
                         acts[d][j] = run_stage(params, p, d, h)
         logits = []
         for d in range(dp):
-            dev = dev_last[d]
-            h = torch.cat(acts[d]).to(dev)
+            dev = ranks[pp - 1][d].place
+            h = torch.cat(acts[d])
             pooled = _layernorm(h.float(), params["lnf"]).mean(1)
             logits.append(pooled @ params["head"].to(dev))
         # the mean over dp of each block's mean (equal blocks: the global mean)
-        return cross_entropy(logits, ys, rank_device(mesh))
+        return cross_entropy(logits, ys, ranks[pp - 1], rank_of(mesh))
 
     update = sgd_step(loss_fn, lr, donate)
 

@@ -55,7 +55,20 @@ The parameter tree is JAX's (``init_tsp_params``), with tensors for
 arrays; :func:`gather_tsp_params` returns it whole, as numpy arrays.
 :func:`transformer_block` is the block math of both scale-out steps, this
 one and the GPipe pipeline (:mod:`.pipeline`), as in the JAX package.
-One process only: a mesh across processes (:mod:`.hosts`) is refused.
+
+**Across processes** (:mod:`.hosts`; JAX's GSPMD over a multi-process
+global mesh) the mesh's device list is the global one, the processes'
+equal blocks in process order (``split`` lays one axis along the blocks),
+and each process computes the ranks of its block: the others' ranks hold
+``meta`` values in it, and every move between ranks of
+two processes — the ``tp`` partial sums, the ring's hops, the MoE's global
+routing, token gather and combine, the pool's ``sp`` sum, the
+cross-entropy over the global batch — is a differentiable send and receive.
+A process holds a copy of each replicated leaf, and of each shard one of
+its ranks reads, on its first such rank (meta where it holds none); after
+the backward the copies' gradients are summed over the processes
+(``all_reduce``), so every copy takes the same update.  The loss, the
+logits and :func:`gather_tsp_params` come back whole in every process.
 """
 import math
 
@@ -66,7 +79,8 @@ import torch.nn.functional as F
 from ..config import resolve_device
 from ..config.keys import MeshAxis
 from ..models.transformer import _refuse_attn_impl
-from .mesh import Mesh, resolve_devices, world
+from .hosts import gather_leaves, move, reduce_replicas, share, step_exchange, world
+from .mesh import Mesh, resolve_devices
 from .ring_attention import ring_attention
 
 __all__ = ["TSPConfig", "build_tsp_mesh", "init_tsp_params", "shard_tsp_params",
@@ -128,42 +142,64 @@ class TSPConfig:
         self.head_dim = d_model // num_heads
 
 
-def one_process(mesh=None):
-    """Refuse a run across processes: the sharded steps' collectives are
-    the single controller's in-process ones."""
-    if world()[1] > 1 or (mesh is not None and len(set(mesh.owners.tolist())) > 1):
-        raise NotImplementedError(
-            "the sharded transformer steps run in one process; a mesh across processes "
-            "is not carried (ROADMAP.md Queue 1: the sharded transformer steps across "
-            "processes)")
-
-
-def build_mesh(sizes, axis_names, devices=None):
+def build_mesh(sizes, axis_names, devices=None, split=None):
     """A rank mesh of ``sizes`` over the first ``prod(sizes)`` of
     ``devices`` (default: every visible card, each once; a name may repeat,
-    ``["cpu"] * n`` or ``["cuda:0"] * n``).  Too few devices raise."""
-    one_process()
+    ``["cpu"] * n`` or ``["cuda:0"] * n``).  Too few devices raise.
+
+    Across processes ``devices`` is the global list, the processes' equal
+    blocks in process order (default: each process's visible cards), and a
+    rank belongs to the process whose block holds its device.  The ranks
+    take the devices in row-major order, or with ``split`` (an axis name)
+    with that axis outermost, so the processes' blocks lie along it."""
     if devices is None and torch.cuda.device_count() == 0:
         raise RuntimeError("no CUDA device is available; name the ranks' devices "
                            "(devices=['cpu'] * n) to run the mesh on the CPU")
-    devices = resolve_devices(devices)
+    n_proc = world()[1]
+    devices = resolve_devices(devices) * (n_proc if devices is None else 1)
     need = math.prod(sizes)
     if need > len(devices):
         raise ValueError(f"need {need} devices, have {len(devices)}")
+    if len(devices) % n_proc:
+        raise ValueError(f"{len(devices)} devices do not split over {n_proc} processes")
+    order = np.arange(need)
+    if split is None:
+        order = order.reshape(sizes)
+    else:
+        a = list(axis_names).index(split)
+        order = np.moveaxis(order.reshape((sizes[a], *sizes[:a], *sizes[a + 1:])), 0, a)
     arr = np.empty(need, dtype=object)
     arr[:] = devices[:need]
-    return Mesh(arr.reshape(sizes), axis_names)
+    return Mesh(arr[order], axis_names, order // (len(devices) // n_proc))
 
 
-def build_tsp_mesh(dp=1, tp=1, sp=1, ep=1, devices=None):
-    """The ``(dp, tp, sp, ep)`` rank mesh."""
-    return build_mesh((dp, tp, sp, ep), TSP_AXES, devices)
+def build_tsp_mesh(dp=1, tp=1, sp=1, ep=1, devices=None, split=None):
+    """The ``(dp, tp, sp, ep)`` rank mesh (``split``: see :func:`build_mesh`)."""
+    return build_mesh((dp, tp, sp, ep), TSP_AXES, devices, split)
+
+
+def rank_of(mesh, **coords):
+    """The rank at ``coords`` (axis name → index; 0 on the axes not
+    named), a :class:`~.hosts.Rank`."""
+    return mesh.rank(tuple(coords.get(a, 0) for a in mesh.axis_names))
 
 
 def rank_device(mesh, **coords):
-    """The device of the rank at ``coords`` (axis name → index; 0 on the
-    axes not named)."""
-    return mesh.devices[tuple(coords.get(a, 0) for a in mesh.axis_names)]
+    """Where this process holds the values of the rank at ``coords``: its
+    device, or ``meta`` for another process's rank."""
+    return rank_of(mesh, **coords).place
+
+
+def holder(mesh, **coords):
+    """Where this process keeps a parameter the ranks at ``coords`` read:
+    its first rank there (in row-major order), or ``meta`` if it owns
+    none."""
+    me = world()[0]
+    for ix in np.ndindex(mesh.devices.shape):
+        if int(mesh.procs[ix]) == me and all(ix[mesh.axis_names.index(a)] == i
+                                             for a, i in coords.items()):
+            return mesh.devices[ix]
+    return torch.device("meta")
 
 
 def init_tsp_params(generator, cfg, device=None):
@@ -212,11 +248,11 @@ def init_tsp_params(generator, cfg, device=None):
 
 def placed(t, device):
     """A contiguous float32 copy of ``t`` on ``device``, sharing no storage
-    with it."""
+    with it (on ``meta``, its shape alone)."""
     t = torch.as_tensor(t)
     dtype = t.dtype if t.dtype in (torch.int32, torch.int64) else torch.float32
     out = torch.empty(t.shape, dtype=dtype, device=device)
-    return out.copy_(t)
+    return out if out.is_meta else out.copy_(t)
 
 
 def map_named(fn, tree, name=None):
@@ -250,9 +286,10 @@ def rebuild(tree, leaves):
 
 
 def _split(x, dims, mesh, coords):
-    """``x``'s shards over ``dims`` as nested lists, each on its rank."""
+    """``x``'s shards over ``dims`` as nested lists, each where this
+    process keeps it (:func:`holder`)."""
     if not dims:
-        return placed(x, rank_device(mesh, **coords))
+        return placed(x, holder(mesh, **coords))
     (dim, axis), rest = dims[0], dims[1:]
     n = mesh.shape[axis]
     if x.shape[dim] % n:
@@ -262,23 +299,26 @@ def _split(x, dims, mesh, coords):
 
 
 def _join(shards, dims):
-    """The whole leaf of nested ``shards``, as a CPU tensor."""
+    """The whole leaf of nested ``shards`` (CPU tensors)."""
     if not dims:
-        return shards.detach().cpu()
+        return shards
     return torch.cat([_join(s, dims[1:]) for s in shards], dim=dims[0][0])
 
 
 def shard_tsp_params(params, mesh):
     """The tree with every leaf ``PARAM_SHARDS`` names split into its
-    shards, each on its rank; the rest copied to the mesh's first rank."""
+    shards, each on its rank; the rest copied to the mesh's first rank (in
+    several processes: each where this process keeps it, :func:`holder`)."""
     return map_named(lambda name, x: _split(torch.as_tensor(x), PARAM_SHARDS.get(name, ()),
                                             mesh, {}), params)
 
 
 def gather_tsp_params(params):
-    """The whole tree of a sharded (or plain) one, as float32 numpy arrays."""
+    """The whole tree of a sharded (or plain) one, as float32 numpy arrays,
+    in every process."""
+    whole = rebuild(params, iter(gather_leaves(tensors(params))))
     return map_named(lambda name, x: _join(x, PARAM_SHARDS.get(name, ()) if isinstance(
-        x, list) else ()).numpy(), params)
+        x, list) else ()).numpy(), whole)
 
 
 def _check_shards(params, mesh):
@@ -317,13 +357,14 @@ def _blocks(x, mesh):
             for d, row in enumerate(torch.chunk(x, dp, 0))]
 
 
-def split_rows(x, mesh, axis=MeshAxis.DP):
-    """``x``'s rows as one block per ``axis`` rank (0 on the other axes)."""
+def split_rows(x, mesh, axis=MeshAxis.DP, **at):
+    """``x``'s rows as one block per ``axis`` rank (the coordinates ``at``,
+    0 on the other axes)."""
     x = torch.as_tensor(np.asarray(x) if not isinstance(x, torch.Tensor) else x)
     n = mesh.shape[axis]
     if x.shape[0] % n:
         raise ValueError(f"a batch of {x.shape[0]} does not split over {axis}={n}")
-    return [placed(blk, rank_device(mesh, **{axis: i}))
+    return [placed(blk, rank_device(mesh, **{axis: i}, **at))
             for i, blk in enumerate(torch.chunk(x, n, 0))]
 
 
@@ -333,19 +374,27 @@ def shard_tsp_batch(x, y, mesh):
     return _blocks(x, mesh), split_rows(y, mesh)
 
 
-def sum_on(xs, device):
-    """The rank-order sum of ``xs`` on ``device`` (a ``psum`` whose result
-    one rank keeps)."""
-    total = xs[0].to(device)
-    for x in xs[1:]:
-        total = total + x.to(device)
+def sum_on(items, dst):
+    """The rank-order sum of ``items``' values, each ``(value, its rank)``,
+    at rank ``dst`` (a ``psum`` whose result one rank keeps)."""
+    total = None
+    for x, src in items:
+        x = move(x, src, dst)
+        total = x if total is None else total + x
     return total
 
 
-def _global(blocks, device):
-    """``[d][s]`` blocks ``(b_l, t_l, ...)`` as one ``(B, T, ...)`` tensor on
-    ``device``, in global ``(b, t)`` order."""
-    return torch.cat([torch.cat([b.to(device) for b in row], dim=1) for row in blocks], dim=0)
+def _global(blocks, ranks, dst):
+    """``[d][s]`` blocks ``(b_l, t_l, ...)``, each at ``ranks[d][s]``, as one
+    ``(B, T, ...)`` tensor at rank ``dst``, in global ``(b, t)`` order."""
+    return torch.cat([torch.cat([move(b, r, dst) for b, r in zip(row, rrow)], dim=1)
+                      for row, rrow in zip(blocks, ranks)], dim=0)
+
+
+def _block_ranks(mesh):
+    """The ranks ``(d, 0, s, 0)`` that hold the activations, as ``[d][s]``."""
+    return [[rank_of(mesh, dp=d, sp=s) for s in range(mesh.shape[MeshAxis.SP])]
+            for d in range(mesh.shape[MeshAxis.DP])]
 
 
 def _layernorm(x, p):
@@ -369,6 +418,7 @@ def transformer_block(hs, lp, cfg, attn_fn, mesh, stats=None):
     """
     dtype = cfg.dtype
     dp, tp, sp = (mesh.shape[a] for a in (MeshAxis.DP, MeshAxis.TP, MeshAxis.SP))
+    blocks = _block_ranks(mesh)
     # attention: rank (d, t, s) projects its head block, the ring runs over
     # sp, and wo's row-parallel partials sum over tp
     zs = [[_layernorm(h, lp["ln1"]).to(dtype) for h in row] for row in hs]
@@ -378,12 +428,14 @@ def transformer_block(hs, lp, cfg, attn_fn, mesh, stats=None):
         for t in range(tp):
             axis = mesh.axis(MeshAxis.SP, (d, t, 0))
             wqkv, wo = _shard(lp["wqkv"], t), _shard(lp["wo"], t)
-            qkv = [torch.einsum("btd,cdhe->cbhte", zs[d][s].to(dev), wqkv.to(dev, dtype))
-                   for s, dev in enumerate(axis.devices)]
+            qkv = []
+            for s, r in enumerate(axis.ranks):
+                z = move(zs[d][s], blocks[d][s], r)
+                qkv.append(torch.einsum("btd,cdhe->cbhte", z, wqkv.to(r.place, dtype)))
             attn = attn_fn([a[0] for a in qkv], [a[1] for a in qkv], [a[2] for a in qkv], axis)
-            for s, a in enumerate(attn):
-                parts[s].append(torch.einsum("bhte,hed->btd", a, wo.to(a.device, dtype)))
-        out.append([h + sum_on(p, h.device) for h, p in zip(hs[d], parts)])
+            for s, (a, r) in enumerate(zip(attn, axis.ranks)):
+                parts[s].append((torch.einsum("bhte,hed->btd", a, wo.to(r.place, dtype)), r))
+        out.append([h + sum_on(p, blocks[d][s]) for s, (h, p) in enumerate(zip(hs[d], parts))])
     hs = out
 
     zs = [[_layernorm(h, lp["ln2"]).to(dtype) for h in row] for row in hs]
@@ -396,16 +448,15 @@ def transformer_block(hs, lp, cfg, attn_fn, mesh, stats=None):
         for s in range(sp):
             parts = []
             for t in range(tp):
-                dev = rank_device(mesh, dp=d, tp=t, sp=s)
+                r = rank_of(mesh, dp=d, tp=t, sp=s)
                 w1, b1, w2 = (_shard(lp[k], t) for k in ("w1", "b1", "w2"))
-                u = F.gelu(zs[d][s].to(dev) @ w1.to(dev, dtype) + b1.to(dev, dtype),
-                           approximate="tanh")
-                parts.append(u @ w2.to(dev, dtype))
+                u = F.gelu(move(zs[d][s], blocks[d][s], r) @ w1.to(r.place, dtype)
+                           + b1.to(r.place, dtype), approximate="tanh")
+                parts.append((u @ w2.to(r.place, dtype), r))
             h = hs[d][s]
-            row.append(h + (sum_on(parts, h.device) + lp["b2"].to(h.device, dtype)))
+            row.append(h + (sum_on(parts, blocks[d][s]) + lp["b2"].to(h.device, dtype)))
         out.append(row)
-    home = rank_device(mesh)
-    return out, torch.zeros((), dtype=torch.float32, device=home)
+    return out, torch.zeros((), dtype=torch.float32, device=rank_device(mesh))
 
 
 def _switch_moe(zs, lp, cfg, mesh, stats=None):
@@ -413,7 +464,8 @@ def _switch_moe(zs, lp, cfg, mesh, stats=None):
     ``[d][s]`` blocks ``zs``: returns the blocks' outputs (``cfg.dtype``)
     and the switch load-balancing loss (mean gate probability × mean
     assignment rate per expert, times E).  Capacity, buffer positions and
-    the loss's means are global; dispatch and combine gather by index."""
+    the loss's means are global, computed on the mesh's first rank; dispatch
+    and combine gather by index there, and the gathered rows move."""
     dtype = cfg.dtype
     dp, tp, sp, ep = (mesh.shape[a] for a in TSP_AXES)
     e_n = cfg.num_experts
@@ -423,7 +475,8 @@ def _switch_moe(zs, lp, cfg, mesh, stats=None):
     b_l, t_l, dm = zs[0][0].shape
     n_tok = dp * b_l * sp * t_l
     cap = max(int(cfg.capacity_factor * n_tok / e_n), 1)
-    home = rank_device(mesh)
+    home = rank_of(mesh)
+    blocks = _block_ranks(mesh)
 
     # routing in float32 on each block's rank
     gates = [[torch.softmax(z.float().reshape(-1, dm) @ lp["wg"].to(z.device), dim=-1)
@@ -433,7 +486,8 @@ def _switch_moe(zs, lp, cfg, mesh, stats=None):
     # (global (b, t) order) routed to that expert.  The running counts run
     # along the innermost axis: over the outer one, a scan of 65,536 tokens
     # in E = 4 columns took 10.9 ms on the H100 (scripts/time_sharded_steps.py)
-    ex = _global([[e.reshape(b_l, t_l) for e in row] for row in expert], home).reshape(-1)
+    ex = _global([[e.reshape(b_l, t_l) for e in row] for row in expert], blocks,
+                 home).reshape(-1)
     counts = F.one_hot(ex, e_n).t().contiguous().cumsum(1)  # (E, N)
     pos = counts.gather(0, ex[None])[0] - 1
     kept = pos < cap
@@ -446,25 +500,26 @@ def _switch_moe(zs, lp, cfg, mesh, stats=None):
     # (advanced indexing's backward sorts the duplicate indices: 13 ms a
     # layer on the H100); many indices share only the zero rows, whose
     # gradient is dropped, so each kept value's gradient is one term
-    zf = _global([[z.float() for z in row] for row in zs], home).reshape(n_tok, dm)
+    zf = _global([[z.float() for z in row] for row in zs], blocks, home).reshape(n_tok, dm)
     zf = torch.cat([zf, zf.new_zeros(1, dm)])
-    src = torch.full((e_n * cap + 1,), n_tok, dtype=torch.long, device=home)
-    src[slot] = torch.arange(n_tok, device=home)  # row E·C (dropped tokens) is never read
+    src = torch.full((e_n * cap + 1,), n_tok, dtype=torch.long, device=home.place)
+    src[slot] = torch.arange(n_tok, device=home.place)  # row E·C (dropped tokens) is never read
     ys = []
     for r in range(ep):
-        dev = rank_device(mesh, ep=r)
-        rows = src[r * eg * cap:(r + 1) * eg * cap].to(dev)
-        xe = zf.to(dev).index_select(0, rows).reshape(eg, cap, dm)
+        er = rank_of(mesh, ep=r)
+        rows = src[r * eg * cap:(r + 1) * eg * cap]
+        xe = move(zf.index_select(0, rows), home, er).reshape(eg, cap, dm)
         parts = []
         for t in range(tp):
-            dt = rank_device(mesh, tp=t, ep=r)
+            rt = rank_of(mesh, tp=t, ep=r)
             w1, b1, w2 = (_shard(lp[k], r, t) for k in ("w1e", "b1e", "w2e"))
-            u = F.gelu(torch.einsum("ecd,edf->ecf", xe.to(dt, dtype), w1.to(dt, dtype))
-                       + b1.to(dt, dtype)[:, None], approximate="tanh")
-            parts.append(torch.einsum("ecf,efd->ecd", u, w2.to(dt, dtype)))
-        ye = sum_on(parts, dev) + _shard(lp["b2e"], r).to(dev, dtype)[:, None]
-        ys.append(ye.float().reshape(eg * cap, dm))
-    ye = torch.cat([y.to(home) for y in ys] + [ys[0].new_zeros(1, dm).to(home)])
+            u = F.gelu(torch.einsum("ecd,edf->ecf", move(xe, er, rt).to(dtype),
+                                    w1.to(rt.place, dtype))
+                       + b1.to(rt.place, dtype)[:, None], approximate="tanh")
+            parts.append((torch.einsum("ecf,efd->ecd", u, w2.to(rt.place, dtype)), rt))
+        ye = sum_on(parts, er) + _shard(lp["b2e"], r).to(er.place, dtype)[:, None]
+        ys.append(move(ye.float().reshape(eg * cap, dm), er, home))
+    ye = torch.cat(ys + [ys[0].new_zeros(1, dm)])
 
     # combine: each token gathers its slot's output, scaled by its gate
     slot = slot.reshape(dp * b_l, sp * t_l)
@@ -473,13 +528,14 @@ def _switch_moe(zs, lp, cfg, mesh, stats=None):
         row = []
         for s in range(sp):
             g = gates[d][s]
-            idx = slot[d * b_l:(d + 1) * b_l, s * t_l:(s + 1) * t_l].reshape(-1).to(g.device)
+            idx = slot[d * b_l:(d + 1) * b_l, s * t_l:(s + 1) * t_l].reshape(-1)
             gate = g.gather(-1, expert[d][s][:, None])
-            out = ye.to(g.device).index_select(0, idx) * gate
+            out = move(ye.index_select(0, idx), home, blocks[d][s]) * gate
             row.append(out.reshape(b_l, t_l, dm).to(dtype))
         outs.append(row)
     density = counts[:, -1].float() / n_tok
-    proxy = sum_on([g.sum(0) for row in gates for g in row], home) / n_tok
+    proxy = sum_on([(g.sum(0), r) for grow, rrow in zip(gates, blocks)
+                    for g, r in zip(grow, rrow)], home) / n_tok
     return outs, (density * proxy).sum() * e_n
 
 
@@ -505,13 +561,14 @@ def _forward_blocks(params, xs, cfg, mesh, stats=None):
     attend = _ring(cfg)
     for lp in params["layers"]:
         hs, a = transformer_block(hs, lp, cfg, attend, mesh, stats)
-        aux = aux + a.to(home)
+        aux = aux + a
     logits = []
     for d, row in enumerate(hs):
-        dev = rank_device(mesh, dp=d)
+        r = rank_of(mesh, dp=d)
         # the mean over the whole sequence: the sp sum of the blocks' sums / T
-        pooled = sum_on([_layernorm(h.float(), params["lnf"]).sum(1) for h in row], dev) / t
-        logits.append(pooled @ params["head"].to(dev))
+        pooled = sum_on([(_layernorm(h.float(), params["lnf"]).sum(1), rank_of(mesh, dp=d, sp=s))
+                         for s, h in enumerate(row)], r) / t
+        logits.append(pooled @ params["head"].to(r.place))
     return logits, aux
 
 
@@ -520,43 +577,63 @@ def tsp_forward(params, x, cfg, mesh, stats=None):
 
     ``params`` is a tree from :func:`shard_tsp_params` on this mesh; ``x``
     the global inputs or their blocks from :func:`shard_tsp_batch`.  The
-    logits ``(B, classes)`` come back float32 on the mesh's first rank;
-    ``moe_aux_loss`` is 0 for dense FFNs.  ``stats`` (a list) gets each MoE
-    layer's dropped-token share, capacity and each token's expert (global
-    ``(b, t)`` order)."""
-    one_process(mesh)
+    logits ``(B, classes)`` come back float32 on the mesh's first rank (in
+    every process, on its first rank); ``moe_aux_loss`` is 0 for dense FFNs.
+    ``stats`` (a list) gets each MoE layer's dropped-token share, capacity
+    and each token's expert (global ``(b, t)`` order; meta in a process
+    other than the first rank's)."""
     _check_shards(params, mesh)
     xs = x if isinstance(x, list) else _blocks(x, mesh)
     logits, aux = _forward_blocks(params, xs, cfg, mesh, stats)
-    home = rank_device(mesh)
-    return torch.cat([lg.to(home) for lg in logits]), aux
+    home = rank_of(mesh)
+    out = torch.cat([move(lg, rank_of(mesh, dp=d), home) for d, lg in enumerate(logits)])
+    dev = holder(mesh)  # this process's first rank
+    return share(out, dev), share(aux, dev)
 
 
-def cross_entropy(logits, ys, device):
+def cross_entropy(logits, ys, ranks, dst):
     """The mean over the global batch of the blocks' negative
-    log-likelihoods (the blocks' sums added in rank order on ``device``)."""
+    log-likelihoods (each block's at its rank of ``ranks``; their sums added
+    in rank order at rank ``dst``)."""
     b = sum(lg.shape[0] for lg in logits)
-    return sum_on([-F.log_softmax(lg, -1).gather(1, y.to(lg.device).long()[:, None]).sum()
-                   for lg, y in zip(logits, ys)], device) / b
+    return sum_on([(-F.log_softmax(lg, -1).gather(1, y.to(lg.device).long()[:, None]).sum(), r)
+                   for lg, y, r in zip(logits, ys, ranks)], dst) / b
 
 
 def tsp_loss(params, x, y, cfg, mesh):
     """The step's loss: cross-entropy over the global batch plus
     ``moe_aux_weight`` × the MoE aux loss; ``x``, ``y`` blocks from
-    :func:`shard_tsp_batch`."""
+    :func:`shard_tsp_batch` (meta in a process other than the first
+    rank's)."""
     logits, aux = _forward_blocks(params, x, cfg, mesh)
-    return cross_entropy(logits, y, rank_device(mesh)) + cfg.moe_aux_weight * aux
+    ranks = [rank_of(mesh, dp=d) for d in range(len(logits))]
+    return cross_entropy(logits, y, ranks, rank_of(mesh)) + cfg.moe_aux_weight * aux
 
 
 def value_and_grad(loss_fn, params, *args):
     """``(loss, grads)``: ``loss_fn(params, *args)`` and its gradient as a
-    tree of ``params``' structure (zeros for an unused leaf)."""
+    tree of ``params``' structure (zeros for an unused leaf).  Across
+    processes the backward runs in every process from its part of the
+    graph (:mod:`.hosts`), the copies' gradients are summed over the
+    processes, and the loss comes back in every process."""
     leaves = tensors(params)
     work = [p.detach().requires_grad_(True) for p in leaves]
-    loss = loss_fn(rebuild(params, iter(work)), *args)
-    grads = torch.autograd.grad(loss, work, allow_unused=True)
+    if world()[1] == 1:
+        loss = loss_fn(rebuild(params, iter(work)), *args)
+        grads = torch.autograd.grad(loss, work, allow_unused=True)
+    else:
+        with step_exchange() as ex:
+            loss = loss_fn(rebuild(params, iter(work)), *args)
+            root = ex.root(loss)
+            held = [w for w in work if not w.is_meta]
+            got = (torch.autograd.grad(root, held + [ex.anchor], allow_unused=True)
+                   if root is not None else [None] * (len(held) + 1))
+        got = iter(got)
+        grads = [None if w.is_meta else next(got) for w in work]
     grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
-    return loss.detach(), rebuild(params, iter(grads))
+    grads = reduce_replicas(grads)
+    loss = share(loss.detach(), next((p.device for p in leaves if not p.is_meta), "cpu"))
+    return loss, rebuild(params, iter(grads))
 
 
 def sgd_step(loss_fn, lr, donate):
@@ -584,7 +661,6 @@ def make_tsp_train_step(cfg, mesh, lr=1e-3, donate=True):
     axes that replicate it, GSPMD's reductions).  With ``donate`` (the JAX
     package's buffer donation) the shards are updated in place; callers
     that read the pre-step tree after the call pass ``donate=False``."""
-    one_process(mesh)
     update = sgd_step(lambda p, xs, ys: tsp_loss(p, xs, ys, cfg, mesh), lr, donate)
 
     def step(params, x, y):

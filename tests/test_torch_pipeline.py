@@ -181,3 +181,24 @@ def test_refusals():
         pp.build_pp_mesh(2, 2, devices=["cpu"] * 2)
     with pytest.raises(ValueError, match="pp=4 must divide"):
         pp.shard_pp_params(_port_tree(6, pc), pp.build_pp_mesh(4, 1, devices=["cpu"] * 4))
+
+
+def test_multiprocess_mesh_builds(monkeypatch):
+    """Across two processes the pp mesh gives each process one stage; this
+    process (the second) keeps its stage's layers and a copy of the rest,
+    meta for the other stage's (the multi-process run itself:
+    tests/test_torch_sharded_multiprocess.py)."""
+    from coinstac_dinunet_tpu_torch.parallel import mesh as mesh_mod
+
+    monkeypatch.setattr(mesh_mod.torch.distributed, "is_initialized", lambda: True)
+    monkeypatch.setattr(mesh_mod.torch.distributed, "get_rank", lambda: 1)
+    monkeypatch.setattr(mesh_mod.torch.distributed, "get_world_size", lambda: 2)
+    mesh = pp.build_pp_mesh(2, 2, devices=["cpu"] * 4)
+    assert mesh.procs.tolist() == [[0, 0], [1, 1]]
+    assert (pp.build_pp_mesh(2, 2, devices=["cpu"] * 4, split="dp").procs.tolist()
+            == [[0, 1], [0, 1]])
+    _, pc = _configs()
+    sharded = pp.shard_pp_params(_port_tree(7, pc), mesh)
+    stage0, stage1 = sharded["layers"]["wqkv"]
+    assert stage0.is_meta and not stage1.is_meta
+    assert not sharded["head"].is_meta

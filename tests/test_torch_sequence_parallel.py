@@ -383,12 +383,22 @@ def test_mesh_building_and_refusals(monkeypatch):
     with pytest.raises(ValueError, match="shard_tsp_params"):
         seq.tsp_forward(seq.shard_tsp_params(whole, _port_mesh((1, 1, 1, 1))),
                         _data(pc)[0], pc, m2)
-    # one process only
+    # across processes: the global device list's equal blocks, each
+    # process's ranks its block's (the multi-process run itself:
+    # tests/test_torch_sharded_multiprocess.py)
     from coinstac_dinunet_tpu_torch.parallel import mesh as mesh_mod
 
     monkeypatch.setattr(mesh_mod.torch.distributed, "is_initialized", lambda: True)
-    monkeypatch.setattr(mesh_mod.torch.distributed, "get_rank", lambda: 0)
+    monkeypatch.setattr(mesh_mod.torch.distributed, "get_rank", lambda: 1)
     monkeypatch.setattr(mesh_mod.torch.distributed, "get_world_size", lambda: 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1: the sharded "
-                                                  "transformer steps across processes"):
-        seq.build_tsp_mesh(devices=["cpu"])
+    dense = seq.build_tsp_mesh(2, 2, 2, 1, devices=["cpu"] * 8)
+    assert [int(dense.procs[d].min()) for d in range(2)] == [0, 1]
+    assert all(int(dense.procs[d].max()) == d for d in range(2))  # split along dp
+    assert dense.rank((1, 1, 1, 0)).mine and not dense.rank((0, 1, 1, 0)).mine
+    assert str(dense.rank((0, 0, 0, 0)).place) == "meta"
+    moe = seq.build_tsp_mesh(1, 2, 2, 2, devices=["cpu"] * 8, split="ep")
+    assert (moe.procs == np.arange(2)[None, None, None, :]).all()  # split along ep
+    assert (seq.build_tsp_mesh(1, 2, 2, 2, devices=["cpu"] * 8).procs
+            == np.arange(2)[None, :, None, None]).all()  # row-major: along tp
+    with pytest.raises(ValueError, match="3 devices do not split over 2 processes"):
+        seq.build_tsp_mesh(devices=["cpu"] * 3)
