@@ -17,7 +17,9 @@ Phases, in order; any failure exits non-zero before the last line:
    division, edge sizes, a misaligned view, 200 segments);
    K2–K4 (flash-attention forward, dq, dk/dv) at head dims 16, 32, 64 and
    128 (16: the sequence example's attention, B 8, H 4, T 128, in both
-   types, and T 4096) within stated tolerances
+   types, and T 4096) and at head dims 4, 8 and 24, which the wrapper
+   zero-pads to the next instantiated one (short edges in both types, and
+   T 4096 timed), within stated tolerances
    (the bfloat16 tensor-core forward, dq and dk/dv against the plain
    version with the kernels' bfloat16 roundings and against the float32
    one, with ``scaled_dot_product_attention``'s forward and backward as the
@@ -315,6 +317,20 @@ Phases, in order; any failure exits non-zero before the last line:
    0's process; 8 and 8); each worker killed after
    ``SPLIT_WORKER_TIMEOUT_S``.
 
+23. main path 19 — the port's analyzer (``python -m
+   coinstac_dinunet_tpu_torch.analysis``) where the port runs, a machine
+   without JAX.  23a: the static tiers, the model checker and the wire
+   auditor over the port with ``dinulint_torch_baseline.json``: exit 0.
+   23b: the 15 deep entries at the JAX stand-ins' shapes on the card
+   (``--deep --tier3 --device cuda``; every rank mesh ``["cuda"] * 8``),
+   each run twice, the second under the host-sync watch: no ``deep-*``
+   finding; K2 launched in the ring and Ulysses entries (forward only, at
+   head dim 8) and K2, K3 and K4 in the TSP, TSP-MoE and pipeline entries
+   (head dim 4), counted per entry; every ``perf-host-sync`` site printed
+   by entry and ``file:line``.  23c: a planted entry whose step calls
+   ``.item()`` is flagged ``perf-host-sync`` at this file's planted line.
+   The phase's seconds and the script's are printed.
+
 Then one JSON line ``{"kernels": [...]}``, the ``nvidia-smi`` name/power
 line, and the last line ``{"ok": true, "device": {...}}``.  Per-shape
 numbers go to ``chiprun_out/chip_smoke.json``.
@@ -602,6 +618,15 @@ _FLASH_EDGES = [
     ("t160_d16_causal", 1, 2, 160, 16, True, 0, 0, None, True),
     ("offsets_d16", 1, 2, 333, 16, True, 100, 37, 300, True),
 ]
+# head dims the kernels run zero-padded to the next instantiated one: 4
+# (the analyzer's sharded-step stand-ins, d_model 16 over 4 heads), 8 (its
+# ring and Ulysses stand-ins) and 24, no power of two; edges in both types
+_FLASH_PADDED_EDGES = [
+    ("t160_d4_causal", 1, 2, 160, 4, True, 0, 0, None, True),
+    ("offsets_d8", 1, 2, 333, 8, True, 100, 37, 300, True),
+    ("t160_d24", 1, 2, 160, 24, False, 0, 0, None, True),
+    ("offsets_d24", 1, 2, 333, 24, True, 100, 37, 300, True),
+]
 FLASH_CASES = [
     ("main", 16, 4, 4096, 32, "bfloat16", False, 0, 0, None, False),
     ("tpu", 1, 8, 8192, 128, "bfloat16", True, 0, 0, None, False),
@@ -613,7 +638,18 @@ FLASH_CASES = [
     ("seq_example_f32", 8, 4, 128, 16, "float32", False, 0, 0, None, False),
     ("d16_long", 8, 4, 4096, 16, "bfloat16", False, 0, 0, None, False),
 ] + [(name, b, h, t, d, "float32", *rest) for name, b, h, t, d, *rest in _FLASH_EDGES] + [
-    (name + "_bf16", b, h, t, d, "bfloat16", *rest) for name, b, h, t, d, *rest in _FLASH_EDGES]
+    (name + "_bf16", b, h, t, d, "bfloat16", *rest) for name, b, h, t, d, *rest in _FLASH_EDGES
+] + [
+    # the padded head dims at a long T, timed (after the cases above, whose
+    # seeds are their positions); d 24 in float32: in bfloat16 at this T,
+    # K3's rounding-matched dq sits at the edge of its gate whatever the
+    # head dim (scripts/flash_dq_rounding_spread.py)
+    ("d4_long", 8, 4, 4096, 4, "bfloat16", False, 0, 0, None, False),
+    ("d8_long", 8, 4, 4096, 8, "bfloat16", False, 0, 0, None, False),
+    ("d24_long_f32", 8, 4, 4096, 24, "float32", False, 0, 0, None, False),
+] + [(name, b, h, t, d, "float32", *rest) for name, b, h, t, d, *rest in _FLASH_PADDED_EDGES] + [
+    (name + "_bf16", b, h, t, d, "bfloat16", *rest)
+    for name, b, h, t, d, *rest in _FLASH_PADDED_EDGES]
 # Tolerance of a kernel's output against its plain version: 1e-4 of the
 # plain output's largest magnitude, plus 1e-6.  Both compute in float32 from
 # the same (bf16 or f32) input values; they differ in the order of the
@@ -648,7 +684,8 @@ FLASH_BF16_RTOL = 2e-2
 FLASH_BF16_LIBRARY_FACTOR = 2.0
 # the cases whose kernel, plain-version, bound and library times are taken
 FLASH_D16_TIMED = ("seq_example", "seq_example_f32", "d16_long")
-FLASH_TIMED = ("main", "tpu", "vectorized", *FLASH_D16_TIMED)
+FLASH_PADDED_TIMED = ("d4_long", "d8_long", "d24_long_f32")
+FLASH_TIMED = ("main", "tpu", "vectorized", *FLASH_D16_TIMED, *FLASH_PADDED_TIMED)
 FLASH_SOURCES = {
     "flash_attention_fwd": ("coinstac_dinunet_tpu_torch/csrc/flash_attention_fwd.cu",
                             "coinstac_dinunet_tpu/ops/flash_attention.py:79"),
@@ -854,11 +891,14 @@ def check_flash(dev, report):
         torch.cuda.empty_cache()
     report["flash_cases"] = rows
     report["flash_library_errors"] = library_errs
-    # the head-dim-16 shapes' times ride along in the kernels' entries
+    # the head-dim-16 and padded head dims' times ride along in the
+    # kernels' entries
     for row in rows:
-        if row["case"] in FLASH_D16_TIMED:
-            for name, kern in kernels.items():
-                kern.setdefault("times_d16", {})[row["case"]] = row["times"][name]
+        for group, cases in (("times_d16", FLASH_D16_TIMED),
+                             ("times_padded_d", FLASH_PADDED_TIMED)):
+            if row["case"] in cases:
+                for name, kern in kernels.items():
+                    kern.setdefault(group, {})[row["case"]] = row["times"][name]
     for name, kern in kernels.items():
         kern["max_abs_err"] = errs[name]
         # bfloat16 cases: max_abs_err is against the rounding-matched plain
@@ -5987,6 +6027,108 @@ def log_split_path(path, smi):
         f"{path['wall_s']:.1f} s")
 
 
+# ---- path 19 (phase 23): the port's analyzer on the card.  The entries
+# whose K2–K4 launches are gated: forward-only attention (K2) and the
+# sharded steps (K2, K3 and K4).
+ANALYZER_K2_ENTRIES = ("ring-attention", "ulysses-attention")
+ANALYZER_K234_ENTRIES = ("pipeline-train-step", "tsp-moe-train-step", "tsp-train-step")
+PLANTED_ENTRY = "planted-host-sync"
+
+
+def planted_step(x):
+    """The planted entry's step: a host sync on its first line."""
+    return x.sum().item()
+
+
+def run_analyzer(argv):
+    """The port's CLI in this process from the repository root (its
+    findings' paths are relative to it): ``(exit code, JSON report)``."""
+    import io
+
+    from coinstac_dinunet_tpu_torch.analysis.__main__ import main as dinulint
+
+    out = io.StringIO()
+    with contextlib.chdir(HERE), contextlib.redirect_stdout(out):
+        rc = dinulint([*argv, "--format", "json"])
+    return rc, json.loads(out.getvalue())
+
+
+def run_analyzer_path():
+    """Path 19 (phase 23): 23a the static, model and wire tiers; 23b the
+    deep entries and the host-sync rule on the card; 23c the planted
+    sync."""
+    import torch
+
+    from coinstac_dinunet_tpu_torch.analysis import deepcheck
+
+    fa = importlib.import_module("coinstac_dinunet_tpu_torch.ops.flash_attention")
+    t0 = time.perf_counter()
+    base = ["coinstac_dinunet_tpu_torch", "--baseline", "dinulint_torch_baseline.json"]
+    faults = []
+    rc, static = run_analyzer([*base, "--model", "--wire"])
+    if rc != 0:
+        faults.append(f"23a: --model --wire exited {rc}: {static['new']}")
+    static_s = time.perf_counter() - t0
+    # 23b: each entry run with the counts at 0 just before and read just
+    # after (the CLI below reuses these runs: same entries, same device)
+    launches, entry_s = {}, {}
+    for name in deepcheck.list_entry_points():
+        for kern in fa.KERNELS:
+            kern.launches = 0
+        t1 = time.perf_counter()
+        run = deepcheck.run_entry(name, "cuda")
+        torch.cuda.synchronize()
+        entry_s[name] = time.perf_counter() - t1
+        launches[name] = dict(zip(FLASH_SOURCES, (kern.launches for kern in fa.KERNELS)))
+        if run.rule is not None:
+            faults.append(f"23b: entry {name}: {run.rule}: {run.message}")
+    rc_deep, deep = run_analyzer([*base, "--deep", "--tier3", "--device", "cuda"])
+    findings = deep["new"] + deep["baselined"]
+    faults += [f"23b: {f['rule']} at {f['path']}: {f['message']}" for f in findings
+               if f["rule"].startswith("deep-")]
+    for name in ANALYZER_K2_ENTRIES + ANALYZER_K234_ENTRIES:
+        need = (("flash_attention_fwd",) if name in ANALYZER_K2_ENTRIES else tuple(FLASH_SOURCES))
+        if any(launches[name][k] == 0 for k in need):
+            faults.append(f"23b: entry {name} launched {launches[name]}: want {need} > 0")
+    syncs = [f for f in findings if f["rule"] == "perf-host-sync"]
+    # 23c: the planted entry, flagged at its line of this file
+    planted_line = planted_step.__code__.co_firstlineno + 2
+    deepcheck.register_entry_point(PLANTED_ENTRY, "chip_smoke.py")(
+        lambda device: (planted_step, (torch.ones(16, device=device),)))
+    try:
+        _, planted = run_analyzer([*base, "--deep", "--tier3", "--device", "cuda",
+                                   "--deep-entries", PLANTED_ENTRY, "--rules", "perf-host-sync"])
+    finally:
+        deepcheck.DEEP_REGISTRY.pop(PLANTED_ENTRY)
+    flagged = [(f["path"], f["line"]) for f in planted["new"] if f["rule"] == "perf-host-sync"]
+    if flagged != [("chip_smoke.py", planted_line)]:
+        faults.append(f"23c: the planted .item() at chip_smoke.py:{planted_line} was "
+                      f"flagged at {flagged}")
+    if faults:
+        raise AssertionError("path 19:\n  " + "\n  ".join(faults))
+    return {"static_rc": rc, "static_s": static_s, "deep_rc": rc_deep,
+            "launches": launches, "entry_s": entry_s,
+            "deep_findings": [f["rule"] for f in findings if f["rule"].startswith("deep-")],
+            "syncs": [{"path": f["path"], "line": f["line"], "message": f["message"]}
+                      for f in syncs],
+            "planted": flagged, "wall_s": time.perf_counter() - t0}
+
+
+def log_analyzer_path(path, smi):
+    log(f"  23a: --model --wire exit {path['static_rc']} in {path['static_s']:.1f} s; 23b: "
+        f"--deep --tier3 exit {path['deep_rc']} (perf-host-sync findings are not gated), "
+        f"deep-* findings {path['deep_findings']}")
+    for name, counts in path["launches"].items():
+        log(f"  entry {name:28s} K2/K3/K4 launches "
+            + "/".join(str(counts[k]) for k in FLASH_SOURCES)
+            + f", two runs {path['entry_s'][name]:.2f} s")
+    for f in path["syncs"]:
+        log(f"  perf-host-sync {f['path']}:{f['line']}: {f['message']}")
+    log(f"  23c: planted .item() flagged at {path['planted']}")
+    log(f"  phase 23: {path['wall_s']:.1f} s; script so far "
+        f"{time.perf_counter() - T_START:.1f} s | {smi}")
+
+
 def profiled_round(eng):
     """One engine round under ``torch.profiler``: the round's host wall
     time, the device time its kernels took, the idle share, and the
@@ -6310,6 +6452,11 @@ def main():
     split_path = run_split_path(dev, sharded_path.pop("keep"))
     log_split_path(split_path, smi)
 
+    log(f"[23 main path 19: the port's analyzer] the static, model and wire tiers, then the "
+        f"15 deep entries on the card with the host-sync watch, then a planted .item() | {smi}")
+    analyzer_path = run_analyzer_path()
+    log_analyzer_path(analyzer_path, smi)
+
     k1["launches_by_path"] = {"vbm_dsgd": main_path["launches"],
                               "vbm_pretrain_powersgd": psgd_path["launches"],
                               "seq_rankdad": dad_path["k1_launches"],
@@ -6346,7 +6493,10 @@ def main():
                                        sharded_path["launches"].items()},
                                     "seq_local_dp2": dp_path["17a"]["launches"][kern["name"]],
                                     **{path: split_path["launches"][path][kern["name"]]
-                                       for path in split_path["launches"]}}
+                                       for path in split_path["launches"]},
+                                    **{f"analyzer_{name}": counts[kern["name"]]
+                                       for name, counts in analyzer_path["launches"].items()
+                                       if any(counts.values())}}
     kernels = [k1, *k234]
     report.update(main_path=main_path, seq_path=seq_path, powersgd_path=psgd_path,
                   rankdad_path=dad_path, fresh_process_path=fresh_path,
@@ -6360,7 +6510,7 @@ def main():
                   fused_groupnorm=models_path["fused_groupnorm"],
                   multinet_config5=models_path["multinet"], native_examples_path=native_path,
                   mesh_path=mesh_path, sharded_path=sharded_path, local_dp_path=dp_path,
-                  split_path=split_path,
+                  split_path=split_path, analyzer_path=analyzer_path,
                   device=kind,
                   power=smi, kernels=kernels)
     out_dir = os.path.join(HERE, "chiprun_out")
@@ -6368,6 +6518,7 @@ def main():
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=2)
 
+    log("[done] every phase passed")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

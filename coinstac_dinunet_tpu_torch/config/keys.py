@@ -7,10 +7,12 @@ dSGD path, the invocation retries, the daemon engine, the engine's
 telemetry lane, quorum, the staleness-bounded async rounds and the
 site-vectorized federation, run-ahead pipelining, the roster protocol
 of elastic membership, the mesh axes, the health layer (metrics, anomalies, perf and
-capture keys) and the models and torch checkpoint import use; the
-vocabularies of the features the port does not carry yet (the live ops
-plane's knobs and verdicts, analysis tiers) stay in the JAX package until
-their slice lands (``ROADMAP.md`` Queue 1).
+capture keys), the models and torch checkpoint import, and the port's
+analyzer (``analysis/``: the engine-provided keys, the phase machine, the
+model checker's and the wire auditor's rule vocabularies) use; the
+vocabularies of the features the port does not carry yet (the analyzer's
+concurrency and numerics tiers) stay in the JAX package until their slice
+lands (``ROADMAP.md`` Queue 1).
 """
 from enum import Enum
 
@@ -395,6 +397,120 @@ class Membership:
     EVENT_LEAVE = "membership:leave"
     EVENT_REJOIN = "membership:rejoin"
     EVENT_REFUSED = "membership:refused"
+
+
+# Keys a node reads from ``input`` that the engine or compspec injects on
+# the first invocation (not part of the local↔remote handshake); the
+# analyzer's protocol-conformance rule treats reads of these as
+# engine-provided rather than consumed-but-never-produced.  ``leave`` asks
+# a site to flag its next contribution as its graceful last one;
+# ``membership_sync`` asks a member to ship its live weights for a
+# joiner's warm start.
+ENGINE_PROVIDED_KEYS = ("task_id", "data_conf", "leave", "membership_sync")
+
+
+#: The invocation-per-round phase machine: which :class:`Phase` values may
+#: follow which across engine invocations — the contract
+#: ``nodes/local.py``/``nodes/remote.py`` implement, parsed (never
+#: imported) by the analyzer's ``proto-flow-*``/``proto-cache-*`` rules
+#: (``analysis/protocol_flow.py``) and its model checker.  COMPUTATION
+#: self-loops (one entry per federated round); NEXT_RUN_WAITING forks into
+#: the next fold or run-level SUCCESS.
+PHASE_TRANSITIONS = {
+    Phase.INIT_RUNS: (Phase.NEXT_RUN,),
+    Phase.NEXT_RUN: (Phase.COMPUTATION, Phase.PRE_COMPUTATION),
+    Phase.PRE_COMPUTATION: (Phase.COMPUTATION,),
+    Phase.COMPUTATION: (Phase.COMPUTATION, Phase.NEXT_RUN_WAITING),
+    Phase.NEXT_RUN_WAITING: (Phase.NEXT_RUN, Phase.SUCCESS),
+    Phase.SUCCESS: (),
+}
+
+
+class ModelCheck:
+    """The model checker's contract (``--model``,
+    :mod:`~..analysis.model_check`), the JAX package's constants: the
+    default exploration bound and the global invariants the composed
+    N-site × aggregator × relay model is checked against, one
+    ``proto-model-*`` rule each.
+
+    - ``DEADLOCK`` — some node can always progress, or the run has ended.
+    - ``PHASE_RESET`` — the lifecycle never regresses to INIT_RUNS.
+    - ``QUORUM`` — a reduce never proceeds below the quorum.
+    - ``STALE_CONTRIBUTION`` / ``LOST_CONTRIBUTION`` — every gradient
+      contribution counts exactly once (a stale delivery within the async
+      window ``k``, plus the run-ahead depth ``d``, is accepted; older ones
+      are refused loudly).
+    - ``LOST_UPDATE`` — every alive site applies every broadcast once.
+    - ``UNRECOVERABLE`` — one transient relay fault never kills a site or
+      the run while wire retries and the chaos heal are in play.
+    - ``CACHE`` — path-sensitive cache write-before-read.
+    - ``VOLATILE`` — the JAX package's volatile-key hygiene of its
+      compiled-step bucket; the port has no compiled step, and its model
+      checker never reports it (``analysis/model_check.py``).
+    - ``WIRE`` — every wire key produced on an explored path is consumed
+      on some reachable path.
+    - ``ROSTER`` / ``ADMISSION`` — elastic membership: no contribution
+      from a non-member epoch enters a reduce, quorum is judged against the
+      current roster, and a joiner admitted at round r contributes to round
+      r+1's reduce exactly once.
+    - ``CONFIG`` — the tier's own error channel.
+    """
+
+    DEFAULT_SITES = 2
+    DEFAULT_ROUNDS = 3      # federated reduce rounds inside the bound
+    DEFAULT_FAULT_BUDGET = 1  # simultaneous-fault tolerance level verified
+    # the async window and run-ahead depth explored alongside lockstep
+    DEFAULT_STALENESS_K = 1
+    DEFAULT_RUN_AHEAD = 1
+    # every bound explored with the roster fixed and with one spare slot
+    # plus the join/leave/rejoin actions
+    DEFAULT_ELASTIC = True
+
+    DEADLOCK = "proto-model-deadlock"
+    PHASE_RESET = "proto-model-phase-reset"
+    QUORUM = "proto-model-quorum"
+    STALE_CONTRIBUTION = "proto-model-stale-contribution"
+    LOST_CONTRIBUTION = "proto-model-lost-contribution"
+    LOST_UPDATE = "proto-model-lost-update"
+    UNRECOVERABLE = "proto-model-unrecoverable"
+    CACHE = "proto-model-cache"
+    VOLATILE = "proto-model-volatile"
+    WIRE = "proto-model-wire"
+    CONFIG = "proto-model-config"
+    ROSTER = "proto-model-roster"
+    ADMISSION = "proto-model-admission"
+
+
+class WireContract:
+    """The wire-contract auditor (``--wire``,
+    :mod:`~..analysis.wire_schema`), the JAX package's rule ids:
+
+    - ``ORPHAN`` — a wire key consumed with no producer on the other side
+      (or produced and never consumed);
+    - ``UNVERSIONED`` — a payload path that does not echo the
+      ``wire_round``/``roster_epoch`` stamps;
+    - ``DENSE`` — a full-tensor wire path outside the codec-capable
+      ``save_wire`` choke point;
+    - ``LOCK`` — the lifted schema drifted from the checked-in lockfile;
+    - ``UNMODELED`` — ``--reconcile`` only: observed wire telemetry bytes
+      no schema entry accounts for;
+    - ``CONFIG`` — the tier's own error channel.
+
+    The default-tier rule ``wire-atomic-commit`` shares the ``wire-``
+    spelling; tier ownership goes by these exact ids.  ``LOCKFILE`` is the
+    port's own lockfile at the repository root (the JAX package's is
+    ``wire_schema.lock.json``; the entries carry no paths, so the two
+    compare entry for entry).
+    """
+
+    ORPHAN = "wire-orphan"
+    UNVERSIONED = "wire-unversioned"
+    DENSE = "wire-dense"
+    LOCK = "wire-lock"
+    UNMODELED = "wire-unmodeled"
+    CONFIG = "wire-config"
+
+    LOCKFILE = "wire_schema_torch.lock.json"
 
 
 class AggEngine(_StrEnum):

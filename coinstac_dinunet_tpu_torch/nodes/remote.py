@@ -219,9 +219,10 @@ class COINNRemote:
         stamp, is a stale or duplicated message.  An echoed roster epoch
         ahead of the aggregator's is a cross-run or forged message."""
         rec = telemetry.get_active()
-        phases = {sv.get(LocalWire.PHASE.value) for sv in self.input.values()}
+        phases = {site_vars.get(LocalWire.PHASE.value) for site_vars in self.input.values()}
         if len(phases) > 1:
-            per_site = {s: sv.get(LocalWire.PHASE.value) for s, sv in self.input.items()}
+            per_site = {s: site_vars.get(LocalWire.PHASE.value)
+                        for s, site_vars in self.input.items()}
             rec.event("quorum:fail", cat="quorum", reason="mixed phases", phases=per_site)
             raise RuntimeError(
                 f"lockstep phase violation: sites report mixed phases "
@@ -236,8 +237,8 @@ class COINNRemote:
         window = int(self.cache.get(Federation.ASYNC_STALENESS) or 0)
         window += int(self.cache.get(Federation.RUN_AHEAD) or 0)
         stale, behind = {}, {}
-        for site, sv in self.input.items():
-            echo = sv.get(LocalWire.ROUND.value)
+        for site, site_vars in self.input.items():
+            echo = site_vars.get(LocalWire.ROUND.value)
             if echo is None:
                 continue
             lag = int(expected) - int(echo)
@@ -270,9 +271,10 @@ class COINNRemote:
         cur = (self.cache.get(Membership.ROSTER) or {}).get("epoch")
         if cur is None:
             return
-        key = LocalWire.ROSTER_EPOCH.value
-        ahead = {site: int(sv[key]) for site, sv in self.input.items()
-                 if sv.get(key) is not None and int(sv[key]) > int(cur)}
+        ahead = {site: int(site_vars[LocalWire.ROSTER_EPOCH.value])
+                 for site, site_vars in self.input.items()
+                 if site_vars.get(LocalWire.ROSTER_EPOCH.value) is not None
+                 and int(site_vars[LocalWire.ROSTER_EPOCH.value]) > int(cur)}
         if ahead:
             rec.event("quorum:fail", cat="quorum", reason="roster epoch ahead",
                       epoch=int(cur), ahead=ahead)
@@ -543,7 +545,8 @@ class COINNRemote:
         from ..federation import membership
 
         membership.retire_leaving(self.cache, {
-            site: sv for site, sv in self.input.items() if sv.get(LocalWire.LEAVING.value)
+            site: site_vars for site, site_vars in self.input.items()
+            if site_vars.get(LocalWire.LEAVING.value)
         })
         if rec.enabled:
             self._broadcast_health(rec)

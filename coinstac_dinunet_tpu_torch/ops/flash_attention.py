@@ -21,7 +21,10 @@ Two implementations of each direction:
   before the products, whose sums are float32, as on the TPU's matrix unit;
   the softmax state (row max, row sum, the output accumulator) stays
   float32.  For float32 inputs all three compute in float32 on the CUDA
-  cores;
+  cores.  They are instantiated for head dims 16, 32, 64 and 128; any
+  other head dim up to 128 runs on the next of them, q, k, v and g_out
+  zero-padded in the head dim and out, dq, dk, dv sliced back
+  (:func:`padded_head_dim`; zero columns change no score);
 - :func:`flash_forward_plain` and :func:`flash_backward_plain`, plain
   PyTorch in float32 with autocast off (the dense form of the same
   identities, the counterparts of ``_flash_xla`` and the XLA backward),
@@ -61,7 +64,9 @@ _LOG2E = 1.4426950408889634
 _LN2 = 0.6931471805599453
 
 #: head dims the kernels are instantiated for (16: the sequence example's
-#: d_model 64 over 4 heads)
+#: d_model 64 over 4 heads); any head dim from 1 to the largest runs on the
+#: next of them, q, k, v and g_out zero-padded in the head dim
+#: (:func:`padded_head_dim`)
 HEAD_DIMS = (16, 32, 64, 128)
 #: keys of a K/V tile of the bfloat16 forward kernel at every head dim
 #: (``Config<D>::kN`` in ``csrc/flash_attention_fwd_wgmma.cuh``): the tiles
@@ -233,10 +238,27 @@ def flash_backward_plain(q, k, v, out, lse, g_out, g_lse, q_offset, k_offset,
                            q_offset, k_offset, kv_len, causal, scale)
 
 
+def padded_head_dim(d):
+    """The instantiated head dim (``HEAD_DIMS``) a head dim ``d`` runs at:
+    the smallest that holds it.  Zero columns change no score ``q·k``
+    and add nothing to ``p·v``, so the kernel's output, lse and gradients
+    in the first ``d`` columns are those of the unpadded call (given the
+    unpadded head dim's scale); the padded columns are dropped."""
+    for dim in HEAD_DIMS:
+        if 1 <= d <= dim:
+            return dim
+    raise ValueError(f"flash attention kernels take head dims 1 to {HEAD_DIMS[-1]}, not {d}")
+
+
+def _pad_head_dim(t, dim):
+    """``t`` zero-padded in its last axis to ``dim`` columns, contiguous."""
+    d = t.shape[-1]
+    return (t if d == dim else torch.nn.functional.pad(t, (0, dim - d))).contiguous()
+
+
 def _check_cuda(q, k, v):
     d = q.shape[-1]
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash attention kernels take head dims {HEAD_DIMS}, not {d}")
+    padded_head_dim(d)
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"flash attention kernels take float32 or bfloat16, not {q.dtype}")
     if k.dtype != q.dtype or v.dtype != q.dtype:
@@ -257,49 +279,57 @@ def _shape_args(q, k, pos, causal, scale, stream):
 
 
 def flash_forward_cuda(q, k, v, q_offset, k_offset, kv_len, causal, scale):
-    """K2 on the card; same contract as :func:`flash_forward_plain`."""
+    """K2 on the card; same contract as :func:`flash_forward_plain`, at any
+    head dim from 1 to 128 (:func:`padded_head_dim`)."""
     _check_cuda(q, k, v)
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     bh, tq, d = q.shape
-    out = torch.empty((bh, tq, d), dtype=torch.float32, device=q.device)
+    dim = padded_head_dim(d)
+    q, k, v = (_pad_head_dim(t, dim) for t in (q, k, v))
+    out = torch.empty((bh, tq, dim), dtype=torch.float32, device=q.device)
     lse = torch.empty((bh, tq), dtype=torch.float32, device=q.device)
     if out.numel() == 0 or k.shape[1] == 0:  # no key: every row fully masked
-        return out.zero_(), lse.fill_(_NEG)
+        return out[..., :d].zero_(), lse.fill_(_NEG)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         FWD_KERNEL.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                           lse.data_ptr(), *_shape_args(q, k, (q_offset, k_offset, kv_len),
                                                        causal, scale, stream))
-    return out, lse
+    return (out if dim == d else out[..., :d].contiguous()), lse
 
 
-def _bwd_cuda(kernel, outs, q, k, v, g_out, lse, delta, g_lse, q_offset,
+def _bwd_cuda(kernel, out_rows, q, k, v, g_out, lse, delta, g_lse, q_offset,
               k_offset, kv_len, causal, scale):
+    """One backward kernel: float32 outputs of ``(bh, rows, d)`` for each
+    of ``out_rows``, computed at the padded head dim and sliced back."""
     _check_cuda(q, k, v)
-    ins = [t.contiguous() for t in (q, k, v)]
+    d = q.shape[-1]
+    dim = padded_head_dim(d)
+    ins = [_pad_head_dim(t, dim) for t in (q, k, v)]
     # the bfloat16 kernels take g_out in bfloat16 (their products run on
     # bfloat16 tiles), the float32 kernels in float32
-    ins += [g_out.to(q.dtype).contiguous()]
+    ins += [_pad_head_dim(g_out.to(q.dtype), dim)]
     ins += [t.float().contiguous() for t in (lse, delta, g_lse)]
+    outs = [torch.empty((q.shape[0], rows, dim), dtype=torch.float32, device=q.device)
+            for rows in out_rows]
     if q.numel() == 0 or k.numel() == 0:
-        return [o.zero_() for o in outs]
+        return [o[..., :d].zero_() for o in outs]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         kernel.launch(*(t.data_ptr() for t in ins + outs),
-                      *_shape_args(q, k, (q_offset, k_offset, kv_len), causal, scale, stream))
-    return outs
+                      *_shape_args(ins[0], ins[1], (q_offset, k_offset, kv_len), causal,
+                                   scale, stream))
+    return [o if dim == d else o[..., :d].contiguous() for o in outs]
 
 
 def flash_dq_cuda(q, k, v, g_out, lse, delta, g_lse, *args):
     """K3 on the card; same contract as :func:`flash_dq_plain`."""
-    dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
-    return _bwd_cuda(DQ_KERNEL, [dq], q, k, v, g_out, lse, delta, g_lse, *args)[0]
+    return _bwd_cuda(DQ_KERNEL, [q.shape[1]], q, k, v, g_out, lse, delta, g_lse, *args)[0]
 
 
 def flash_dkv_cuda(q, k, v, g_out, lse, delta, g_lse, *args):
     """K4 on the card; same contract as :func:`flash_dkv_plain`."""
-    outs = [torch.empty(k.shape, dtype=torch.float32, device=q.device) for _ in range(2)]
-    return tuple(_bwd_cuda(DKV_KERNEL, outs, q, k, v, g_out, lse, delta, g_lse, *args))
+    return tuple(_bwd_cuda(DKV_KERNEL, [k.shape[1]] * 2, q, k, v, g_out, lse, delta, g_lse,
+                           *args))
 
 
 def flash_backward_cuda(q, k, v, out, lse, g_out, g_lse, q_offset, k_offset,
