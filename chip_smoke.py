@@ -19,7 +19,12 @@ Phases, in order; any failure exits non-zero before the last line:
    128 (16: the sequence example's attention, B 8, H 4, T 128, in both
    types, and T 4096) and at head dims 4, 8 and 24, which the wrapper
    zero-pads to the next instantiated one (short edges in both types, and
-   T 4096 timed), within stated tolerances
+   T 4096 timed), and at head dims 160, 256 and 320, which run unpadded on
+   the sliced kernels (``csrc/flash_attention_wide.cuh``: a T that is no
+   tile multiple, causal with offsets and a masked key tail, keys past
+   kv_len, every row masked, in both types; d 256 at B 8, H 4, T 4096 timed
+   in both types beside ``scaled_dot_product_attention``), within stated
+   tolerances
    (the bfloat16 tensor-core forward, dq and dk/dv against the plain
    version with the kernels' bfloat16 roundings and against the float32
    one, with ``scaled_dot_product_attention``'s forward and backward as the
@@ -321,7 +326,7 @@ Phases, in order; any failure exits non-zero before the last line:
    coinstac_dinunet_tpu_torch.analysis``) where the port runs, a machine
    without JAX.  23a: the static tiers, the model checker and the wire
    auditor over the port with ``dinulint_torch_baseline.json``: exit 0.
-   23b: the 15 deep entries at the JAX stand-ins' shapes on the card
+   23b: the 14 deep entries at the JAX stand-ins' shapes on the card
    (``--deep --tier3 --device cuda``; every rank mesh ``["cuda"] * 8``),
    each run twice, the second under the host-sync watch: no ``deep-*``
    finding; K2 launched in the ring and Ulysses entries (forward only, at
@@ -330,6 +335,23 @@ Phases, in order; any failure exits non-zero before the last line:
    by entry and ``file:line``.  23c: a planted entry whose step calls
    ``.item()`` is flagged ``perf-host-sync`` at this file's planted line.
    The phase's seconds and the script's are printed.
+
+24. main path 20 — the analyzer's tiers 5 and 7, tier 3's perf rules and
+   the API drift table.  24a: ``--tier5`` over the port exits 0 (the
+   explorer's default bound clean; it drives the engines on the CPU with
+   numpy stubs and a fake daemon worker, no process starts), then
+   ``_DROP_COMMIT`` planted gives ``proto-conc-lost-commit`` and
+   ``replay_schedule`` reproduces it.  24b: the 14 entries run again with
+   K2–K4 counted per entry (TSP, TSP-MoE and pipeline must launch all
+   three), ``--tier7 --device cuda`` exits 0 (``num-accum-narrow`` over
+   those runs, the five parity contracts proved), and
+   ``_BREAK_UNSORTED_FAN_IN`` planted bisects to its round and tensor and
+   replays.  24c: ``perf-donation``, ``perf-dtype-promotion`` and
+   ``perf-constant-capture`` over the entries printed by entry and
+   ``file:line``, and a planted entry for each flagged at its line of this
+   file.  24d: ``--torch-version`` 2.11.0 and 2.13.0 exit 0, and every
+   drift-table entry the table says exists at this machine's torch
+   resolves.  The phase's seconds and the script's are printed.
 
 Then one JSON line ``{"kernels": [...]}``, the ``nvidia-smi`` name/power
 line, and the last line ``{"ok": true, "device": {...}}``.  Per-shape
@@ -627,6 +649,19 @@ _FLASH_PADDED_EDGES = [
     ("t160_d24", 1, 2, 160, 24, False, 0, 0, None, True),
     ("offsets_d24", 1, 2, 333, 24, True, 100, 37, 300, True),
 ]
+# head dims above 128, on the sliced kernels at their own width (no
+# padding): a T that is no tile multiple, causal with both offsets and a
+# masked key tail, keys past kv_len, every row masked; in both types.  They
+# compute in float32 whatever the input type, so for bfloat16 inputs the
+# "rounding-matched" plain version is the float32 one.
+_FLASH_WIDE_EDGES = [
+    ("t160_d160", 1, 2, 160, 160, False, 0, 0, None, True),
+    ("offsets_d160", 1, 2, 333, 160, True, 100, 37, 300, True),
+    ("t160_d256_causal", 1, 2, 160, 256, True, 0, 0, None, True),
+    ("kv_len_96_d256", 1, 1, 128, 256, False, 0, 0, 96, False),
+    ("offsets_d320", 1, 2, 333, 320, True, 100, 37, 300, True),
+    ("causal_all_masked_d320", 1, 1, 48, 320, True, 0, 64, None, False),
+]
 FLASH_CASES = [
     ("main", 16, 4, 4096, 32, "bfloat16", False, 0, 0, None, False),
     ("tpu", 1, 8, 8192, 128, "bfloat16", True, 0, 0, None, False),
@@ -649,7 +684,14 @@ FLASH_CASES = [
     ("d24_long_f32", 8, 4, 4096, 24, "float32", False, 0, 0, None, False),
 ] + [(name, b, h, t, d, "float32", *rest) for name, b, h, t, d, *rest in _FLASH_PADDED_EDGES] + [
     (name + "_bf16", b, h, t, d, "bfloat16", *rest)
-    for name, b, h, t, d, *rest in _FLASH_PADDED_EDGES]
+    for name, b, h, t, d, *rest in _FLASH_PADDED_EDGES] + [
+    (name, b, h, t, d, "float32", *rest) for name, b, h, t, d, *rest in _FLASH_WIDE_EDGES] + [
+    (name + "_bf16", b, h, t, d, "bfloat16", *rest)
+    for name, b, h, t, d, *rest in _FLASH_WIDE_EDGES] + [
+    # head dim 256 (Gemma's) at the sequence model's T, timed in both types
+    ("d256_long", 8, 4, 4096, 256, "bfloat16", False, 0, 0, None, False),
+    ("d256_long_f32", 8, 4, 4096, 256, "float32", False, 0, 0, None, False),
+]
 # Tolerance of a kernel's output against its plain version: 1e-4 of the
 # plain output's largest magnitude, plus 1e-6.  Both compute in float32 from
 # the same (bf16 or f32) input values; they differ in the order of the
@@ -685,7 +727,9 @@ FLASH_BF16_LIBRARY_FACTOR = 2.0
 # the cases whose kernel, plain-version, bound and library times are taken
 FLASH_D16_TIMED = ("seq_example", "seq_example_f32", "d16_long")
 FLASH_PADDED_TIMED = ("d4_long", "d8_long", "d24_long_f32")
-FLASH_TIMED = ("main", "tpu", "vectorized", *FLASH_D16_TIMED, *FLASH_PADDED_TIMED)
+FLASH_WIDE_TIMED = ("d256_long", "d256_long_f32")
+FLASH_TIMED = ("main", "tpu", "vectorized", *FLASH_D16_TIMED, *FLASH_PADDED_TIMED,
+               *FLASH_WIDE_TIMED)
 FLASH_SOURCES = {
     "flash_attention_fwd": ("coinstac_dinunet_tpu_torch/csrc/flash_attention_fwd.cu",
                             "coinstac_dinunet_tpu/ops/flash_attention.py:79"),
@@ -895,7 +939,8 @@ def check_flash(dev, report):
     # kernels' entries
     for row in rows:
         for group, cases in (("times_d16", FLASH_D16_TIMED),
-                             ("times_padded_d", FLASH_PADDED_TIMED)):
+                             ("times_padded_d", FLASH_PADDED_TIMED),
+                             ("times_d256", FLASH_WIDE_TIMED)):
             if row["case"] in cases:
                 for name, kern in kernels.items():
                     kern.setdefault(group, {})[row["case"]] = row["times"][name]
@@ -6129,6 +6174,206 @@ def log_analyzer_path(path, smi):
         f"{time.perf_counter() - T_START:.1f} s | {smi}")
 
 
+# ---- path 20 (phase 24): the analyzer's tiers 5 and 7, tier 3's perf
+# rules and the API drift table on the card's machine.
+ANALYZER_TORCH_VERSIONS = ("2.11.0", "2.13.0")
+PERF_RULE_IDS = ("perf-donation", "perf-dtype-promotion", "perf-constant-capture")
+TIER5_RULE_IDS = ("conc-unguarded-shared-write", "conc-lock-order", "conc-escape",
+                  "conc-fs-race", "proto-conc-torn-stale", "proto-conc-lost-commit",
+                  "proto-conc-torn-jsonl", "proto-conc-close-deadlock")
+TIER7_RULE_IDS = ("num-prng-reuse", "num-prng-discard", "num-prng-constant",
+                  "num-accum-narrow", "num-unordered-reduce", "num-codec-unbounded",
+                  "proto-num-parity")
+
+
+def planted_fresh_params(params, x):
+    """perf-donation's planted entry: the successor tree in fresh storage."""
+    return {k: v - 0.1 * x.mean() for k, v in params.items()}, x.sum()
+
+
+def planted_cast(x, w):
+    """perf-dtype-promotion's planted entry: a float32 argument cast down
+    inside the step (on the next line)."""
+    return x.to(w.dtype) @ w
+
+
+def planted_capture(big):
+    """perf-constant-capture's planted entry: a step closing over ``big``."""
+    def step(x):
+        return x @ big
+
+    return step
+
+
+def planted_perf_entries():
+    """``{name: (build, rule, line of this file the finding must name)}``."""
+    import torch
+
+    def donation(dev):
+        return planted_fresh_params, ({"w": torch.ones(64, 64, device=dev),
+                                       "b": torch.ones(64, device=dev)},
+                                      torch.ones(8, 64, device=dev))
+
+    def cast(dev):
+        return planted_cast, (torch.ones(256, 256, device=dev),
+                              torch.ones(256, 256, device=dev, dtype=torch.bfloat16))
+
+    def capture(dev):
+        return planted_capture(torch.ones(1024, 1024, device=dev)), (
+            torch.ones(8, 1024, device=dev),)
+
+    step_line = planted_capture.__code__.co_firstlineno + 2
+    return {"planted-donation": (donation, "perf-donation",
+                                 planted_fresh_params.__code__.co_firstlineno),
+            "planted-cast": (cast, "perf-dtype-promotion",
+                             planted_cast.__code__.co_firstlineno + 3),
+            "planted-capture": (capture, "perf-constant-capture", step_line)}
+
+
+def run_analyzer_tiers_path():
+    """Path 20 (phase 24): 24a ``--tier5`` and a planted ``_DROP_COMMIT``;
+    24b ``--tier7 --device cuda`` with K2–K4 counted per entry, and a
+    planted ``_BREAK_UNSORTED_FAN_IN``; 24c tier 3's perf rules by entry and
+    their planted entries; 24d ``--torch-version`` and the drift table."""
+    import tempfile
+
+    import torch
+
+    from coinstac_dinunet_tpu_torch.analysis import deepcheck, jax_api, parity
+    from coinstac_dinunet_tpu_torch.analysis import schedule_explorer as se
+
+    fa = importlib.import_module("coinstac_dinunet_tpu_torch.ops.flash_attention")
+    t0 = time.perf_counter()
+    base = ["coinstac_dinunet_tpu_torch", "--baseline", "dinulint_torch_baseline.json"]
+    faults, out = [], {}
+    # 24a: the static rules and the explorer at its default bound, then one
+    # broken-semantics switch, found and replayed
+    # (23a ran the default tier; --rules keeps each CLI call to its tier)
+    rc5, tier5 = run_analyzer([*base, "--tier5", "--rules", ",".join(TIER5_RULE_IDS)])
+    if rc5 != 0:
+        faults.append(f"24a: --tier5 exited {rc5}: {tier5['new']}")
+    se._DROP_COMMIT = True
+    try:
+        with tempfile.TemporaryDirectory() as wd:
+            planted5 = se.run_schedule_explorer(config=se.ScheduleConfig(rounds=1))
+            replayed5 = (se.replay_schedule(planted5.plans[0], workdir=wd)
+                         if planted5.plans and planted5.plans[0] else [])
+    finally:
+        se._DROP_COMMIT = False
+    rules5 = [f.rule for f in planted5.findings]
+    if rules5 != ["proto-conc-lost-commit"] or "proto-conc-lost-commit" not in {
+            v["rule"] for v in replayed5}:
+        faults.append(f"24a: _DROP_COMMIT gave {rules5}, replayed {replayed5[:1]}")
+    out["24a"] = {"rc": rc5, "planted": rules5, "replayed": len(replayed5),
+                  "s": time.perf_counter() - t0}
+    # 24b: the entries run again with the counts at 0 just before and read
+    # just after each (the CLI's num-accum-narrow reads these runs)
+    t1 = time.perf_counter()
+    deepcheck.clear_run_cache()
+    launches = {}
+    for name in deepcheck.list_entry_points():
+        for kern in fa.KERNELS:
+            kern.launches = 0
+        deepcheck.run_entry(name, "cuda")
+        torch.cuda.synchronize()
+        launches[name] = dict(zip(FLASH_SOURCES, (kern.launches for kern in fa.KERNELS)))
+    for name in ANALYZER_K234_ENTRIES:
+        if any(launches[name][k] == 0 for k in FLASH_SOURCES):
+            faults.append(f"24b: entry {name} launched {launches[name]}: want K2, K3, K4 > 0")
+    rc7, tier7 = run_analyzer([*base, "--tier7", "--device", "cuda", "--rules",
+                               ",".join(TIER7_RULE_IDS)])
+    if rc7 != 0:
+        faults.append(f"24b: --tier7 --device cuda exited {rc7}: {tier7['new']}")
+    proved = parity.run_parity_prover().report
+    if proved["violations"] or len(proved["proved"]) != len(parity.CONTRACTS):
+        faults.append(f"24b: the parity contracts: {proved}")
+    parity._BREAK_UNSORTED_FAN_IN = True
+    try:
+        broken = parity.run_parity_prover(contracts=["vectorized-vs-file-transport"])
+        plan = broken.plans[0] if broken.plans else None
+        replay7 = parity.replay_parity(plan) if plan else []
+    finally:
+        parity._BREAK_UNSORTED_FAN_IN = False
+    if not plan or not replay7 or (replay7[0]["round"], replay7[0]["tensor"]) != (
+            plan["violation"]["round"], plan["violation"]["tensor"]):
+        faults.append(f"24b: _BREAK_UNSORTED_FAN_IN gave {plan and plan['violation']}, "
+                      f"replayed {replay7}")
+    out["24b"] = {"rc": rc7, "launches": launches, "proved": proved["proved"],
+                  "planted": plan and plan["violation"],
+                  "accum_narrow": [f for f in tier7["new"] + tier7["baselined"]
+                                   if f["rule"] == "num-accum-narrow"],
+                  "s": time.perf_counter() - t1}
+    # 24c: tier 3's perf rules over the same runs, printed by entry and
+    # file:line, then each rule's planted entry flagged at its line
+    t1 = time.perf_counter()
+    _, tier3 = run_analyzer([*base, "--tier3", "--device", "cuda", "--rules",
+                             ",".join(PERF_RULE_IDS)])
+    perf = [f for f in tier3["new"] + tier3["baselined"] if f["rule"] in PERF_RULE_IDS]
+    planted = planted_perf_entries()
+    for name, (build, _, _) in planted.items():
+        deepcheck.register_entry_point(name, "chip_smoke.py")(build)
+    try:
+        _, found = run_analyzer([*base, "--deep", "--tier3", "--device", "cuda",
+                                 "--deep-entries", ",".join(planted),
+                                 "--rules", ",".join(PERF_RULE_IDS)])
+    finally:
+        for name in planted:
+            deepcheck.DEEP_REGISTRY.pop(name)
+    flagged = {}
+    for name, (_, rule, line) in planted.items():
+        hits = [(f["path"], f["line"]) for f in found["new"]
+                if f["rule"] == rule and f"entry '{name}'" in f["message"]]
+        flagged[name] = hits
+        if hits != [("chip_smoke.py", line)]:
+            faults.append(f"24c: {name}'s {rule} must be flagged at chip_smoke.py:{line}, "
+                          f"was at {hits}")
+    out["24c"] = {"perf": [{"rule": f["rule"], "path": f["path"], "line": f["line"],
+                            "message": f["message"]} for f in perf],
+                  "planted": flagged, "s": time.perf_counter() - t1}
+    # 24d: the drift table at the pinned versions and at this machine's
+    t1 = time.perf_counter()
+    rcs = {}
+    for version in ANALYZER_TORCH_VERSIONS:
+        rcs[version], report = run_analyzer([*base, "--torch-version", version,
+                                             "--rules", "torch-api-drift"])
+        if rcs[version] != 0:
+            faults.append(f"24d: --torch-version {version} exited {rcs[version]}: "
+                          f"{report['new']}")
+    table = jax_api.table_resolution()
+    wrong = {k: v for k, v in table.items() if v[1] != (v[0] != "missing")}
+    if wrong:
+        faults.append(f"24d: table entries that do not match torch {torch.__version__}: {wrong}")
+    out["24d"] = {"rcs": rcs, "torch": torch.__version__,
+                  "pinned": jax_api.installed_torch_version(),
+                  "present": sum(v[0] != "missing" for v in table.values()),
+                  "entries": len(table), "s": time.perf_counter() - t1}
+    if faults:
+        raise AssertionError("path 20:\n  " + "\n  ".join(faults))
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def log_analyzer_tiers_path(path, smi):
+    a, b, c, d = path["24a"], path["24b"], path["24c"], path["24d"]
+    log(f"  24a: --tier5 exit {a['rc']}; _DROP_COMMIT {a['planted']}, replay "
+        f"{a['replayed']} violation(s); {a['s']:.1f} s")
+    log(f"  24b: --tier7 --device cuda exit {b['rc']}; contracts proved {b['proved']}; "
+        f"_BREAK_UNSORTED_FAN_IN -> {b['planted']} (replayed); num-accum-narrow "
+        f"{[x['path'] + ':' + str(x['line']) for x in b['accum_narrow']]}; {b['s']:.1f} s")
+    for name in ANALYZER_K234_ENTRIES:
+        log(f"  entry {name:28s} K2/K3/K4 launches "
+            + "/".join(str(b["launches"][name][k]) for k in FLASH_SOURCES))
+    for f in c["perf"]:
+        log(f"  {f['rule']} {f['path']}:{f['line']}: {f['message']}")
+    log(f"  24c: {len(c['perf'])} perf-donation/-dtype-promotion/-constant-capture "
+        f"finding(s) over the entries; planted {c['planted']}; {c['s']:.1f} s")
+    log(f"  24d: --torch-version exit {d['rcs']}; torch {d['torch']} (metadata "
+        f"{d['pinned']}): {d['present']} of {d['entries']} table entries present, each "
+        f"resolving; {d['s']:.1f} s")
+    log(f"  phase 24: {path['wall_s']:.1f} s; script so far "
+        f"{time.perf_counter() - T_START:.1f} s | {smi}")
+
+
 def profiled_round(eng):
     """One engine round under ``torch.profiler``: the round's host wall
     time, the device time its kernels took, the idle share, and the
@@ -6453,9 +6698,15 @@ def main():
     log_split_path(split_path, smi)
 
     log(f"[23 main path 19: the port's analyzer] the static, model and wire tiers, then the "
-        f"15 deep entries on the card with the host-sync watch, then a planted .item() | {smi}")
+        f"14 deep entries on the card with the host-sync watch, then a planted .item() | {smi}")
     analyzer_path = run_analyzer_path()
     log_analyzer_path(analyzer_path, smi)
+
+    log(f"[24 main path 20: the analyzer's tiers 5 and 7, the perf rules, the API drift] "
+        f"--tier5 and a planted switch, --tier7 on the card with K2-K4 counted per entry and "
+        f"a planted switch, the perf rules and their planted entries, --torch-version | {smi}")
+    tiers_path = run_analyzer_tiers_path()
+    log_analyzer_tiers_path(tiers_path, smi)
 
     k1["launches_by_path"] = {"vbm_dsgd": main_path["launches"],
                               "vbm_pretrain_powersgd": psgd_path["launches"],
@@ -6496,6 +6747,9 @@ def main():
                                        for path in split_path["launches"]},
                                     **{f"analyzer_{name}": counts[kern["name"]]
                                        for name, counts in analyzer_path["launches"].items()
+                                       if any(counts.values())},
+                                    **{f"analyzer_tier7_{name}": counts[kern["name"]]
+                                       for name, counts in tiers_path["24b"]["launches"].items()
                                        if any(counts.values())}}
     kernels = [k1, *k234]
     report.update(main_path=main_path, seq_path=seq_path, powersgd_path=psgd_path,
@@ -6511,6 +6765,7 @@ def main():
                   multinet_config5=models_path["multinet"], native_examples_path=native_path,
                   mesh_path=mesh_path, sharded_path=sharded_path, local_dp_path=dp_path,
                   split_path=split_path, analyzer_path=analyzer_path,
+                  analyzer_tiers_path=tiers_path,
                   device=kind,
                   power=smi, kernels=kernels)
     out_dir = os.path.join(HERE, "chiprun_out")

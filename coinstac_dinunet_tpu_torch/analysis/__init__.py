@@ -11,22 +11,31 @@ and its wire lockfile ``wire_schema_torch.lock.json``.
 Tiers:
 
 - default (pure ``ast``): ``protocol-conformance``,
-  ``telemetry-metric-name``, ``wire-atomic-commit`` and the ``sharding-*``
+  ``telemetry-metric-name``, ``wire-atomic-commit``, the ``sharding-*``
   rules over the port's rank meshes (:mod:`.sharding` names the two JAX
-  rules with no construct in the port);
-- ``--deep``: the JAX registry's 15 entry points built from the port at
+  rules with no construct in the port), the ``trace-*`` rules over the
+  port's step functions (:mod:`.trace_hazards`; ``trace-telemetry`` has no
+  construct in eager code) and ``torch-api-drift`` against the pinned torch
+  (:mod:`.jax_api`, ``--torch-version``);
+- ``--deep``: the JAX registry's 14 entry points built from the port at
   the JAX stand-ins' shapes and run on ``--device`` (:mod:`.deepcheck`);
-- ``--tier3``: ``perf-host-sync`` over the deep entries' second runs on
-  the card (:mod:`.dataflow`) and the ``proto-flow-*``/``proto-cache-*``
-  phase-machine model (:mod:`.protocol_flow`);
+- ``--tier3``: ``perf-host-sync``, ``perf-donation``,
+  ``perf-dtype-promotion`` and ``perf-constant-capture`` over the deep
+  entries' second runs (:mod:`.dataflow`, :mod:`.perf_rules`) and the
+  ``proto-flow-*``/``proto-cache-*`` phase-machine model
+  (:mod:`.protocol_flow`);
 - ``--model``: the bounded federation model checker (:mod:`.model_check`);
-- ``--wire``: the wire-contract auditor (:mod:`.wire_schema`).
+- ``--tier5``: the ``conc-*`` lock-discipline rules (:mod:`.concurrency`)
+  and the ``proto-conc-*`` interleaving explorer
+  (:mod:`.schedule_explorer`);
+- ``--wire``: the wire-contract auditor (:mod:`.wire_schema`);
+- ``--tier7``: the ``num-*`` rules (:mod:`.numerics`; ``num-accum-narrow``
+  over the deep entries' runs on ``--device``) and the
+  ``proto-num-parity`` prover (:mod:`.parity`, also ``--parity``).
 
-Only ``--deep`` and ``--tier3`` import ``torch``; the rest never does, and
-nothing here imports JAX or the JAX package.  The JAX analyzer's tiers 5
-and 7, the rest of its tier 3 and its ``jax-api-drift``/``trace-*`` rules
-are not ported yet (``ROADMAP.md`` Queue 1); their flags raise
-``NotImplementedError``.
+Only ``--deep``, ``--tier3`` and ``--tier7`` import ``torch`` for the
+entries (the explorer and the prover import the engines, with numpy
+stubs); nothing here imports JAX or the JAX package.
 """
 from .core import (  # noqa: F401
     Finding,

@@ -1,9 +1,10 @@
 """The port's dinulint CLI: ``python -m coinstac_dinunet_tpu_torch.analysis``.
 
-The JAX package's flags for every tier this package carries, plus
-``--device`` for the tiers that run entry points.  Exit status: 0 when no
-*new* (non-baselined, non-suppressed) findings, 1 otherwise, 2 on usage
-errors (a ``--device`` that is not there among them)."""
+The JAX package's flags for every tier, plus ``--device`` for the tiers
+that run entry points (``--deep``, ``--tier3``, ``--tier7``); the JAX
+package's ``--jax-version`` is ``--torch-version`` here.  Exit status: 0
+when no *new* (non-baselined, non-suppressed) findings, 1 otherwise, 2 on
+usage errors (a ``--device`` that is not there among them)."""
 import argparse
 import json
 import os
@@ -17,18 +18,11 @@ from .core import (
     write_baseline,
 )
 
+from ..config.keys import Numerics
+from .jax_api import TorchApiDriftRule
+from .numerics import NUMERICS_STATIC_RULE_IDS
+
 DEFAULT_BASELINE = "dinulint_torch_baseline.json"
-
-_TIER5 = "the analyzer's tier 5: concurrency.py and schedule_explorer.py"
-_TIER7 = "the analyzer's tier 7: numerics.py and parity.py"
-
-#: flags of the JAX analyzer's tiers this package does not carry yet, with
-#: the ``ROADMAP.md`` Queue 1 item that ports each
-UNPORTED = {
-    "tier5": _TIER5, "schedules": _TIER5, "schedule_bound": _TIER5,
-    "tier7": _TIER7, "parity": _TIER7, "parity_plans": _TIER7,
-    "jax_version": "jax_api.py's counterpart: API drift against the pinned torch",
-}
 
 
 def build_parser():
@@ -48,6 +42,10 @@ def build_parser():
                    help="rewrite the baseline with the current findings and exit 0")
     p.add_argument("--rules", default=None,
                    help="comma-separated rule ids to run (default: all)")
+    p.add_argument("--torch-version", default=None,
+                   help="pin the torch version for torch-api-drift "
+                        "(default: installed torch metadata)")
+    p.add_argument("--jax-version", default=None, help=argparse.SUPPRESS)
     p.add_argument("--list-rules", action="store_true")
     p.add_argument("--show-baselined", action="store_true",
                    help="also print findings matched by the baseline")
@@ -65,8 +63,8 @@ def build_parser():
                         "points' second runs on --device (imports torch; "
                         "composes with --deep, sharing the runs)")
     p.add_argument("--device", default=None,
-                   help="the device --deep and --tier3 run the entry points "
-                        "on (default: cuda; cpu only when named)")
+                   help="the device --deep, --tier3 and --tier7 run the entry "
+                        "points on (default: cuda; cpu only when named)")
     p.add_argument("--model", action="store_true",
                    help="also run the federation protocol model checker: "
                         "exhaustively explore N site machines + the "
@@ -109,11 +107,28 @@ def build_parser():
                    help="compare the static byte ledger against the telemetry "
                         "wire records under DIR; unaccounted observed bytes "
                         "report as wire-unmodeled")
-    # the JAX analyzer's flags of tiers not carried yet: parsed, refused
-    for flag in ("--tier5", "--tier7", "--parity"):
-        p.add_argument(flag, action="store_true", help=argparse.SUPPRESS)
-    for flag in ("--schedules", "--schedule-bound", "--parity-plans", "--jax-version"):
-        p.add_argument(flag, default=None, help=argparse.SUPPRESS)
+    p.add_argument("--tier5", action="store_true",
+                   help="also run the tier-5 concurrency auditor: the static "
+                        "conc-* lock-discipline rules (pure AST) plus the "
+                        "proto-conc-* interleaving explorer over the real async "
+                        "round loop under virtual time (numpy stubs)")
+    p.add_argument("--schedules", default=None, metavar="DIR",
+                   help="write each proto-conc-* counterexample as a replayable "
+                        "schedule JSON into DIR")
+    p.add_argument("--schedule-bound", type=int, default=None,
+                   help="post-warmup rounds the interleaving explorer enumerates "
+                        "completion schedules over (default: "
+                        "Concurrency.DEFAULT_ROUNDS)")
+    p.add_argument("--tier7", action="store_true",
+                   help="also run the tier-7 numerics & determinism auditor: the "
+                        "static num-* rules (pure AST), num-accum-narrow over the "
+                        "entry points' runs on --device (imports torch), and the "
+                        "proto-num-parity bit-parity prover")
+    p.add_argument("--parity", action="store_true",
+                   help="run ONLY the tier-7 bit-parity prover (numpy stubs)")
+    p.add_argument("--parity-plans", default=None, metavar="DIR",
+                   help="write each proto-num-parity counterexample as a "
+                        "replayable parity plan JSON into DIR")
     return p
 
 
@@ -123,6 +138,8 @@ TIER_PREFIXES = {
     "deep": ("deep-",),
     "tier3": ("tier3-", "perf-", "proto-flow-", "proto-cache-"),
     "model": ("proto-model-",),
+    "tier5": ("conc-", "proto-conc-"),
+    "tier7": ("num-", "proto-num-"),
     # tracked by EXACT rule ids, never the bare "wire-" prefix: the
     # default-tier rule wire-atomic-commit shares the spelling
     "wire": ("wire-orphan", "wire-unversioned", "wire-dense", "wire-lock",
@@ -135,24 +152,27 @@ def _github_escape(text):
     return text.replace("%", "%25").replace("\r", "%0D").replace("\n", "%0A")
 
 
-def _refuse_unported(args):
-    for dest, item in UNPORTED.items():
-        if getattr(args, dest) not in (None, False):
-            flag = "--" + dest.replace("_", "-")
-            raise NotImplementedError(
-                f"{flag} belongs to a tier of the JAX analyzer the port does not "
-                f"carry yet (ROADMAP.md Queue 1: {item})")
+#: the rules --tier7 runs besides the parity prover's
+TIER7_STATIC_IDS = frozenset(NUMERICS_STATIC_RULE_IDS) | {Numerics.ACCUM_NARROW}
 
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    _refuse_unported(args)
+    if args.jax_version is not None:
+        print("--jax-version pins the JAX package's analyzer; the port reads torch: "
+              "use --torch-version", file=sys.stderr)
+        return 2
     rules = default_rules()
+    if args.torch_version:
+        rules = [TorchApiDriftRule(torch_version=args.torch_version)
+                 if isinstance(r, TorchApiDriftRule) else r for r in rules]
     if args.list_rules:
         # every opt-in tier's rules, from their id lists (no torch import)
+        from .concurrency import TIER5_STATIC_RULE_IDS
         from .dataflow import TIER3_RULE_IDS
         from .deepcheck import DEEP_RULE_IDS
         from .model_check import MODEL_RULE_IDS
+        from .schedule_explorer import EXPLORER_RULE_IDS
         from .wire_schema import WIRE_RULE_IDS
 
         for r in sorted(rules, key=lambda r: r.id):
@@ -160,7 +180,11 @@ def main(argv=None):
         for ids, tier in ((DEEP_RULE_IDS, "deep entry points, --deep"),
                           (TIER3_RULE_IDS, "tier 3, --tier3"),
                           (MODEL_RULE_IDS, "model checker, --model"),
-                          (WIRE_RULE_IDS, "wire auditor, --wire")):
+                          (TIER5_STATIC_RULE_IDS, "tier-5 concurrency auditor, --tier5"),
+                          (EXPLORER_RULE_IDS, "tier-5 interleaving explorer, --tier5"),
+                          (WIRE_RULE_IDS, "wire auditor, --wire"),
+                          (sorted(TIER7_STATIC_IDS), "tier-7 numerics auditor, --tier7"),
+                          ((Numerics.PARITY,), "tier-7 parity prover, --tier7/--parity")):
             for rid in ids:
                 print(f"{rid}: ({tier})")
         return 0
@@ -173,8 +197,8 @@ def main(argv=None):
     if args.deep_entries and not args.deep:
         print("--deep-entries requires --deep", file=sys.stderr)
         return 2
-    if args.device is not None and not (args.deep or args.tier3):
-        print("--device requires --deep or --tier3", file=sys.stderr)
+    if args.device is not None and not (args.deep or args.tier3 or args.tier7):
+        print("--device requires --deep, --tier3 or --tier7", file=sys.stderr)
         return 2
 
     deep_names = None
@@ -217,27 +241,51 @@ def main(argv=None):
         if value is not None and value < least:
             print(f"{flag} {value}: {why}", file=sys.stderr)
             return 2
+    if not args.tier5 and (args.schedules is not None or args.schedule_bound is not None):
+        print("--schedules/--schedule-bound require --tier5", file=sys.stderr)
+        return 2
+    if args.schedule_bound is not None and args.schedule_bound < 1:
+        print(f"--schedule-bound {args.schedule_bound}: the explorer needs at least 1 "
+              "post-warmup round (0/negative bounds make every round-loop invariant "
+              "vacuous)", file=sys.stderr)
+        return 2
     if not args.wire and (args.write_lock or args.wire_lock is not None
                           or args.wire_ledger is not None or args.reconcile is not None):
         print("--write-lock/--wire-lock/--wire-ledger/--reconcile require --wire",
               file=sys.stderr)
         return 2
+    if args.parity_plans is not None and not (args.tier7 or args.parity):
+        print("--parity-plans requires --tier7 or --parity", file=sys.stderr)
+        return 2
+    if args.write_baseline and args.parity and not args.tier7:
+        print("--write-baseline with --parity (prover only) would drop the static "
+              "num-* baselined findings; refresh with --tier7 instead", file=sys.stderr)
+        return 2
     rule_ids = args.rules.split(",") if args.rules else None
     if rule_ids:
+        from .concurrency import TIER5_STATIC_RULE_IDS
         from .dataflow import TIER3_RULE_IDS
         from .model_check import MODEL_RULE_IDS
+        from .schedule_explorer import EXPLORER_RULE_IDS
         from .wire_schema import WIRE_RULE_IDS
 
+        tier5_ids = set(TIER5_STATIC_RULE_IDS) | set(EXPLORER_RULE_IDS)
         known = ({r.id for r in rules} | set(TIER3_RULE_IDS) | set(MODEL_RULE_IDS)
-                 | set(WIRE_RULE_IDS))
+                 | tier5_ids | set(WIRE_RULE_IDS) | TIER7_STATIC_IDS | {Numerics.PARITY})
         unknown = sorted(set(rule_ids) - known)
         if unknown:
             print(f"unknown rule id(s): {', '.join(unknown)} "
                   f"(known: {', '.join(sorted(known))})", file=sys.stderr)
             return 2
+        if Numerics.PARITY in set(rule_ids) and not (args.tier7 or args.parity):
+            print(f"--rules {Numerics.PARITY} requires --tier7 or --parity (the parity "
+                  "prover only runs under them)", file=sys.stderr)
+            return 2
         for ids, tier, ran in ((TIER3_RULE_IDS, "--tier3", args.tier3),
                                (MODEL_RULE_IDS, "--model", args.model),
-                               (WIRE_RULE_IDS, "--wire", args.wire)):
+                               (tier5_ids, "--tier5", args.tier5),
+                               (WIRE_RULE_IDS, "--wire", args.wire),
+                               (TIER7_STATIC_IDS, "--tier7", args.tier7)):
             selected = sorted(set(rule_ids) & set(ids))
             if selected and not ran:
                 # without the tier the selected rule would silently report
@@ -258,8 +306,10 @@ def main(argv=None):
     # pure-AST proto-* family
     tier3_entries = args.tier3 and (not rule_ids or any(
         r.startswith(("perf-", "tier3-")) for r in rule_ids))
+    # num-accum-narrow runs the entries too
+    tier7_entries = args.tier7 and (not rule_ids or Numerics.ACCUM_NARROW in rule_ids)
     device = args.device or "cuda"
-    if args.deep or tier3_entries:
+    if args.deep or tier3_entries or tier7_entries:
         from ..config import resolve_device
 
         try:
@@ -328,6 +378,23 @@ def main(argv=None):
                 print(f"dinulint --model: retired {len(retired)} "
                       "proto-cache-read-before-write finding(s) whose read site the "
                       "explored model exercised without ever violating", file=sys.stderr)
+    if args.tier5:
+        # the static lock-discipline rules (pure AST) and the interleaving
+        # explorer (numpy stubs, the engines on the CPU)
+        from ..config.keys import Concurrency
+        from .concurrency import run_tier5_static
+        from .schedule_explorer import EXPLORER_RULE_IDS, ScheduleConfig, run_schedule_explorer
+
+        wanted5 = set(rule_ids) if rule_ids else None
+        tier5_findings = list(run_tier5_static(paths=args.paths))
+        if wanted5 is None or not wanted5.isdisjoint(EXPLORER_RULE_IDS):
+            result5 = run_schedule_explorer(config=ScheduleConfig(rounds=args.schedule_bound),
+                                            schedules_dir=args.schedules)
+            tier5_findings += result5.findings
+        if wanted5 is not None:
+            keep = wanted5 | {Concurrency.CONFIG}
+            tier5_findings = [f for f in tier5_findings if f.rule in keep]
+        findings = findings + tier5_findings
     if args.wire:
         # pure stdlib ast, no torch
         from ..config.keys import WireContract
@@ -352,7 +419,26 @@ def main(argv=None):
         if args.write_lock and wire_schema is not None:
             print(f"wrote wire-schema lockfile to {args.wire_lock or DEFAULT_LOCK} "
                   f"({len(wire_schema.entries)} entries)")
-    if args.deep or args.tier3 or args.model or args.wire:
+    if args.tier7 or args.parity:
+        # the static num-* rules (pure AST), num-accum-narrow over the entry
+        # runs on --device, the parity prover (numpy stubs)
+        from .numerics import run_accum_narrow, run_tier7_static
+        from .parity import run_parity_prover
+
+        wanted7 = set(rule_ids) if rule_ids else None
+        tier7_findings = []
+        if args.tier7:
+            tier7_findings += list(run_tier7_static(paths=args.paths))
+            if tier7_entries:
+                tier7_findings += list(run_accum_narrow(device=device))
+        if wanted7 is None or Numerics.PARITY in wanted7:
+            tier7_findings += run_parity_prover(plans_dir=args.parity_plans).findings
+        if wanted7 is not None:
+            keep = wanted7 | {Numerics.CONFIG}
+            tier7_findings = [f for f in tier7_findings if f.rule in keep]
+        findings = findings + tier7_findings
+    if args.deep or args.tier3 or args.model or args.wire or args.tier5 or args.tier7 \
+            or args.parity:
         findings.sort(key=lambda f: (f.path, f.line, f.col, f.rule))
 
     baseline_path = args.baseline
@@ -363,7 +449,7 @@ def main(argv=None):
         out = baseline_path or DEFAULT_BASELINE
         broken = [f.rule for f in findings
                   if f.rule in ("deep-config", "tier3-config", "proto-model-config",
-                                "wire-config")]
+                                "proto-conc-config", "wire-config", "num-config")]
         if broken:
             # an opt-in tier never actually ran — writing now would drop its
             # accepted entries AND baseline the tier's own error channel
@@ -373,7 +459,8 @@ def main(argv=None):
             return 2
         extra = []
         not_run = [t for t, ran in (("deep", args.deep), ("tier3", args.tier3),
-                                    ("model", args.model), ("wire", args.wire)) if not ran]
+                                    ("model", args.model), ("tier5", args.tier5),
+                                    ("wire", args.wire), ("tier7", args.tier7)) if not ran]
         if not_run and os.path.exists(out):
             # a tier that didn't run contributes nothing to this refresh —
             # carry its accepted entries over instead of dropping them

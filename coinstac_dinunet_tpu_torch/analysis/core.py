@@ -141,9 +141,11 @@ def default_rules():
     """Fresh instances of every registered rule, importing the built-in rule
     modules on first use (registration happens at import)."""
     from . import (  # noqa: F401 (register)
+        jax_api,
         protocol,
         sharding,
         telemetry_names,
+        trace_hazards,
         wire_atomic,
     )
 
@@ -190,6 +192,18 @@ def iter_python_files(paths):
     return out
 
 
+_REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+
+def display_path(path):
+    """A finding's path: relative to the repository root for a file of the
+    checkout (so a baseline matches from any working directory), else to
+    the working directory."""
+    full = os.path.abspath(path)
+    base = _REPO_ROOT if full.startswith(_REPO_ROOT + os.sep) else os.getcwd()
+    return os.path.relpath(full, base).replace(os.sep, "/")
+
+
 def run_lint(paths, rules=None, rule_ids=None):
     """Lint ``paths`` (files or directories).
 
@@ -206,7 +220,7 @@ def run_lint(paths, rules=None, rule_ids=None):
     files = iter_python_files(paths)
     modules, errors = [], []
     for path in files:
-        display = os.path.relpath(path).replace(os.sep, "/")
+        display = display_path(path)
         try:
             modules.append(Module.parse(path, display))
         except (SyntaxError, UnicodeDecodeError, OSError, ValueError) as exc:
@@ -256,7 +270,8 @@ def write_baseline(path, findings, extra_entries=()):
             "dinulint baseline of the PyTorch port: legacy findings that do "
             "not fail CI.  Refresh with: python -m "
             "coinstac_dinunet_tpu_torch.analysis coinstac_dinunet_tpu_torch "
-            "--model --wire --write-baseline --baseline "
+            "--model --wire --tier5 --tier7 --device cpu --write-baseline "
+            "--baseline "
             + os.path.basename(path)
         ),
         "findings": entries,

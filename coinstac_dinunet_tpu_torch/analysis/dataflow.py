@@ -1,5 +1,5 @@
-"""The port's ``--tier3``: the host-sync rule over the deep entries, and the
-static phase-machine model.
+"""The port's ``--tier3``: the ``perf-*`` rules over the deep entries' runs,
+and the static phase-machine model.
 
 The JAX package's tier 3 lowers every deep entry to its jaxpr and runs four
 ``perf-*`` rules over it.  Of those, this slice ports ``perf-host-sync``,
@@ -15,15 +15,19 @@ per site, naming the entries that reached it.  On a CPU device nothing can
 be observed, and the rule reports exactly one ``tier3-config`` finding
 that says so — the JAX package's contract for a tier that could not run.
 
+The same second run is watched op by op (:func:`watch_ops`, a
+``TorchDispatchMode``): every dtype cast, matrix product and convolution,
+and accumulation, with the cast's and a narrow accumulation's Python stack.
 ``perf-donation``, ``perf-dtype-promotion`` and ``perf-constant-capture``
-read jaxpr and lowering metadata the port does not have; they are queued
-for a later slice (``ROADMAP.md`` Queue 1, "the rest of tier 3's
-perf_rules.py").  ``tier3-lower`` keeps its JAX name for an entry that
-could not be built or run under ``--tier3`` alone.
+(:mod:`.perf_rules`) read those records, the run's arguments, output and
+step callable, on any device; ``num-accum-narrow`` (:mod:`.numerics`)
+reads the accumulations.  ``tier3-lower`` keeps its JAX name for an entry
+that could not be built or run under ``--tier3`` alone.
 
 The proto-* half is :mod:`.protocol_flow` (pure AST).
 """
 import contextlib
+import dataclasses
 import os
 
 from .core import Finding
@@ -33,6 +37,9 @@ TIER3_RULE_IDS = (
     "tier3-config",
     "tier3-lower",
     "perf-host-sync",
+    "perf-donation",
+    "perf-dtype-promotion",
+    "perf-constant-capture",
     "proto-flow-phase",
     "proto-flow-unmatched",
     "proto-cache-read-before-write",
@@ -81,6 +88,102 @@ def watch_syncs(device):
             torch.cuda.set_sync_debug_mode(previous)
 
 
+#: aten ops a watched run records, by kind
+_CAST_OPS = frozenset({"_to_copy"})
+_COMPUTE_OPS = frozenset({"mm", "addmm", "bmm", "baddbmm", "convolution", "_convolution"})
+_ACCUM_OPS = frozenset({
+    "sum", "mean", "cumsum", "nansum", "lerp", "lerp_", "addcmul", "addcmul_",
+    "_foreach_lerp", "_foreach_lerp_", "_foreach_addcmul", "_foreach_addcmul_",
+})
+_NARROW = ("bfloat16", "float16")
+
+
+@dataclasses.dataclass
+class OpEvent:
+    """One recorded op of a watched run.  ``kind`` is ``cast`` (``src`` the
+    source tensor's identity, ``src_ptr`` its storage, ``nbytes`` its size),
+    ``compute`` (``in_ptrs`` the operands' storages) or ``accum``;
+    ``stack`` is the Python stack of casts and narrow accumulations."""
+
+    kind: str
+    op: str
+    in_dtypes: tuple
+    out_dtypes: tuple
+    out_ptrs: tuple = ()
+    in_ptrs: tuple = ()
+    src: tuple = None
+    src_ptr: int = None
+    nbytes: int = 0
+    stack: object = None
+
+
+def _dtype_name(t):
+    return str(t.dtype).replace("torch.", "")
+
+
+def _storage_ptr(t):
+    try:
+        return int(t.untyped_storage().data_ptr())
+    except Exception:  # noqa: BLE001 — meta and other storage-less tensors
+        return 0
+
+
+def tensor_key(t):
+    """A tensor's identity within one run: storage, offset, shape, strides
+    and version counter (an in-place update makes it another tensor)."""
+    return (_storage_ptr(t), int(t.storage_offset()), tuple(t.shape), tuple(t.stride()),
+            int(t._version))
+
+
+@contextlib.contextmanager
+def watch_ops():
+    """Record the casts, matrix products, convolutions and accumulations of
+    the aten ops run inside the block: yields a list of :class:`OpEvent`.
+    The ops themselves run unchanged (kernel launches and their counts
+    included)."""
+    import traceback
+
+    import torch
+    from torch.utils._pytree import tree_leaves
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    events = []
+
+    def tensors(tree):
+        return [t for t in tree_leaves(tree) if isinstance(t, torch.Tensor)]
+
+    class _Watch(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            name = func.overloadpacket.__name__
+            kind = ("cast" if name in _CAST_OPS else "compute" if name in _COMPUTE_OPS
+                    else "accum" if name in _ACCUM_OPS else None)
+            ins = tensors((args, kwargs)) if kind else ()
+            key = tensor_key(ins[0]) if kind == "cast" and ins else None
+            out = func(*args, **kwargs)
+            if kind is None:
+                return out
+            outs = tensors(out)
+            ev = OpEvent(kind, name, tuple(_dtype_name(t) for t in ins),
+                         tuple(_dtype_name(t) for t in outs),
+                         out_ptrs=tuple(_storage_ptr(t) for t in outs))
+            if kind == "cast":
+                if not ins or ev.out_dtypes == ev.in_dtypes[:1]:
+                    return out  # a copy, no cast
+                ev.src, ev.src_ptr = key, key[0]
+                ev.nbytes = ins[0].numel() * ins[0].element_size()
+                ev.stack = traceback.extract_stack()[:-1]
+            elif kind == "compute":
+                ev.in_ptrs = tuple(_storage_ptr(t) for t in ins)
+            elif set(ev.out_dtypes) & set(_NARROW):
+                ev.stack = traceback.extract_stack()[:-1]
+            events.append(ev)
+            return out
+
+    with _Watch():
+        yield events
+
+
 def _display(path):
     rel = os.path.relpath(path)
     return (path if rel.startswith("..") else rel).replace(os.sep, "/")
@@ -107,6 +210,14 @@ def sync_site(stack, runner=None):
             return _display(path), fr.lineno
     fr = frames[0] if runner is not None else frames[-1]
     return _display(fr.filename), fr.lineno
+
+
+def op_site(stack):
+    """The frame an op of an entry's run is charged to (:func:`sync_site`
+    with the runner's frame): ``(path, line)``."""
+    from . import deepcheck
+
+    return sync_site(stack or [], os.path.abspath(deepcheck.__file__))
 
 
 def host_sync_findings(runs):
@@ -136,10 +247,12 @@ def host_sync_findings(runs):
 def run_tier3(names=None, paths=None, device="cuda", entries=True):
     """The ``--tier3`` pass: the phase-machine model (``paths`` scopes its
     never-read scan), and unless ``entries`` is False the deep entries' runs
-    on ``device`` with ``perf-host-sync`` over their second runs.  Returns
-    findings; a ``device`` that is not there raises."""
+    on ``device`` with ``perf-host-sync`` and the :mod:`.perf_rules` over
+    their second runs.  Returns findings; a ``device`` that is not there
+    raises."""
     from ..config import resolve_device
     from . import deepcheck
+    from .perf_rules import perf_findings
     from .protocol_flow import run_protocol_flow
 
     findings = list(run_protocol_flow(paths=paths))
@@ -164,5 +277,6 @@ def run_tier3(names=None, paths=None, device="cuda", entries=True):
                         "on a card)",
             ))
         findings += host_sync_findings(runs)
+        findings += perf_findings(runs)
     findings.sort(key=lambda f: (f.path, f.line, f.col, f.rule))
     return findings

@@ -119,6 +119,11 @@ class EntryRun:
     message: str = None
     out: object = None
     syncs: list = None
+    #: the watched second run's op records (:func:`.dataflow.watch_ops`),
+    #: the step callable and its arguments (for the perf rules)
+    ops: list = None
+    fn: object = None
+    args: tuple = None
 
 
 #: (entry name, device) -> EntryRun
@@ -133,12 +138,13 @@ def clear_run_cache():
 
 def run_entry(name, device="cuda"):
     """Build one registered entry on ``device`` and run it twice, the
-    second run under the synchronizing-call watch (:mod:`.dataflow`).
+    second run under the synchronizing-call and op watches
+    (:mod:`.dataflow`).
     Cached per process; never raises for the entry's own failures."""
     import torch
 
     from ..config import resolve_device
-    from .dataflow import watch_syncs
+    from .dataflow import watch_ops, watch_syncs
 
     _register_builtin_entries()
     dev = resolve_device(device)
@@ -159,10 +165,11 @@ def run_entry(name, device="cuda"):
         return run
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)  # the first run's work is not the second's
+    run.fn, run.args = fn, args
     try:
-        with watch_syncs(dev) as syncs:
+        with watch_syncs(dev) as syncs, watch_ops() as ops:
             out2 = fn(*args)
-        run.syncs = syncs
+        run.syncs, run.ops = syncs, ops
     except Exception as exc:  # noqa: BLE001
         run.rule = "deep-recompile"
         run.message = (f"the second run of identical inputs raised {_first_line(exc)} — "
@@ -465,7 +472,7 @@ def _register_builtin_entries():
         # heads divisible by the 8 ranks
         return _attention_entry(device, (2, 8, 64, 8), ulysses_attention)
 
-    def _tsp_batch(device, b):
+    def _tsp_inputs(device, b):
         import torch
 
         gen = torch.Generator().manual_seed(2)
@@ -498,7 +505,7 @@ def _register_builtin_entries():
         params = shard_pp_params(stack_layers(init_tsp_params(
             torch.Generator().manual_seed(0), cfg, device=device)), mesh)
         # per-dp-rank batch 4 divides the 4 microbatches exactly
-        return step, (params, *_tsp_batch(device, 8))
+        return step, (params, *_tsp_inputs(device, 8))
 
     def _tsp_entry(device, **cfg_kw):
         import torch
@@ -513,7 +520,7 @@ def _register_builtin_entries():
         step = make_tsp_train_step(cfg, mesh)
         params = shard_tsp_params(init_tsp_params(torch.Generator().manual_seed(0), cfg,
                                                   device=device), mesh)
-        return step, (params, *_tsp_batch(device, 4))
+        return step, (params, *_tsp_inputs(device, 4))
 
     @register_entry_point("tsp-train-step", f"{_PKG}/parallel/sequence.py",
                           view=_gathered(_gather_tsp))

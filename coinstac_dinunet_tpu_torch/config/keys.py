@@ -513,6 +513,72 @@ class WireContract:
     LOCKFILE = "wire_schema_torch.lock.json"
 
 
+class Concurrency:
+    """Tier-5 concurrency-auditor contract (``--tier5``,
+    :mod:`coinstac_dinunet_tpu_torch.analysis.concurrency` and
+    :mod:`coinstac_dinunet_tpu_torch.analysis.schedule_explorer`).
+
+    The JAX package's constants: the explorer's default bound and the rule
+    vocabulary of both halves.  Static (pure ``ast``): ``UNGUARDED`` (a
+    threaded write without the lock every other write site holds),
+    ``LOCK_ORDER`` (ABBA nesting), ``ESCAPE`` (state handed to
+    ``pool.submit`` mutated before ``.result()``), ``FS_RACE`` (a transfer
+    payload written outside the atomic-commit helpers from a thread).
+    Dynamic (the explorer over the real async round loop under virtual
+    time, a replayable schedule JSON per violation): ``TORN_STALE``,
+    ``LOST_COMMIT``, ``TORN_JSONL``, ``CLOSE_DEADLOCK``; ``CONFIG`` is the
+    tier's own error channel.
+    """
+
+    DEFAULT_SITES = 2
+    DEFAULT_ROUNDS = 2
+    DEFAULT_STALENESS_K = 1
+    DEFAULT_POOL = 2
+
+    UNGUARDED = "conc-unguarded-shared-write"
+    LOCK_ORDER = "conc-lock-order"
+    ESCAPE = "conc-escape"
+    FS_RACE = "conc-fs-race"
+
+    TORN_STALE = "proto-conc-torn-stale"
+    LOST_COMMIT = "proto-conc-lost-commit"
+    TORN_JSONL = "proto-conc-torn-jsonl"
+    CLOSE_DEADLOCK = "proto-conc-close-deadlock"
+    CONFIG = "proto-conc-config"
+
+
+class Numerics:
+    """Tier-7 numerics & determinism auditor (``--tier7``,
+    :mod:`coinstac_dinunet_tpu_torch.analysis.numerics` and the bit-parity
+    prover :mod:`coinstac_dinunet_tpu_torch.analysis.parity`).
+
+    The JAX package's constants.  ``PRNG_REUSE`` (one generator state
+    consumed by two draws with no reseed between), ``PRNG_DISCARD`` (a
+    derived seed pair of which one half is dropped), ``PRNG_CONSTANT`` (a
+    constant-seeded generator built on a per-round/per-step path),
+    ``ACCUM_NARROW`` (a sum, mean or optimizer moment whose result comes
+    out in bfloat16/float16 in an entry point's run), ``UNORDERED_REDUCE``
+    (a fan-in whose operand order follows dict/set iteration or an
+    unsorted directory listing), ``CODEC_UNBOUNDED`` (a wire codec path
+    that never reports its error or compression ratio), ``PARITY`` (the
+    prover: a claimed engine equivalence whose two arms diverged) and
+    ``CONFIG`` (the tier's own error channel).
+    """
+
+    DEFAULT_SITES = 3
+    DEFAULT_ROUNDS = 4
+
+    PRNG_REUSE = "num-prng-reuse"
+    PRNG_DISCARD = "num-prng-discard"
+    PRNG_CONSTANT = "num-prng-constant"
+    ACCUM_NARROW = "num-accum-narrow"
+    UNORDERED_REDUCE = "num-unordered-reduce"
+    CODEC_UNBOUNDED = "num-codec-unbounded"
+
+    PARITY = "proto-num-parity"
+    CONFIG = "num-config"
+
+
 class AggEngine(_StrEnum):
     """Built-in gradient-aggregation engines."""
     DSGD = "dSGD"

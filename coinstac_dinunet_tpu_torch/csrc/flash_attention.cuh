@@ -73,13 +73,10 @@ __device__ __forceinline__ float half_warp_sum(float v) {
 
 // s[i][j] = sum_c A[ty + 16 i][c] * B[tx + 16 j][c] over two shared
 // tiles of row stride D + 1: one 64x64 tile of A·Bᵀ, 16 values per thread.
+// tile_abt_add adds the product to s instead.
 template <int D>
-__device__ __forceinline__ void tile_abt(float s[kPer][kPer], const float* A,
-                                         const float* B, int ty, int tx) {
-#pragma unroll
-  for (int i = 0; i < kPer; ++i)
-#pragma unroll
-    for (int j = 0; j < kPer; ++j) s[i][j] = 0.0f;
+__device__ __forceinline__ void tile_abt_add(float s[kPer][kPer], const float* A,
+                                             const float* B, int ty, int tx) {
 #pragma unroll 8
   for (int c = 0; c < D; ++c) {
     float a[kPer], b[kPer];
@@ -92,6 +89,15 @@ __device__ __forceinline__ void tile_abt(float s[kPer][kPer], const float* A,
 #pragma unroll
       for (int j = 0; j < kPer; ++j) s[i][j] = fmaf(a[i], b[j], s[i][j]);
   }
+}
+template <int D>
+__device__ __forceinline__ void tile_abt(float s[kPer][kPer], const float* A,
+                                         const float* B, int ty, int tx) {
+#pragma unroll
+  for (int i = 0; i < kPer; ++i)
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) s[i][j] = 0.0f;
+  tile_abt_add<D>(s, A, B, ty, tx);
 }
 
 // acc[i][j] += sum_r P[ty + 16 i][r] * M[r][tx + 16 j] for r < kTile, with

@@ -31,6 +31,8 @@
 //    arithmetic: both products of a step run on the CUDA cores from float32
 //    tiles in shared memory, as in the forward (flash_attention.cuh), and
 //    agree with the plain version to the last bits.
+//  - any head dim above 128, in either type: the sliced kernels of
+//    flash_attention_wide.cuh (one block per output slice of 128 columns).
 //
 // Bound on an H100.  K3 does 6·Tq·Tk·D product operations per bh and K4
 // 8·Tq·Tk·D (half under the causal mask), and each one exp per valid pair,
@@ -46,6 +48,7 @@
 // launches raise the dynamic shared memory limit.
 #include "flash_attention.cuh"
 #include "flash_attention_bwd_wgmma.cuh"
+#include "flash_attention_wide.cuh"
 
 namespace {
 
@@ -266,6 +269,9 @@ int launch(int is_bf16, const Args& a) {
 template <bool kDq>
 int run(int d, int is_bf16, const Args& a) {
   if (a.bh <= 0 || a.tq <= 0 || a.tk <= 0) return 0;
+  if (d > 128)
+    return is_bf16 ? wide::launch_bwd<__nv_bfloat16, kDq>(a, d)
+                   : wide::launch_bwd<float, kDq>(a, d);
   switch (d) {
     case 16: return launch<kDq, 16>(is_bf16, a);
     case 32: return launch<kDq, 32>(is_bf16, a);
@@ -278,9 +284,11 @@ int run(int d, int is_bf16, const Args& a) {
 }  // namespace
 
 // Plain C interfaces, loaded with ctypes.  q (bh, tq, d), k and v (bh, tk, d)
-// and g_out (bh, tq, d) in float32 (is_bf16 = 0) or bfloat16 (is_bf16 = 1);
+// and g_out (bh, tq, d) in float32 (is_bf16 = 0) or bfloat16 (is_bf16 = 1;
+// g_out in float32 above d = 128);
 // lse, delta and g_lse (bh, tq) float32; dq (bh, tq, d), dk and dv
-// (bh, tk, d) float32.  d is 16, 32, 64 or 128.  Each launches on `stream` and
+// (bh, tk, d) float32.  d is 16, 32, 64, 128 or any d above 128 (the
+// kernels of flash_attention_wide.cuh).  Each launches on `stream` and
 // returns cudaGetLastError() (0 = launched), or cudaErrorInvalidValue when
 // a tensor map cannot be encoded.
 extern "C" int coinn_flash_bwd_dq(const void* q, const void* k, const void* v,

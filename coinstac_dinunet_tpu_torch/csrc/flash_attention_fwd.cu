@@ -35,8 +35,12 @@
 //    cores' 67 TFLOP/s.  Shared memory: Q, K, V tiles (64 x (D + 1) floats
 //    each) and P (64 x 65): 42 KB at D = 32, 116 KB at D = 128, so the
 //    launch raises the block's dynamic shared memory limit.
+//  - any head dim above 128, in either type: the sliced kernels of
+//    flash_attention_wide.cuh (an lse kernel, then one block per output
+//    slice of 128 columns).
 #include "flash_attention.cuh"
 #include "flash_attention_fwd_wgmma.cuh"
+#include "flash_attention_wide.cuh"
 
 namespace {
 
@@ -154,8 +158,9 @@ int run(int is_bf16, const FwdArgs& a) {
 
 // Plain C interface, loaded with ctypes.  q (bh, tq, d), k and v (bh, tk, d)
 // in float32 (is_bf16 = 0) or bfloat16 (is_bf16 = 1); out (bh, tq, d) and
-// lse (bh, tq) float32.  d is 16, 32, 64 or 128; tk > 0.  Launches on `stream`
-// and returns cudaGetLastError() (0 = launched).
+// lse (bh, tq) float32.  d is 16, 32, 64, 128 or any d above 128 (the
+// kernels of flash_attention_wide.cuh); tk > 0.  Launches on `stream` and
+// returns cudaGetLastError() (0 = launched).
 extern "C" int coinn_flash_fwd(const void* q, const void* k, const void* v,
                                void* out, void* lse, int bh, int tq, int tk,
                                int d, int is_bf16, float scale, int causal,
@@ -164,6 +169,9 @@ extern "C" int coinn_flash_fwd(const void* q, const void* k, const void* v,
   if (bh <= 0 || tq <= 0) return 0;
   const FwdArgs a{q, k, v, out, lse, bh, tq, tk, scale, causal, q_offset, k_offset,
                   kv_len, (cudaStream_t)stream};
+  if (d > 128)
+    return is_bf16 ? coinn_flash::wide::launch_fwd<__nv_bfloat16>(a, d)
+                   : coinn_flash::wide::launch_fwd<float>(a, d);
   switch (d) {
     case 16: return run<16>(is_bf16, a);
     case 32: return run<32>(is_bf16, a);

@@ -24,13 +24,18 @@ Two implementations of each direction:
   cores.  They are instantiated for head dims 16, 32, 64 and 128; any
   other head dim up to 128 runs on the next of them, q, k, v and g_out
   zero-padded in the head dim and out, dq, dk, dv sliced back
-  (:func:`padded_head_dim`; zero columns change no score);
+  (:func:`padded_head_dim`; zero columns change no score).  Any head dim
+  above 128 runs, unpadded, on the sliced kernels of
+  ``csrc/flash_attention_wide.cuh`` (128-column slices of the head dim,
+  each output slice written against a known lse), which compute in float32
+  on the CUDA cores in both types and round nothing to bfloat16;
 - :func:`flash_forward_plain` and :func:`flash_backward_plain`, plain
   PyTorch in float32 with autocast off (the dense form of the same
   identities, the counterparts of ``_flash_xla`` and the XLA backward),
   taken for tensors on the CPU and used on the card only to check the
   kernels.  Their ``round_dtype`` option gives them the tensor-core
-  kernels' bfloat16 roundings, for those checks only.
+  kernels' bfloat16 roundings, for those checks only (above head dim 128,
+  where no tensor core runs, it rounds nothing).
 
 :class:`FlashAttention` is the ``torch.autograd.Function`` over
 ``(BH, T, d)``: it returns float32 ``(out, lse)`` and takes a cotangent for
@@ -66,7 +71,8 @@ _LN2 = 0.6931471805599453
 #: head dims the kernels are instantiated for (16: the sequence example's
 #: d_model 64 over 4 heads); any head dim from 1 to the largest runs on the
 #: next of them, q, k, v and g_out zero-padded in the head dim
-#: (:func:`padded_head_dim`)
+#: (:func:`padded_head_dim`), and any head dim above it on the sliced
+#: kernels at its own width
 HEAD_DIMS = (16, 32, 64, 128)
 #: keys of a K/V tile of the bfloat16 forward kernel at every head dim
 #: (``Config<D>::kN`` in ``csrc/flash_attention_fwd_wgmma.cuh``): the tiles
@@ -121,12 +127,13 @@ def flash_forward_plain(q, k, v, q_offset, k_offset, kv_len, causal, scale,
     go in tiles of ``FWD_KEY_TILE``, ``p`` is taken against the running
     row max after each tile and rounded there, and each tile's share is
     rescaled to the final max in float32, as the kernel's accumulator is;
-    ``l`` sums the unrounded ``p``.  ``None`` is the float32 statement of
-    the function.
+    ``l`` sums the unrounded ``p``.  Above ``HEAD_DIMS[-1]`` it is
+    ignored: the sliced kernels round nothing.  ``None`` is the float32
+    statement of the function.
     """
     bh, tq, _ = q.shape
     valid = _valid_mask(tq, k.shape[1], q_offset, k_offset, kv_len, causal, q.device)
-    if round_dtype is not None:
+    if round_dtype is not None and q.shape[-1] <= HEAD_DIMS[-1]:
         return _forward_online(q, k, v, valid, scale, round_dtype)
     outs, lses = [], []
     with torch.autocast(device_type=q.device.type, enabled=False):
@@ -186,10 +193,13 @@ def _backward_plain(q, k, v, g_out, lse, delta, g_lse, q_offset, k_offset,
     ``round_dtype`` serves the checks of the tensor-core kernels only, no
     path of the port: it is the dtype those kernels round ``g_out``, ``p``
     and ``ds`` to before their products (bfloat16), and with it ``scale``
-    multiplies the float32 products as in the kernels instead of ``q``.
-    ``None`` is the float32 statement of the function.
+    multiplies the float32 products as in the kernels instead of ``q``;
+    above ``HEAD_DIMS[-1]`` it is ignored (the sliced kernels round
+    nothing).  ``None`` is the float32 statement of the function.
     """
     bh, tq, _ = q.shape
+    if q.shape[-1] > HEAD_DIMS[-1]:
+        round_dtype = None
     valid = _valid_mask(tq, k.shape[1], q_offset, k_offset, kv_len, causal, q.device)
     matched = round_dtype is not None
     rnd = (lambda t: t.to(round_dtype).float()) if matched else (lambda t: t)
@@ -239,15 +249,19 @@ def flash_backward_plain(q, k, v, out, lse, g_out, g_lse, q_offset, k_offset,
 
 
 def padded_head_dim(d):
-    """The instantiated head dim (``HEAD_DIMS``) a head dim ``d`` runs at:
-    the smallest that holds it.  Zero columns change no score ``q·k``
-    and add nothing to ``p·v``, so the kernel's output, lse and gradients
-    in the first ``d`` columns are those of the unpadded call (given the
-    unpadded head dim's scale); the padded columns are dropped."""
+    """The head dim a head dim ``d`` runs at: up to ``HEAD_DIMS[-1]`` the
+    smallest instantiated one (``HEAD_DIMS``) that holds it, above it ``d``
+    itself (the sliced kernels take any width).  Zero columns change no
+    score ``q·k`` and add nothing to ``p·v``, so the kernel's output, lse
+    and gradients in the first ``d`` columns are those of the unpadded call
+    (given the unpadded head dim's scale); the padded columns are
+    dropped."""
+    if d > HEAD_DIMS[-1]:
+        return d
     for dim in HEAD_DIMS:
         if 1 <= d <= dim:
             return dim
-    raise ValueError(f"flash attention kernels take head dims 1 to {HEAD_DIMS[-1]}, not {d}")
+    raise ValueError(f"flash attention kernels take head dims of 1 or more, not {d}")
 
 
 def _pad_head_dim(t, dim):
@@ -280,7 +294,7 @@ def _shape_args(q, k, pos, causal, scale, stream):
 
 def flash_forward_cuda(q, k, v, q_offset, k_offset, kv_len, causal, scale):
     """K2 on the card; same contract as :func:`flash_forward_plain`, at any
-    head dim from 1 to 128 (:func:`padded_head_dim`)."""
+    head dim (:func:`padded_head_dim`)."""
     _check_cuda(q, k, v)
     bh, tq, d = q.shape
     dim = padded_head_dim(d)
@@ -306,8 +320,9 @@ def _bwd_cuda(kernel, out_rows, q, k, v, g_out, lse, delta, g_lse, q_offset,
     dim = padded_head_dim(d)
     ins = [_pad_head_dim(t, dim) for t in (q, k, v)]
     # the bfloat16 kernels take g_out in bfloat16 (their products run on
-    # bfloat16 tiles), the float32 kernels in float32
-    ins += [_pad_head_dim(g_out.to(q.dtype), dim)]
+    # bfloat16 tiles), the float32 kernels and the sliced kernels above
+    # HEAD_DIMS[-1] (float32 arithmetic in both types) in float32
+    ins += [_pad_head_dim(g_out.to(q.dtype if dim <= HEAD_DIMS[-1] else torch.float32), dim)]
     ins += [t.float().contiguous() for t in (lse, delta, g_lse)]
     outs = [torch.empty((q.shape[0], rows, dim), dtype=torch.float32, device=q.device)
             for rows in out_rows]
@@ -337,7 +352,9 @@ def flash_backward_cuda(q, k, v, out, lse, g_out, g_lse, q_offset, k_offset,
     """K3 then K4 on the card; same contract as
     :func:`flash_backward_plain`."""
     # Δ from the float32 cotangent; one cast of g_out serves both launches
-    args = (q, k, v, g_out.to(q.dtype), lse, flash_delta(out, g_out), g_lse, q_offset,
+    # (none above HEAD_DIMS[-1], where the kernels take it in float32)
+    g_dtype = q.dtype if q.shape[-1] <= HEAD_DIMS[-1] else torch.float32
+    args = (q, k, v, g_out.to(g_dtype), lse, flash_delta(out, g_out), g_lse, q_offset,
             k_offset, kv_len, causal, scale)
     return (flash_dq_cuda(*args), *flash_dkv_cuda(*args))
 

@@ -35,7 +35,7 @@ from coinstac_dinunet_tpu_torch.analysis import (
 )
 from coinstac_dinunet_tpu_torch.analysis import protocol, protocol_flow, sharding
 from coinstac_dinunet_tpu_torch.analysis import telemetry_names, wire_atomic
-from coinstac_dinunet_tpu_torch.analysis.__main__ import UNPORTED, main
+from coinstac_dinunet_tpu_torch.analysis.__main__ import main
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "coinstac_dinunet_tpu_torch")
@@ -709,18 +709,26 @@ def test_cli_write_baseline_keeps_entries_of_tiers_not_run(tmp_path, capsys):
     assert rules == ["deep-eval-shape", "perf-host-sync", "wire-atomic-commit", "wire-orphan"]
 
 
-@pytest.mark.parametrize("flag", sorted(UNPORTED))
-def test_cli_flags_of_unported_tiers_raise(flag, tmp_path):
-    argv = [str(tmp_path), "--" + flag.replace("_", "-")]
-    if flag in ("schedules", "schedule_bound", "parity_plans", "jax_version"):
-        argv.append("1")
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md Queue 1: "):
-        main(argv)
+@pytest.mark.parametrize("argv,rc,err", [
+    (["--tier5"], 0, ""),
+    (["--schedules", "1"], 2, "require --tier5"),
+    (["--schedule-bound", "1"], 2, "require --tier5"),
+    (["--tier7", "--device", "cpu"], 0, ""),
+    (["--parity"], 0, ""),
+    (["--parity-plans", "1"], 2, "requires --tier7 or --parity"),
+    (["--jax-version", "1"], 2, "use --torch-version"),
+])
+def test_cli_flags_of_the_jax_tiers_5_and_7_are_carried(argv, rc, err, tmp_path, capsys):
+    """The JAX analyzer's tier-5 and tier-7 flags run their tiers (an empty
+    tree: nothing static to find, the explorer and prover clean); their
+    knobs require the tier, and ``--jax-version`` names ``--torch-version``."""
+    assert main([str(tmp_path), *argv]) == rc
+    assert err in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("argv,err", [
     (["--deep-entries", "ring-attention"], "--deep-entries requires --deep"),
-    (["--device", "cpu"], "--device requires --deep or --tier3"),
+    (["--device", "cpu"], "--device requires --deep, --tier3 or --tier7"),
     (["--model-sites", "2"], "require --model"),
     (["--write-lock"], "require --wire"),
     (["--rules", "perf-host-sync"], "requires --tier3"),

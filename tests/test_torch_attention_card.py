@@ -11,6 +11,11 @@ compute in float32 from the same inputs; they differ in the order of the
 float32 sums and in ``expf`` against torch's ``exp``).  The backward kernels
 take no atomics, so two launches agree bit for bit.
 
+Head dims 160, 256 and 320 run on the sliced kernels
+(``csrc/flash_attention_wide.cuh``), in float32 on the CUDA cores in both
+types: there the rounding-matched plain version is the float32 one, and
+the same tolerances hold.
+
 For bfloat16 inputs K2, K3 and K4 run their products on the tensor cores
 and round ``p`` (and in the backward ``g_out`` and ``ds``) to bfloat16
 first.  They are held to the float32 plain version within 2e-2·max + 1e-6
@@ -31,6 +36,9 @@ import pytest
 import torch
 
 fa = importlib.import_module("coinstac_dinunet_tpu_torch.ops.flash_attention")
+
+# the instantiated head dims and, above 128, the sliced kernels' (no padding)
+KERNEL_HEAD_DIMS = (*fa.HEAD_DIMS, 160, 256, 320)
 
 CASES = [  # (causal, q_offset, k_offset, kv_len, g_lse nonzero)
     (False, 0, 0, 160, True), (True, 0, 0, 160, True), (False, 0, 0, 96, False),
@@ -67,7 +75,7 @@ def _inputs(dev, d, dtype, case, bh=3, t=160):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", fa.HEAD_DIMS)
+@pytest.mark.parametrize("d", KERNEL_HEAD_DIMS)
 def test_forward_kernel_matches_plain(card, d, dtype):
     """float32: within 1e-4·max of the plain version.  bfloat16 (the
     tensor-core kernel): within 4e-3·max of the rounding-matched plain
@@ -101,7 +109,7 @@ def test_bf16_forward_of_a_long_sequence(card):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", fa.HEAD_DIMS)
+@pytest.mark.parametrize("d", KERNEL_HEAD_DIMS)
 def test_bf16_forward_repeats_bit_for_bit(card, d):
     for case in CASES:
         qkv, pos, _ = _inputs(card, d, torch.bfloat16, case, t=333)
@@ -111,7 +119,7 @@ def test_bf16_forward_repeats_bit_for_bit(card, d):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", fa.HEAD_DIMS)
+@pytest.mark.parametrize("d", KERNEL_HEAD_DIMS)
 def test_bf16_forward_of_fully_masked_rows(card, d):
     """No valid key (kv_len 0), or a causal slice before every key: zeros
     and the sentinel lse, at or below −5e29 (what the backward reads as
@@ -129,7 +137,7 @@ def _backward_args(dev, d, case, dtype=torch.float32, t=160):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", fa.HEAD_DIMS)
+@pytest.mark.parametrize("d", KERNEL_HEAD_DIMS)
 def test_dq_kernel_matches_plain_and_repeats_bit_for_bit(card, d):
     for case in CASES:
         args = _backward_args(card, d, case)
@@ -139,7 +147,7 @@ def test_dq_kernel_matches_plain_and_repeats_bit_for_bit(card, d):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", fa.HEAD_DIMS)
+@pytest.mark.parametrize("d", KERNEL_HEAD_DIMS)
 def test_dkv_kernel_matches_plain_and_repeats_bit_for_bit(card, d):
     for case in CASES:
         args = _backward_args(card, d, case)
@@ -153,7 +161,7 @@ def test_dkv_kernel_matches_plain_and_repeats_bit_for_bit(card, d):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("t", [160, 333])
-@pytest.mark.parametrize("d", fa.HEAD_DIMS)
+@pytest.mark.parametrize("d", KERNEL_HEAD_DIMS)
 def test_bf16_dq_kernel_matches_both_plain_versions(card, d, t):
     """K3 on the tensor cores: ragged T, causal with offsets, a masked key
     tail, no valid key at all; bit-identical reruns."""
@@ -172,7 +180,7 @@ def test_bf16_dq_kernel_matches_both_plain_versions(card, d, t):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("t", [160, 333])
-@pytest.mark.parametrize("d", fa.HEAD_DIMS)
+@pytest.mark.parametrize("d", KERNEL_HEAD_DIMS)
 def test_bf16_dkv_kernel_matches_both_plain_versions(card, d, t):
     """K4 on the tensor cores, with exactly zero dk and dv past kv_len."""
     for case in CASES:
@@ -247,7 +255,21 @@ def test_autograd_function_launches_the_kernels(card):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_autograd_function_launches_the_kernels_above_head_dim_128(card, dtype):
+    """Head dim 256 through the autograd function: one launch of each
+    kernel (the sliced ones), never the plain version."""
+    q, k, v = [torch.randn((2, 2, 200, 256), device=card, dtype=dtype,
+                           requires_grad=True) for _ in range(3)]
+    before = [kern.launches for kern in fa.KERNELS]
+    out = fa.flash_attention(q, k, v, causal=True)
+    out.float().pow(2).sum().backward()
+    assert [kern.launches - b for kern, b in zip(fa.KERNELS, before)] == [1, 1, 1]
+    assert torch.isfinite(q.grad.float()).all()
+
+
+@pytest.mark.cuda
 def test_unsupported_head_dim_raises(card):
-    q = torch.zeros((1, 1, 8, 48), device=card)
+    q = torch.zeros((1, 8, 0), device=card)
     with pytest.raises(ValueError, match="head dims"):
-        fa.flash_attention(q, q, q)
+        fa.flash_forward_cuda(q, q, q, 0, 0, 8, False, 1.0)
