@@ -19,17 +19,21 @@ Phases, in order; any failure exits non-zero before the last line:
    128 (16: the sequence example's attention, B 8, H 4, T 128, in both
    types, and T 4096) and at head dims 4, 8 and 24, which the wrapper
    zero-pads to the next instantiated one (short edges in both types, and
-   T 4096 timed), and at head dims 160, 256 and 320, which run unpadded on
-   the sliced kernels (``csrc/flash_attention_wide.cuh``: a T that is no
-   tile multiple, causal with offsets and a masked key tail, keys past
-   kv_len, every row masked, in both types; d 256 at B 8, H 4, T 4096 timed
-   in both types beside ``scaled_dot_product_attention``), within stated
-   tolerances
+   T 4096 timed), and at head dims 160, 256 and 320 (a T that is no tile
+   multiple, causal with offsets and a masked key tail, keys past kv_len,
+   every row masked, in both types; d 256 at B 8, H 4, T 4096 timed in both
+   types beside ``scaled_dot_product_attention``), where the bfloat16 K2
+   and K4 run on the tensor cores
+   (``csrc/flash_attention_wide_wgmma.cuh``, zero-padded to 192, 256 or
+   320) and K3 and the float32 K2 and K4 unpadded on the sliced kernels
+   (``csrc/flash_attention_wide.cuh``), within stated tolerances
    (the bfloat16 tensor-core forward, dq and dk/dv against the plain
    version with the kernels' bfloat16 roundings and against the float32
    one, with ``scaled_dot_product_attention``'s forward and backward as the
-   witnesses of the format's error), with bit-identical results from two
-   launches of each;
+   witnesses of the format's error; at d 256 and at d 24, T 4096, against
+   the derived bound of ``ops/flash_attention.py`` instead of a fixed ratio,
+   which two planted faults must cross), with bit-identical results from
+   two launches of each;
 4. reference — the VBM model's and the sequence model's logits on the card
    against the CPU on a small input (float32, TF32 off), within 1e-4; the
    compression math (``orthogonalize``, ``power_iteration_BC`` with the
@@ -649,10 +653,12 @@ _FLASH_PADDED_EDGES = [
     ("t160_d24", 1, 2, 160, 24, False, 0, 0, None, True),
     ("offsets_d24", 1, 2, 333, 24, True, 100, 37, 300, True),
 ]
-# head dims above 128, on the sliced kernels at their own width (no
-# padding): a T that is no tile multiple, causal with both offsets and a
-# masked key tail, keys past kv_len, every row masked; in both types.  They
-# compute in float32 whatever the input type, so for bfloat16 inputs the
+# head dims above 128: a T that is no tile multiple, causal with both
+# offsets and a masked key tail, keys past kv_len, every row masked; in both
+# types.  In bfloat16, K2 and K4 run on the tensor-core kernels of
+# csrc/flash_attention_wide_wgmma.cuh (d zero-padded to 192, 256 or 320)
+# and are held to the rounding-matched plain version; K3 (and float32 K2,
+# K4) run unpadded on the sliced kernels, in float32, whose
 # "rounding-matched" plain version is the float32 one.
 _FLASH_WIDE_EDGES = [
     ("t160_d160", 1, 2, 160, 160, False, 0, 0, None, True),
@@ -691,6 +697,11 @@ FLASH_CASES = [
     # head dim 256 (Gemma's) at the sequence model's T, timed in both types
     ("d256_long", 8, 4, 4096, 256, "bfloat16", False, 0, 0, None, False),
     ("d256_long_f32", 8, 4, 4096, 256, "float32", False, 0, 0, None, False),
+    # the padded head dim 24 in bfloat16 at T 4096, under the derived bound
+    ("d24_long", 8, 4, 4096, 24, "bfloat16", False, 0, 0, None, False),
+    # above 320 every kernel runs on the sliced ones, in both types
+    ("offsets_d384", 1, 2, 333, 384, "float32", True, 100, 37, 300, True),
+    ("offsets_d384_bf16", 1, 2, 333, 384, "bfloat16", True, 100, 37, 300, True),
 ]
 # Tolerance of a kernel's output against its plain version: 1e-4 of the
 # plain output's largest magnitude, plus 1e-6.  Both compute in float32 from
@@ -715,6 +726,20 @@ FLASH_RTOL, FLASH_ATOL = 1e-4, 1e-6
 FLASH_BF16_MATCHED_RTOL = 1e-3
 FLASH_BF16_MATCHED_RTOL_SHORT = 4e-3
 FLASH_LONG_T = 1024  # from here on a case counts as long
+# A fixed ratio has no margin where one flipped term weighs more: K3's dq at
+# T 4096 read up to 8.03e-4 of max|dq| at native head dims and 1.00e-3 at d
+# 24, and a tensor-core K4 at d 256 1.33e-3 of max|dv| (PERF.md §6).
+# There the kernels are held instead, element by element, to the derived
+# bound of ops/flash_attention.py: against the rounding-matched function in
+# float64, one bfloat16 step for each p or ds whose float32 value the
+# kernel's arithmetic may put on the other side of a rounding boundary,
+# times the other operand, plus FLASH_RTOL·max + FLASH_ATOL for the float32
+# sums.  Two planted faults must cross it: the kernel with one key tile
+# dropped (K2, K3: kv_len one tile short; K4: the lse of one query tile
+# padded, so its p is 0) and the rounding in float16 instead of bfloat16
+# (the float64 function with p and ds in float16).  The kernels each case
+# holds so: (case, kernels).
+FLASH_DERIVED = {"d256_long": ("fwd", "dkv"), "d24_long": ("fwd", "dq", "dkv")}
 # Against the float32 plain version the difference is the format's: 2^-9
 # relative on each of p (K2) or g_out, p and ds (K3, K4).
 # scaled_dot_product_attention's forward and backward on the same inputs
@@ -724,12 +749,16 @@ FLASH_LONG_T = 1024  # from here on a case counts as long
 # must give the same bits (no atomics).
 FLASH_BF16_RTOL = 2e-2
 FLASH_BF16_LIBRARY_FACTOR = 2.0
+FLASH_LIBRARY_CASES = ("main", "tpu", "d256_long")
 # the cases whose kernel, plain-version, bound and library times are taken
 FLASH_D16_TIMED = ("seq_example", "seq_example_f32", "d16_long")
 FLASH_PADDED_TIMED = ("d4_long", "d8_long", "d24_long_f32")
 FLASH_WIDE_TIMED = ("d256_long", "d256_long_f32")
 FLASH_TIMED = ("main", "tpu", "vectorized", *FLASH_D16_TIMED, *FLASH_PADDED_TIMED,
                *FLASH_WIDE_TIMED)
+# K2 and K4 on bfloat16 inputs above head dim 128 (the kernels line's
+# "wide_bf16" entries of flash_attention_fwd and flash_attention_dkv)
+FLASH_WIDE_SOURCE = "coinstac_dinunet_tpu_torch/csrc/flash_attention_wide_wgmma.cuh"
 FLASH_SOURCES = {
     "flash_attention_fwd": ("coinstac_dinunet_tpu_torch/csrc/flash_attention_fwd.cu",
                             "coinstac_dinunet_tpu/ops/flash_attention.py:79"),
@@ -802,6 +831,88 @@ def library_backward(F, shape, q, k, v, g_out, causal):
     return [g.reshape(b * h, t, d).float() for g in grads]
 
 
+def _derived(fa, got, want, bound, what):
+    """``(max |got - want|, excess)`` of a kernel's output against the
+    derived bound (``ops/flash_attention.py``); raises when the excess is over
+    1."""
+    excess = fa.bound_excess(got, want, bound, FLASH_RTOL, FLASH_ATOL)
+    if not excess <= 1.0:
+        raise AssertionError(f"{what}: |kernel - rounding-matched float64| is {excess:.3f} x "
+                             "the derived bound somewhere")
+    return float((got - want).abs().max()), excess
+
+
+def _faults_cross(fa, faults, want, bound, what):
+    """Each planted fault's excess over the derived bound; raises unless
+    every one crosses it."""
+    out = {}
+    for name, got in faults.items():
+        out[name] = fa.bound_excess(got, want, bound, FLASH_RTOL, FLASH_ATOL)
+        if not out[name] > 1.0:
+            raise AssertionError(f"{what}: the planted fault {name} stays within the derived "
+                                 f"bound ({out[name]:.3f} of it)")
+    return out
+
+
+def _derived_text(rec):
+    """``name excess (faults ...)`` of derived-bound records, for the log."""
+    return ", ".join(f"{name} {r['excess']:.3f} (faults " + ", ".join(
+        f"{f} {x:.3g}" for f, x in r["faults"].items()) + ")" for name, r in rec.items())
+
+
+def check_derived_forward(fa, case, q, k, v, pos, out):
+    """K2's derived-bound gate at one long bfloat16 case: ``out`` within the
+    bound, each planted fault across it.  Returns ``(max |d|, record)``."""
+    import torch
+
+    qo, ko, kv_len, causal, scale = pos
+    want, bound = fa.rounding_bound_forward(q, k, v, *pos)
+    err, excess = _derived(fa, out, want, bound, f"K2 out at {case}")
+    tile = fa.fwd_key_tile(q.shape[-1])
+    faults = {"key_tile_dropped": fa.flash_forward_cuda(q, k, v, qo, ko, kv_len - tile, causal,
+                                                        scale)[0],
+              "p_in_float16": fa.rounding_bound_forward(q, k, v, *pos,
+                                                        round_dtype=torch.float16)[0]}
+    return err, {"excess": excess, "bound_share": fa.bound_share(bound, want),
+                 "faults": _faults_cross(fa, faults, want, bound, f"K2 at {case}")}
+
+
+def check_derived_backward(fa, kernels, case, args, grads):
+    """K3's (``"dq"`` in ``kernels``) and K4's (``"dkv"``) derived-bound
+    gate at one long bfloat16 case: ``grads`` (dq, dk, dv) within their
+    bounds, each planted fault across them.  Returns ``(max |d| per
+    kernel, {name: record})``."""
+    import torch
+
+    qo, ko, kv_len, causal, scale = args[7:]
+    errs, rec = {}, {}
+    if "dq" in kernels:
+        (want,), (bound,) = fa.rounding_bound_backward(*args, dq=True)
+        errs["dq"], excess = _derived(fa, grads[0], want, bound, f"K3 dq at {case}")
+        faults = {"key_tile_dropped": fa.flash_dq_cuda(*args[:7], qo, ko, kv_len - 64, causal,
+                                                       scale),
+                  "ds_in_float16": fa.rounding_bound_backward(
+                      *args, dq=True, round_dtype=torch.float16)[0][0]}
+        rec["dq"] = {"excess": excess, "bound_share": fa.bound_share(bound, want),
+                     "faults": _faults_cross(fa, faults, want, bound, f"K3 at {case}")}
+        del want, bound, faults
+    if "dkv" in kernels:
+        wants, bounds = fa.rounding_bound_backward(*args, dq=False)
+        lse_cut = args[4].clone()
+        lse_cut[:, :64] = fa._LSE_PAD  # the first query tile: its p is 0
+        dropped = fa.flash_dkv_cuda(*args[:4], lse_cut, *args[5:])
+        f16 = fa.rounding_bound_backward(*args, dq=False, round_dtype=torch.float16)[0]
+        for i, name in enumerate(("dk", "dv")):
+            err, excess = _derived(fa, grads[1 + i], wants[i], bounds[i], f"K4 {name} at {case}")
+            errs["dkv"] = max(errs.get("dkv", 0.0), err)
+            rec[name] = {"excess": excess, "bound_share": fa.bound_share(bounds[i], wants[i]),
+                         "faults": _faults_cross(
+                             fa, {"query_tile_dropped": dropped[i], "p_ds_in_float16": f16[i]},
+                             wants[i], bounds[i], f"K4 {name} at {case}")}
+        del wants, bounds, dropped, f16
+    return errs, rec
+
+
 def check_flash(dev, report):
     """K2, K3 and K4 against their plain versions on the card at every
     case of FLASH_CASES; times at path 2's, path 8's and the TPU's
@@ -816,6 +927,7 @@ def check_flash(dev, report):
     errs = {name: 0.0 for name in FLASH_SOURCES}
     errs_f32 = {name: 0.0 for name in FLASH_SOURCES}
     library_errs = {}
+    wide_errs = {"flash_attention_fwd": 0.0, "flash_attention_dkv": 0.0}
     exp_per_s = (EXP_PER_CLOCK_PER_SM * torch.cuda.get_device_properties(dev).multi_processor_count
                  * max_sm_clock_hz())
     for (case, b, h, t, d, dtype, causal, qo, ko, kv, nz_glse) in FLASH_CASES:
@@ -828,21 +940,27 @@ def check_flash(dev, report):
         pos = (qo, ko, kv_len, causal, scale)
         bf16 = dt == torch.bfloat16
         m_rtol = FLASH_BF16_MATCHED_RTOL if t >= FLASH_LONG_T else FLASH_BF16_MATCHED_RTOL_SHORT
+        derived = FLASH_DERIVED.get(case, ()) if bf16 else ()
         out, lse = fa.flash_forward_cuda(q, k, v, *pos)
         p_out, p_lse = fa.flash_forward_plain(q, k, v, *pos)
         scales = []  # max |plain| of out, lse, dq, dk, dv
         extra = ""
-        if bf16:
-            # first against the plain version with the kernel's roundings ...
+        derived_rec = {}
+        if "fwd" in derived:
+            # the derived bound where a fixed ratio has no margin ...
+            e_out, derived_rec["fwd"] = check_derived_forward(fa, case, q, k, v, pos, out)
+        elif bf16:
+            # ... else first against the plain version with the kernel's roundings ...
             m_out = fa.flash_forward_plain(q, k, v, *pos, round_dtype=dt)[0]
             e_out = _close(out, m_out, f"K2 out at {case} (rounding-matched)", rtol=m_rtol)
             del m_out
+        if bf16:
             # ... then against the float32 statement of the function
             f_out = _close(out, p_out, f"K2 out at {case} (float32 plain)", scales,
                            rtol=FLASH_BF16_RTOL)
             errs_f32["flash_attention_fwd"] = max(errs_f32["flash_attention_fwd"], f_out)
             extra = f"; vs float32 plain out {f_out:.2e}"
-            if case in ("main", "tpu"):
+            if case in FLASH_LIBRARY_CASES:
                 l_out = float((library_forward(F, (b, h, t, d), q, k, v, causal)
                                - p_out).abs().max())
                 extra += f"; library forward vs float32 plain out {l_out:.2e}"
@@ -870,14 +988,28 @@ def check_flash(dev, report):
         p_dq = fa.flash_dq_plain(*args)
         p_dk, p_dv = fa.flash_dkv_plain(*args)
         torch.cuda.synchronize()
+        d_errs = {}
+        if set(derived) & {"dq", "dkv"}:
+            d_errs, rec = check_derived_backward(fa, derived, case, args, (dq, dk, dv))
+            derived_rec.update(rec)
+        if derived_rec:
+            extra += "; derived bound, excess " + _derived_text(derived_rec)
         if bf16:
-            # first against the plain version with the kernels' roundings ...
-            m_dq = fa.flash_dq_plain(*args, round_dtype=dt)
-            m_dk, m_dv = fa.flash_dkv_plain(*args, round_dtype=dt)
-            e_dq = _close(dq, m_dq, f"K3 dq at {case} (rounding-matched)", rtol=m_rtol)
-            e_dkv = max(_close(dk, m_dk, f"K4 dk at {case} (rounding-matched)", rtol=m_rtol),
-                        _close(dv, m_dv, f"K4 dv at {case} (rounding-matched)", rtol=m_rtol))
-            del m_dq, m_dk, m_dv
+            # the derived bound, or first against the plain version with
+            # the kernels' roundings ...
+            if "dq" in derived:
+                e_dq = d_errs["dq"]
+            else:
+                m_dq = fa.flash_dq_plain(*args, round_dtype=dt)
+                e_dq = _close(dq, m_dq, f"K3 dq at {case} (rounding-matched)", rtol=m_rtol)
+                del m_dq
+            if "dkv" in derived:
+                e_dkv = d_errs["dkv"]
+            else:
+                m_dk, m_dv = fa.flash_dkv_plain(*args, round_dtype=dt)
+                e_dkv = max(_close(dk, m_dk, f"K4 dk at {case} (rounding-matched)", rtol=m_rtol),
+                            _close(dv, m_dv, f"K4 dv at {case} (rounding-matched)", rtol=m_rtol))
+                del m_dk, m_dv
             # ... then against the float32 statement of the function
             f_errs = [_close(got, want, f"{what} at {case} (float32 plain)", scales,
                              rtol=FLASH_BF16_RTOL)
@@ -886,7 +1018,7 @@ def check_flash(dev, report):
             errs_f32["flash_attention_dq"] = max(errs_f32["flash_attention_dq"], f_errs[0])
             errs_f32["flash_attention_dkv"] = max(errs_f32["flash_attention_dkv"], *f_errs[1:])
             extra += "; vs float32 plain dq {:.2e} dk {:.2e} dv {:.2e}".format(*f_errs)
-            if case in ("main", "tpu"):
+            if case in FLASH_LIBRARY_CASES:
                 lib = library_backward(F, (b, h, t, d), q, k, v, g_out, causal)
                 l_errs = [float((got - want).abs().max())
                           for got, want in zip(lib, (p_dq, p_dk, p_dv))]
@@ -919,10 +1051,15 @@ def check_flash(dev, report):
         errs["flash_attention_fwd"] = max(errs["flash_attention_fwd"], e_fwd)
         errs["flash_attention_dq"] = max(errs["flash_attention_dq"], e_dq)
         errs["flash_attention_dkv"] = max(errs["flash_attention_dkv"], e_dkv)
+        if bf16 and d > fa.HEAD_DIMS[-1]:
+            wide_errs["flash_attention_fwd"] = max(wide_errs["flash_attention_fwd"], e_fwd)
+            wide_errs["flash_attention_dkv"] = max(wide_errs["flash_attention_dkv"], e_dkv)
         row = {"case": case, "shape": [b, h, t, d], "dtype": dtype, "causal": causal,
                "q_offset": qo, "k_offset": ko, "kv_len": kv_len, "g_lse_nonzero": nz_glse,
                "max_abs_err": {"fwd": e_fwd, "dq": e_dq, "dkv": e_dkv},
                "max_abs_plain": dict(zip(("out", "lse", "dq", "dk", "dv"), scales))}
+        if derived_rec:
+            row["derived_bound"] = derived_rec
         log(f"  K2-K4 {case:18s} {str([b, h, t, d]):20s} {dtype:8s} causal={causal!s:5s} "
             f"max|d| fwd {e_fwd:.2e} dq {e_dq:.2e} dk/dv {e_dkv:.2e}"
             + (" (rounding-matched plain)" if bf16 else "") + "; bit-identical reruns; "
@@ -949,6 +1086,17 @@ def check_flash(dev, report):
         # bfloat16 cases: max_abs_err is against the rounding-matched plain
         # version, this one against the float32 plain version
         kern["max_abs_err_vs_float32_plain"] = errs_f32[name]
+    # K2 and K4 on bfloat16 above head dim 128: their own kernels, timed at
+    # d256_long, beside the main path's
+    wide = next(row for row in rows if row["case"] == "d256_long")
+    for name in wide_errs:
+        kernels[name]["wide_bf16"] = {
+            "source": FLASH_WIDE_SOURCE, "replaces": FLASH_SOURCES[name][1],
+            "head_dims": f"{fa.HEAD_DIMS[-1] + 1}-{fa.WIDE_HEAD_DIMS[-1]}, zero-padded to "
+                         + ", ".join(map(str, fa.WIDE_HEAD_DIMS)),
+            "max_abs_err": wide_errs[name], "timed_at": "d256_long", **wide["times"][name],
+            "derived_bound": ({"fwd": wide["derived_bound"]["fwd"]} if name.endswith("fwd") else
+                              {n: wide["derived_bound"][n] for n in ("dk", "dv")})}
     return [kernels[name] for name in FLASH_SOURCES]
 
 
@@ -6467,9 +6615,12 @@ def main():
     log(f"[2 build] native wire runtime {os.path.relpath(lib, HERE)} in "
         f"{time.perf_counter() - t0:.2f} s")
     for source, text in build_logs.items():
+        kernel = ""
         for line in text.splitlines():
+            if "Compiling entry function" in line:  # the instance the next lines are about
+                kernel = line.split("'")[1] if "'" in line else ""
             if "registers" in line or "spill" in line or "Performance Loss" in line:
-                log(f"  {source}: {line.strip()}")
+                log(f"  {source}: {kernel[:60]} {line.strip()}")
             if "spill" in line and "0 bytes spill stores, 0 bytes spill loads" not in line:
                 raise AssertionError(f"{source}: a kernel spills registers: {line.strip()}")
     for source in ("flash_attention_fwd.cu", "flash_attention_bwd.cu"):
@@ -6505,7 +6656,8 @@ def main():
         f"{FLASH_BF16_MATCHED_RTOL} (T >= {FLASH_LONG_T}) or {FLASH_BF16_MATCHED_RTOL_SHORT} "
         "against the rounding-matched plain version, "
         f"{FLASH_BF16_RTOL} against the float32 one and at most {FLASH_BF16_LIBRARY_FACTOR} x "
-        "the library's error)")
+        f"the library's error; at {', '.join(FLASH_DERIVED)} the derived bound of "
+        "ops/flash_attention.py, which two planted faults must cross)")
     k234 = check_flash(dev, report)
 
     err = check_reference(dev)

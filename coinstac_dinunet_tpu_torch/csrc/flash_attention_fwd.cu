@@ -35,12 +35,15 @@
 //    cores' 67 TFLOP/s.  Shared memory: Q, K, V tiles (64 x (D + 1) floats
 //    each) and P (64 x 65): 42 KB at D = 32, 116 KB at D = 128, so the
 //    launch raises the block's dynamic shared memory limit.
-//  - any head dim above 128, in either type: the sliced kernels of
+//  - above head dim 128: bfloat16 q, k, v at the padded head dims 192, 256
+//    and 320 on the tensor-core kernel of flash_attention_wide_wgmma.cuh;
+//    float32 inputs, and bfloat16 above 320, on the sliced kernels of
 //    flash_attention_wide.cuh (an lse kernel, then one block per output
 //    slice of 128 columns).
 #include "flash_attention.cuh"
 #include "flash_attention_fwd_wgmma.cuh"
 #include "flash_attention_wide.cuh"
+#include "flash_attention_wide_wgmma.cuh"
 
 namespace {
 
@@ -158,8 +161,10 @@ int run(int is_bf16, const FwdArgs& a) {
 
 // Plain C interface, loaded with ctypes.  q (bh, tq, d), k and v (bh, tk, d)
 // in float32 (is_bf16 = 0) or bfloat16 (is_bf16 = 1); out (bh, tq, d) and
-// lse (bh, tq) float32.  d is 16, 32, 64, 128 or any d above 128 (the
-// kernels of flash_attention_wide.cuh); tk > 0.  Launches on `stream` and
+// lse (bh, tq) float32.  d is 16, 32, 64, 128 or any d above 128: bfloat16
+// at d = 192, 256 and 320 on the tensor cores (flash_attention_wide_wgmma.cuh,
+// the wrapper pads 129-320 to these), any other d above 128 on the sliced
+// kernels of flash_attention_wide.cuh; tk > 0.  Launches on `stream` and
 // returns cudaGetLastError() (0 = launched).
 extern "C" int coinn_flash_fwd(const void* q, const void* k, const void* v,
                                void* out, void* lse, int bh, int tq, int tk,
@@ -169,6 +174,14 @@ extern "C" int coinn_flash_fwd(const void* q, const void* k, const void* v,
   if (bh <= 0 || tq <= 0) return 0;
   const FwdArgs a{q, k, v, out, lse, bh, tq, tk, scale, causal, q_offset, k_offset,
                   kv_len, (cudaStream_t)stream};
+  if (is_bf16) {
+    switch (d) {
+      case 192: return coinn_flash::wide_wgmma::launch_fwd<192>(a);
+      case 256: return coinn_flash::wide_wgmma::launch_fwd<256>(a);
+      case 320: return coinn_flash::wide_wgmma::launch_fwd<320>(a);
+      default: break;
+    }
+  }
   if (d > 128)
     return is_bf16 ? coinn_flash::wide::launch_fwd<__nv_bfloat16>(a, d)
                    : coinn_flash::wide::launch_fwd<float>(a, d);

@@ -1,11 +1,15 @@
-// Flash attention (K2, K3, K4) at head dims above 128, for Hopper (sm_90a).
+// Flash attention (K2, K3, K4) at head dims above 128 on the CUDA cores,
+// for Hopper (sm_90a).
 //
 // The TPU kernels (coinstac_dinunet_tpu/ops/flash_attention.py::
 // _flash_kernel, _dq_kernel, _dkv_kernel) take any head dim.  The kernels of
 // flash_attention_fwd.cu, flash_attention_bwd.cu and the wgmma headers keep
 // a whole (rows, d) tile per operand in shared memory and a whole output row
-// in registers, which stops at d = 128.  These kernels take any d above
-// that, in float32 or bfloat16, with the same masks and outputs:
+// in registers, which stops at d = 128; flash_attention_wide_wgmma.cuh
+// takes bfloat16 K2 and K4 from 129 to 320 onto the tensor cores.  These
+// kernels take the rest, at any d above 128, with the same masks and
+// outputs: K3 in both types, K2 and K4 on float32 inputs, and bfloat16 K2
+// and K4 above 320.
 //  - the head dim goes in slices of kS = 128 columns (the last one
 //    zero-filled past d), so shared memory holds a few (64, 128) slices
 //    and never a whole row, whatever d is;
@@ -22,13 +26,11 @@
 // the float32 kernels of flash_attention.cuh (the 64 x 64 score tiles, the
 // thread layout and q scaled on load are theirs): bfloat16 inputs are
 // widened on load, g_out arrives in float32, and nothing is rounded to
-// bfloat16 on the way, since no tensor core takes a bfloat16 operand here.  So the float32 plain version
-// in ops/flash_attention.py states these kernels' function in both types
-// (it ignores round_dtype above d = 128).  A tensor-core design that
-// rounds p and ds as the kernels at d <= 128 do is later work: holding it
-// to a rounding-matched plain version at T 4096 needs a bound on the
-// roundings that fall the other way (such a try read dv 1.33e-3 of max|dv|
-// against the 1e-3 gate at d 256, PERF.md).
+// bfloat16 on the way.  So the float32 plain version in
+// ops/flash_attention.py states these kernels' function in both types (its
+// round_dtype is ignored wherever they run, ops/flash_attention.py
+// rounds_at): the bfloat16 dq above 128 is not rounded as the TPU rounds
+// it, until K3 moves to the tensor cores too.
 //
 // Bound on an H100: the same products as at d <= 128 (4, 6 and 8 operations
 // per valid pair and head-dim element), over the CUDA cores' 67 TFLOP/s for

@@ -1,0 +1,594 @@
+// Flash attention K2 (forward) and K4 (dk, dv) at head dims above 128 for
+// bfloat16 inputs on Hopper's tensor cores (sm_90a).
+//
+// Replace the TPU kernels coinstac_dinunet_tpu/ops/flash_attention.py::
+// _flash_kernel (K2) and ::_dkv_kernel (K4) for bfloat16 q, k, v at head
+// dims 129 to 320, which ops/flash_attention.py zero-pads to D = 192, 256
+// or 320 (a multiple of 64; zero columns change no score).  The function and
+// its roundings are those of flash_attention_fwd_wgmma.cuh and
+// flash_attention_bwd_wgmma.cuh, as on the TPU's matrix unit: every tile
+// product takes bfloat16 operands and sums in float32; `scale` (with log2 e
+// folded in) multiplies the float32 scores; p (K2, K4) and ds (K4) are
+// rounded to bfloat16 only as the register A operand of the second
+// products, and g_out arrives in bfloat16 (one cast in the wrapper).
+// Float32 inputs above 128, bfloat16 inputs above 320 and K3 above 128 keep
+// the sliced CUDA-core kernels of flash_attention_wide.cuh.
+//
+// Bound on an H100 (989 TFLOP/s bfloat16, 3.35 TB/s): K2 does 4·d and K4
+// 8·d tensor operations per valid (query, key) pair, with one exp, on a few
+// bytes per row; at these head dims the products bind.
+//
+// Design.  The kernels at d <= 128 keep a whole head-dim row of every tile
+// in shared memory and a whole output row in registers.  At D = 256 a
+// warpgroup's 64 x D float32 accumulator alone is 128 registers a thread,
+// and a (128, D) bfloat16 tile 64 KB, so:
+//  - The streamed tiles are 64 rows (K2's keys, K4's dv queries) and the
+//    ring two or three stages deep, whatever fits beside the resident tiles
+//    in the 227 KB of a block (Config::kStages; 2 at D = 256).
+//  - The output columns go in slices over grid z (Slices): one slice up to
+//    D = 256, two above it (320 = 192 + 128), so no accumulator is wider
+//    than 256 columns.  Each z-block computes the full-width scores itself,
+//    in the same order, and accumulates its own slice; the scores are
+//    recomputed once per slice (only above 256).  K2's z = 0 block writes
+//    lse.  No block writes another's output: no atomics, and two launches
+//    give the same bits.
+//  - K4 runs as two kernels, one accumulator each: the dv kernel (S = k·qᵀ,
+//    p, dv += Pᵀ·g_out; K resident) and the dk kernel (S and dP = v·g_outᵀ,
+//    ds, dk += dSᵀ·q; K and V resident).  Keeping dk and dv in one block
+//    would take two 64 x D accumulators, 256 registers a thread at D = 256.
+//    The split costs 10·d operations a pair against the function's 8·d.
+//    The dk kernel holds two score fragments beside its accumulator, so its
+//    streamed tiles are 32 rows, and at D = 320 its resident K and V take
+//    one warpgroup's 64 rows (two would not fit in shared memory).  The
+//    other way to one accumulator a warpgroup, P and dS staged through
+//    shared memory in bfloat16 and the output columns split over the two
+//    warpgroups, was not built: no instance here spills (ptxas -v) and the
+//    split ran at a third of the bound at d = 256 (PERF.md §6).
+//  - Everything else is the d <= 128 kernels': TMA into the swizzled tile
+//    layout of hopper_mma.cuh, the masks and sentinels (fully masked rows
+//    give zeros and lse -1e30), the online softmax on the fragments (K2),
+//    the per-query (lse, Δ − g_lse) staged through shared memory one tile
+//    ahead (K4), and the warpgroup index through a shuffle so that ptxas
+//    keeps the wgmma pipeline.
+// A column chunk past D in the last slice (D = 320) is never loaded or
+// stored; its products read stale shared memory into an accumulator chunk
+// that is dropped.
+#pragma once
+
+#include <climits>
+
+#include "flash_attention_bwd_wgmma.cuh"
+#include "flash_attention_fwd_wgmma.cuh"
+
+namespace coinn_flash {
+namespace wide_wgmma {
+
+using namespace coinn_hopper;
+
+constexpr int kSmemLimit = 232448;  // bytes of shared memory a block may use
+
+// The output slices of a padded head dim D over grid z: as few as keep a
+// slice at or below 256 columns, each a whole number of 64-column chunks.
+template <int D>
+struct Slices {
+  static_assert(D % 64 == 0, "wide head dims are padded to a multiple of 64");
+  static constexpr int kChunks = D / 64;
+  static constexpr int kCount = (D + 255) / 256;
+  static constexpr int kChunksPer = (kChunks + kCount - 1) / kCount;
+  static constexpr int kCols = 64 * kChunksPer;
+};
+
+// Chunks of the output slice of block z: [first, first + n).
+template <int D>
+__device__ __forceinline__ int slice_chunks(int z, int* first) {
+  using S = Slices<D>;
+  *first = z * S::kChunksPer;
+  const int left = S::kChunks - *first;
+  return left < S::kChunksPer ? left : S::kChunksPer;
+}
+
+// ------------------------------------------------------------------- K2
+
+template <int D>
+struct FwdConfig {
+  using L = TileLayout<D>;
+  static constexpr int kThreads = 2 * kWarpgroup;
+  static constexpr int kBlockRows = 128;
+  static constexpr int kN = 64;  // keys of a K/V tile (fwd_key_tile in ops/flash_attention.py)
+  static constexpr int kQBytes = L::bytes(kBlockRows);
+  static constexpr int kKBytes = L::bytes(kN);
+  static constexpr int kStageBytes = kKBytes + kN * Slices<D>::kCols * 2;  // K, V's slice
+  static constexpr int kFixed = 1024 + kQBytes;
+  static constexpr int kStages = kFixed + 3 * kStageBytes + 4 * 8 <= kSmemLimit ? 3 : 2;
+  static constexpr int kSmemBytes = kFixed + kStages * kStageBytes + (1 + kStages) * 8;
+  static_assert(kSmemBytes <= kSmemLimit, "K2 tiles exceed a block's shared memory");
+};
+
+template <int D>
+__global__ void __launch_bounds__(FwdConfig<D>::kThreads, 1)
+    flash_fwd_wide_kernel(const __grid_constant__ CUtensorMap map_q,
+                          const __grid_constant__ CUtensorMap map_k,
+                          const __grid_constant__ CUtensorMap map_v, float* __restrict__ out,
+                          float* __restrict__ lse, int tq, int tk, float scale, bool causal,
+                          int q_offset, int k_offset, int kv_len) {
+  using C = FwdConfig<D>;
+  using L = TileLayout<D>;
+  constexpr int N = C::kN;
+  constexpr int kStages = C::kStages;
+  constexpr int kSl = Slices<D>::kChunksPer;
+
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  // Q (64 rows per warpgroup), the ring of (K, V slice) stages, the
+  // barriers: bar(0) Q's, full(stage) a stage's
+  const uint32_t s_q = smem_addr(smem);
+  const uint32_t s_stage = s_q + C::kQBytes;
+  const uint32_t s_bars = s_stage + kStages * C::kStageBytes;
+  auto bar = [&](int i) { return s_bars + 8 * i; };
+  auto full = [&](int st) { return bar(1 + st); };
+
+  const int tid = threadIdx.x;
+  const int bh = blockIdx.y;
+  int chunk0;
+  const int n_vc = slice_chunks<D>(blockIdx.z, &chunk0);
+  const int row0 = blockIdx.x * C::kBlockRows;
+  const int64_t kv_eff = kv_len < tk ? kv_len : tk;
+
+  // key tiles the 64 query rows from `first` may see
+  auto tiles_for = [&](int first) -> int {
+    if (kv_eff <= 0 || first >= tq) return 0;
+    int64_t n = (kv_eff + N - 1) / N;
+    if (causal) {
+      const int64_t span = (int64_t)q_offset + first + 63 - k_offset;
+      const int64_t nc = span < 0 ? 0 : span / N + 1;
+      if (nc < n) n = nc;
+    }
+    return (int)n;
+  };
+  const int n_tiles = max(tiles_for(row0), tiles_for(row0 + 64));
+
+  if (tid == 0) {
+#pragma unroll
+    for (int st = 0; st < 1 + kStages; ++st) mbar_init(bar(st), 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  auto fill = [&](int i) {
+    const int st = i % kStages;
+    const uint32_t dst = s_stage + st * C::kStageBytes;
+    mbar_expect(full(st), C::kKBytes + n_vc * L::chunk_bytes(N));
+    tma_load_tile<D>(dst, &map_k, full(st), i * N, bh, N);
+    for (int c = 0; c < n_vc; ++c)
+      tma_load_3d(dst + C::kKBytes + c * L::chunk_bytes(N), &map_v, full(st),
+                  (chunk0 + c) * L::kChunkCols, i * N, bh);
+  };
+  if (tid == 0 && n_tiles > 0) {
+    mbar_expect(bar(0), C::kQBytes);
+#pragma unroll
+    for (int w = 0; w < 2; ++w)
+      tma_load_tile<D>(s_q + w * L::bytes(64), &map_q, bar(0), row0 + 64 * w, bh, 64);
+    for (int i = 0; i < kStages - 1 && i < n_tiles; ++i) fill(i);
+  }
+  const int warp_id = __shfl_sync(0xffffffffu, tid / 32, 0);
+  const int wg = warp_id / 4;
+  const int warp = warp_id % 4;
+  const int g = (tid % 32) / 4;
+  const int c4 = tid % 4;
+  const int wg_row0 = row0 + 64 * wg;
+  const int n_mine = tiles_for(wg_row0);
+
+  // the thread's two fragment rows, wg_row0 + 16 warp + g + 8 h, see the
+  // key columns up to col_lim[h]
+  int col_lim[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int64_t r = wg_row0 + 16 * warp + g + 8 * h;
+    int64_t lim = kv_eff - 1;
+    if (causal && q_offset + r - k_offset < lim) lim = q_offset + r - k_offset;
+    col_lim[h] = lim < -1 ? -1 : (int)lim;
+  }
+  const int64_t lo = (int64_t)q_offset + wg_row0 - k_offset;
+
+  float m[2] = {kNeg, kNeg}, l[2] = {0.0f, 0.0f};
+  float acc[kSl][32];
+#pragma unroll
+  for (int c = 0; c < kSl; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[c][i] = 0.0f;
+
+  const float scale2 = scale * kLog2e;
+  const uint32_t wg_q = s_q + wg * L::bytes(64);
+
+  for (int i = 0; i < n_tiles; ++i) {
+    const int st = i % kStages;
+    if (tid == 0 && i + kStages - 1 < n_tiles) fill(i + kStages - 1);
+    mbar_wait(full(st), (i / kStages) & 1);
+    if (i < n_mine) {
+      if (i == 0) mbar_wait(bar(0), 0);
+      const uint32_t sk = s_stage + st * C::kStageBytes, sv = sk + C::kKBytes;
+      float s[N / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int c = kk / L::kSlices, off = (kk % L::kSlices) * 32;
+        wgmma_ss(s, make_desc<D>(wg_q + c * L::chunk_bytes(64) + off),
+                 make_desc<D>(sk + c * L::chunk_bytes(N) + off), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      pin(s);
+
+      const int64_t c0 = (int64_t)i * N;
+      const bool all = c0 + N <= kv_eff && (!causal || lo >= c0 + N - 1);
+      uint32_t pa[N / 4];
+      float alpha[2];
+      if (all)
+        wgmma_fwd::online_softmax<N, false>(s, pa, m, l, alpha, scale2, col_lim,
+                                            (int)c0 + 2 * c4);
+      else
+        wgmma_fwd::online_softmax<N, true>(s, pa, m, l, alpha, scale2, col_lim,
+                                           (int)c0 + 2 * c4);
+#pragma unroll
+      for (int c = 0; c < kSl; ++c)
+#pragma unroll
+        for (int x = 0; x < 32; ++x) acc[c][x] *= alpha[(x >> 1) & 1];
+
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < N / 16; ++kk) {
+#pragma unroll
+        for (int c = 0; c < kSl; ++c)
+          wgmma_rs(acc[c], &pa[4 * kk],
+                   make_desc<D>(sv + c * L::chunk_bytes(N) + kk * 16 * L::kPitch));
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      pin(pa);
+#pragma unroll
+      for (int c = 0; c < kSl; ++c) pin(acc[c]);
+    }
+    __syncthreads();  // the stage is free again
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int64_t r = wg_row0 + 16 * warp + g + 8 * h;
+    if (r >= tq) continue;
+    // a row whose keys were all masked kept the sentinel max
+    const bool row_ok = m[h] > kMaskedLse;
+    const float l_safe = fmaxf(l[h], 1e-30f);
+    const int64_t base = ((int64_t)bh * tq + r) * D + 2 * c4;
+#pragma unroll
+    for (int c = 0; c < kSl; ++c) {
+      if (c >= n_vc) continue;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int x = 4 * j + 2 * h;
+        *reinterpret_cast<float2*>(out + base + (chunk0 + c) * L::kChunkCols + 8 * j) =
+            row_ok ? make_float2(acc[c][x] / l_safe, acc[c][x + 1] / l_safe)
+                   : make_float2(0.0f, 0.0f);
+      }
+    }
+    if (blockIdx.z == 0 && c4 == 0)
+      lse[(int64_t)bh * tq + r] = row_ok ? m[h] * kLn2 + logf(l_safe) : kNeg;
+  }
+}
+
+// Launch K2 on bfloat16 q, k, v (Tk > 0) at a padded head dim D.
+template <int D>
+int launch_fwd(const FwdArgs& a) {
+  using C = FwdConfig<D>;
+  CUtensorMap mq, mk, mv;
+  if (!make_tile_map<D>(&mq, a.q, a.bh, a.tq, 64) ||
+      !make_tile_map<D>(&mk, a.k, a.bh, a.tk, C::kN) ||
+      !make_tile_map<D>(&mv, a.v, a.bh, a.tk, C::kN))
+    return (int)cudaErrorInvalidValue;
+  auto kernel = flash_fwd_wide_kernel<D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmemBytes);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((a.tq + C::kBlockRows - 1) / C::kBlockRows, a.bh, Slices<D>::kCount);
+  kernel<<<grid, C::kThreads, C::kSmemBytes, a.stream>>>(
+      mq, mk, mv, (float*)a.out, (float*)a.lse, a.tq, a.tk, a.scale, a.causal != 0,
+      a.q_offset, a.k_offset, a.kv_len);
+  return (int)cudaGetLastError();
+}
+
+// ------------------------------------------------------------------- K4
+
+template <int D, bool kDk>
+struct DkvConfig {
+  using L = TileLayout<D>;
+  // the dk kernel at D = 320: two resident (128, D) tiles would not fit
+  static constexpr int kWarpgroups = (kDk && D > 256) ? 1 : 2;
+  static constexpr int kThreads = kWarpgroups * kWarpgroup;
+  static constexpr int kBlockRows = 64 * kWarpgroups;
+  // streamed q rows of a tile: the dk kernel keeps two score fragments
+  static constexpr int kN = kDk ? 32 : 64;
+  static constexpr int kResidentBytes = (kDk ? 2 : 1) * L::bytes(kBlockRows);  // K (, V)
+  static constexpr int kQBytes = L::bytes(kN);
+  // g_out: the whole tile (dk, for dP) or the output slice (dv)
+  static constexpr int kGBytes = kDk ? L::bytes(kN) : kN * Slices<D>::kCols * 2;
+  static constexpr int kStageBytes = kQBytes + kGBytes;
+  static constexpr int kVecFloats = 4 * kN;  // 2 slots of (lse, Δ − g_lse)
+  static constexpr int kFixed = 1024 + kResidentBytes + kVecFloats * 4;
+  static constexpr int kStages = kFixed + 3 * kStageBytes + 4 * 8 <= kSmemLimit ? 3 : 2;
+  static constexpr int kSmemBytes = kFixed + kStages * kStageBytes + (1 + kStages) * 8;
+  static_assert(kSmemBytes <= kSmemLimit, "K4 tiles exceed a block's shared memory");
+};
+
+// p (dv kernel) or ds = p·(dp − Δ + g_lse) (dk kernel) on the 64 x N score
+// fragment, whose columns are q rows; packed to the A registers of the
+// second product.  Columns outside [col_lim[h], col_end) are masked.
+template <int N, bool kDk, bool kMask>
+__device__ __forceinline__ void dkv_fragment(float (&s)[N / 2], const float (&dp)[N / 2],
+                                             uint32_t (&a)[N / 4], float scale2,
+                                             const int (&col_lim)[2], const float* vec,
+                                             int col0, int col_end) {
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    const float2 v_lse = *reinterpret_cast<const float2*>(vec + 8 * j);
+    float2 v_sub = make_float2(0.0f, 0.0f);
+    if (kDk) v_sub = *reinterpret_cast<const float2*>(vec + N + 8 * j);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int i = 4 * j + 2 * h + e;
+        float p = fast_exp2(fmaf(s[i], scale2, -(e ? v_lse.y : v_lse.x)));
+        if (kMask) {
+          const int col = col0 + 8 * j + e;
+          p = col >= col_lim[h] && col < col_end ? p : 0.0f;
+        }
+        s[i] = kDk ? p * (dp[i] - (e ? v_sub.y : v_sub.x)) : p;
+      }
+      a[2 * j + h] = pack_bf16(s[4 * j + 2 * h], s[4 * j + 2 * h + 1]);
+    }
+  }
+}
+
+// kDk: out = dk (slice blockIdx.z), else out = dv.
+template <int D, bool kDk>
+__global__ void __launch_bounds__(DkvConfig<D, kDk>::kThreads, 1)
+    flash_dkv_wide_kernel(const __grid_constant__ CUtensorMap map_k,
+                          const __grid_constant__ CUtensorMap map_v,
+                          const __grid_constant__ CUtensorMap map_q,
+                          const __grid_constant__ CUtensorMap map_g,
+                          const float* __restrict__ lse, const float* __restrict__ delta,
+                          const float* __restrict__ g_lse, float* __restrict__ out, int tq,
+                          int tk, float scale, bool causal, int q_offset, int k_offset,
+                          int kv_len) {
+  using C = DkvConfig<D, kDk>;
+  using L = TileLayout<D>;
+  constexpr int N = C::kN;
+  constexpr int kStages = C::kStages;
+  constexpr int kSl = Slices<D>::kChunksPer;
+
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  // resident K (and V), the ring of (q, g_out) stages, the vector slots,
+  // the barriers (bar(0) the resident tiles', bar(1 + stage) a stage's)
+  const uint32_t s_k = smem_addr(smem);
+  const uint32_t s_v = s_k + L::bytes(C::kBlockRows);
+  const uint32_t s_stage = s_k + C::kResidentBytes;
+  float* s_vec = reinterpret_cast<float*>(smem + C::kResidentBytes + kStages * C::kStageBytes);
+  const uint32_t s_bars = s_stage + kStages * C::kStageBytes + C::kVecFloats * 4;
+  auto bar = [&](int i) { return s_bars + 8 * i; };
+
+  const int tid = threadIdx.x;
+  const int warp_id = __shfl_sync(0xffffffffu, tid / 32, 0);
+  const int wg = warp_id / 4;
+  const int warp = warp_id % 4;
+  const int g = (tid % 32) / 4;
+  const int c4 = tid % 4;
+  const int bh = blockIdx.y;
+  int chunk0;
+  const int n_oc = slice_chunks<D>(blockIdx.z, &chunk0);
+  const int row0 = blockIdx.x * C::kBlockRows;  // first key row
+  const int wg_row0 = row0 + 64 * wg;
+  const int64_t kv_eff = kv_len < tk ? kv_len : tk;
+
+  // streamed q tiles [t_first, t_last) that some key row of the block sees
+  int t_first = 0, t_last = 0;
+  if (causal) {
+    const int64_t need = (int64_t)k_offset + row0 - q_offset - (N - 1);
+    if (need > 0) t_first = (int)((need + N - 1) / N);
+  }
+  if (row0 < kv_eff) t_last = (tq + N - 1) / N;  // else: keys all masked
+  const int n_tiles = t_last > t_first ? t_last - t_first : 0;
+
+  if (tid == 0) {
+#pragma unroll
+    for (int i = 0; i < 1 + kStages; ++i) mbar_init(bar(i), 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  auto fill_stage = [&](int i) {  // tile t_first + i into stage i % kStages
+    const int st = i % kStages;
+    const uint32_t dst = s_stage + st * C::kStageBytes;
+    const int row = (t_first + i) * N;
+    mbar_expect(bar(1 + st), C::kQBytes + (kDk ? C::kGBytes : n_oc * L::chunk_bytes(N)));
+    tma_load_tile<D>(dst, &map_q, bar(1 + st), row, bh, N);
+    if (kDk) {
+      tma_load_tile<D>(dst + C::kQBytes, &map_g, bar(1 + st), row, bh, N);
+    } else {
+      for (int c = 0; c < n_oc; ++c)
+        tma_load_3d(dst + C::kQBytes + c * L::chunk_bytes(N), &map_g, bar(1 + st),
+                    (chunk0 + c) * L::kChunkCols, row, bh);
+    }
+  };
+  if (tid == 0 && n_tiles > 0) {
+    mbar_expect(bar(0), C::kResidentBytes);
+#pragma unroll
+    for (int w = 0; w < C::kWarpgroups; ++w) {
+      tma_load_tile<D>(s_k + w * L::bytes(64), &map_k, bar(0), row0 + 64 * w, bh, 64);
+      if (kDk)
+        tma_load_tile<D>(s_v + w * L::bytes(64), &map_v, bar(0), row0 + 64 * w, bh, 64);
+    }
+    for (int i = 0; i < kStages - 1 && i < n_tiles; ++i) fill_stage(i);
+  }
+
+  // the thread's two fragment rows, key rows wg_row0 + 16 warp + g + 8 h,
+  // are seen by q rows from col_lim[h] on
+  int col_lim[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int64_t r = wg_row0 + 16 * warp + g + 8 * h;
+    int64_t lim = causal ? (int64_t)k_offset + r - q_offset : 0;
+    if (lim < 0) lim = 0;
+    if (r >= kv_eff || lim > INT_MAX) lim = INT_MAX;
+    col_lim[h] = (int)lim;
+  }
+
+  // (lse, Δ − g_lse) of the streamed q rows, one tile ahead
+  float v_lse = kLsePad, v_sub = 0.0f;
+  auto load_vec = [&](int t) {
+    const int64_t r = (int64_t)t * N + tid;
+    const bool in = tid < N && r < tq;
+    v_lse = in ? safe_lse(lse[(int64_t)bh * tq + r]) * kLog2e : kLsePad;
+    v_sub = in && kDk ? delta[(int64_t)bh * tq + r] - g_lse[(int64_t)bh * tq + r] : 0.0f;
+  };
+  auto store_vec = [&](int slot) {
+    if (tid < N) {
+      s_vec[slot * 2 * N + tid] = v_lse;
+      s_vec[slot * 2 * N + N + tid] = v_sub;
+    }
+  };
+  if (n_tiles > 0) {
+    load_vec(t_first);
+    store_vec(0);
+  }
+  __syncthreads();
+
+  float acc[kSl][32];
+#pragma unroll
+  for (int c = 0; c < kSl; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[c][i] = 0.0f;
+
+  const float scale2 = scale * kLog2e;
+  const uint32_t wg_k = s_k + wg * L::bytes(64), wg_v = s_v + wg * L::bytes(64);
+  const int64_t lo = (int64_t)k_offset + wg_row0 - q_offset;  // first key's first q row
+
+  for (int i = 0; i < n_tiles; ++i) {
+    const int t = t_first + i;
+    const int st = i % kStages;
+    if (tid == 0 && i + kStages - 1 < n_tiles) fill_stage(i + kStages - 1);
+    if (i + 1 < n_tiles) load_vec(t + 1);
+    if (i == 0) mbar_wait(bar(0), 0);
+    mbar_wait(bar(1 + st), (i / kStages) & 1);
+
+    // whether this warpgroup's 64 key rows see none / all of the tile's q rows
+    const int64_t c0 = (int64_t)t * N;
+    const bool none = wg_row0 >= kv_eff || (causal && c0 + N - 1 < lo);
+    const bool all = c0 + N <= tq && wg_row0 + 63 < kv_eff && (!causal || c0 >= lo + 63);
+
+    if (!none) {
+      const uint32_t sq = s_stage + st * C::kStageBytes, sg = sq + C::kQBytes;
+      float s[N / 2], dp[N / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int c = kk / L::kSlices, off = (kk % L::kSlices) * 32;
+        wgmma_ss(s, make_desc<D>(wg_k + c * L::chunk_bytes(64) + off),
+                 make_desc<D>(sq + c * L::chunk_bytes(N) + off), kk > 0);
+      }
+      if (kDk) {
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const int c = kk / L::kSlices, off = (kk % L::kSlices) * 32;
+          wgmma_ss(dp, make_desc<D>(wg_v + c * L::chunk_bytes(64) + off),
+                   make_desc<D>(sg + c * L::chunk_bytes(N) + off), kk > 0);
+        }
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      pin(s);
+      if (kDk) pin(dp);
+
+      uint32_t a[N / 4];
+      const float* vec = s_vec + (i & 1) * 2 * N + 2 * c4;
+      const int col0 = (int)c0 + 2 * c4;
+      if (all)
+        dkv_fragment<N, kDk, false>(s, dp, a, scale2, col_lim, vec, col0, tq);
+      else
+        dkv_fragment<N, kDk, true>(s, dp, a, scale2, col_lim, vec, col0, tq);
+
+      // dv += Pᵀ·g_out over the slice of g_out in the stage; dk += dSᵀ·q
+      // over the slice's chunks of the q tile
+      const uint32_t b0 = kDk ? sq + chunk0 * L::chunk_bytes(N) : sg;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < N / 16; ++kk) {
+#pragma unroll
+        for (int c = 0; c < kSl; ++c)
+          wgmma_rs(acc[c], &a[4 * kk],
+                   make_desc<D>(b0 + c * L::chunk_bytes(N) + kk * 16 * L::kPitch));
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      pin(a);
+#pragma unroll
+      for (int c = 0; c < kSl; ++c) pin(acc[c]);
+    }
+
+    if (i + 1 < n_tiles) store_vec((i + 1) & 1);
+    __syncthreads();  // the stage and the vector slot are free again
+  }
+
+  const float mul = kDk ? scale : 1.0f;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int64_t r = wg_row0 + 16 * warp + g + 8 * h;
+    if (r >= tk) continue;
+    const int64_t base = ((int64_t)bh * tk + r) * D + 2 * c4;
+#pragma unroll
+    for (int c = 0; c < kSl; ++c) {
+      if (c >= n_oc) continue;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int x = 4 * j + 2 * h;
+        *reinterpret_cast<float2*>(out + base + (chunk0 + c) * L::kChunkCols + 8 * j) =
+            make_float2(acc[c][x] * mul, acc[c][x + 1] * mul);
+      }
+    }
+  }
+}
+
+template <int D, bool kDk>
+int launch_dkv_part(const BwdArgs& a) {
+  using C = DkvConfig<D, kDk>;
+  CUtensorMap mk, mv, mq, mg;
+  if (!make_tile_map<D>(&mk, a.k, a.bh, a.tk, 64) ||
+      !make_tile_map<D>(&mv, a.v, a.bh, a.tk, 64) ||
+      !make_tile_map<D>(&mq, a.q, a.bh, a.tq, C::kN) ||
+      !make_tile_map<D>(&mg, a.g_out, a.bh, a.tq, C::kN))
+    return (int)cudaErrorInvalidValue;
+  auto kernel = flash_dkv_wide_kernel<D, kDk>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmemBytes);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((a.tk + C::kBlockRows - 1) / C::kBlockRows, a.bh, Slices<D>::kCount);
+  kernel<<<grid, C::kThreads, C::kSmemBytes, a.stream>>>(
+      mk, mv, mq, mg, (const float*)a.lse, (const float*)a.delta, (const float*)a.g_lse,
+      (float*)(kDk ? a.out0 : a.out1), a.tq, a.tk, a.scale, a.causal != 0, a.q_offset,
+      a.k_offset, a.kv_len);
+  return (int)cudaGetLastError();
+}
+
+// Launch K4 on bfloat16 q, k, v and a bfloat16 g_out at a padded head dim
+// D: the dv kernel, then the dk kernel, on one stream.
+template <int D>
+int launch_dkv(const BwdArgs& a) {
+  const int err = launch_dkv_part<D, false>(a);
+  return err != 0 ? err : launch_dkv_part<D, true>(a);
+}
+
+}  // namespace wide_wgmma
+}  // namespace coinn_flash

@@ -24,18 +24,24 @@ Two implementations of each direction:
   cores.  They are instantiated for head dims 16, 32, 64 and 128; any
   other head dim up to 128 runs on the next of them, q, k, v and g_out
   zero-padded in the head dim and out, dq, dk, dv sliced back
-  (:func:`padded_head_dim`; zero columns change no score).  Any head dim
-  above 128 runs, unpadded, on the sliced kernels of
-  ``csrc/flash_attention_wide.cuh`` (128-column slices of the head dim,
-  each output slice written against a known lse), which compute in float32
-  on the CUDA cores in both types and round nothing to bfloat16;
+  (:func:`padded_head_dim`; zero columns change no score).  Above 128, K2
+  and K4 on bfloat16 inputs run on the tensor cores as well
+  (``csrc/flash_attention_wide_wgmma.cuh``, the same roundings), at head
+  dims 192, 256 and 320, any head dim from 129 to 320 zero-padded to the
+  next of them (:func:`wide_head_dim`).  Every other case above 128 — K3 in
+  both types, K2 and K4 on float32 inputs or above 320 — runs unpadded on
+  the sliced kernels of ``csrc/flash_attention_wide.cuh`` (128-column
+  slices of the head dim, each output slice written against a known lse),
+  which compute in float32 on the CUDA cores and round nothing to
+  bfloat16;
 - :func:`flash_forward_plain` and :func:`flash_backward_plain`, plain
   PyTorch in float32 with autocast off (the dense form of the same
   identities, the counterparts of ``_flash_xla`` and the XLA backward),
   taken for tensors on the CPU and used on the card only to check the
   kernels.  Their ``round_dtype`` option gives them the tensor-core
-  kernels' bfloat16 roundings, for those checks only (above head dim 128,
-  where no tensor core runs, it rounds nothing).
+  kernels' bfloat16 roundings, for those checks only, wherever a
+  tensor-core kernel runs (:func:`rounds_at`; elsewhere it rounds
+  nothing).
 
 :class:`FlashAttention` is the ``torch.autograd.Function`` over
 ``(BH, T, d)``: it returns float32 ``(out, lse)`` and takes a cotangent for
@@ -71,13 +77,22 @@ _LN2 = 0.6931471805599453
 #: head dims the kernels are instantiated for (16: the sequence example's
 #: d_model 64 over 4 heads); any head dim from 1 to the largest runs on the
 #: next of them, q, k, v and g_out zero-padded in the head dim
-#: (:func:`padded_head_dim`), and any head dim above it on the sliced
-#: kernels at its own width
+#: (:func:`padded_head_dim`); above it see ``WIDE_HEAD_DIMS``
 HEAD_DIMS = (16, 32, 64, 128)
-#: keys of a K/V tile of the bfloat16 forward kernel at every head dim
+#: head dims above ``HEAD_DIMS[-1]`` that K2 and K4 on bfloat16 inputs run
+#: at on the tensor cores (``csrc/flash_attention_wide_wgmma.cuh``): a head
+#: dim from 129 to the largest runs on the next of them, zero-padded
+#: (:func:`wide_head_dim`); K3, float32 inputs and bfloat16 head dims above
+#: the largest run on the sliced kernels at their own width
+WIDE_HEAD_DIMS = (192, 256, 320)
+#: keys of a K/V tile of the bfloat16 forward kernel up to ``HEAD_DIMS[-1]``
 #: (``Config<D>::kN`` in ``csrc/flash_attention_fwd_wgmma.cuh``): the tiles
 #: over which its running max, and so its rounding of p, advances
 FWD_KEY_TILE = 128
+#: the same above it (``FwdConfig<D>::kN`` in
+#: ``csrc/flash_attention_wide_wgmma.cuh``): a 64 x D float32 accumulator
+#: leaves registers for a 64 x 64 score fragment only
+WIDE_FWD_KEY_TILE = 64
 
 _ARGS = [ctypes.c_void_p] * 3  # q, k, v
 _SHAPE = [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
@@ -95,6 +110,19 @@ DKV_KERNEL = CudaKernel("flash_attention_bwd.cu", "coinn_flash_bwd_dkv",
                         _ARGS + [ctypes.c_void_p] * 6 + _SHAPE)
 
 KERNELS = (FWD_KERNEL, DQ_KERNEL, DKV_KERNEL)
+
+
+def fwd_key_tile(d):
+    """Keys of a K/V tile of the bfloat16 forward kernel at head dim ``d``."""
+    return FWD_KEY_TILE if d <= HEAD_DIMS[-1] else WIDE_FWD_KEY_TILE
+
+
+def rounds_at(d, dq=False):
+    """Whether the bfloat16 kernel at head dim ``d`` rounds its operands to
+    bfloat16, i.e. runs on the tensor cores: K2 and K4 up to
+    ``WIDE_HEAD_DIMS[-1]``, K3 (``dq``) up to ``HEAD_DIMS[-1]``; the sliced
+    kernels above compute in float32."""
+    return d <= (HEAD_DIMS[-1] if dq else WIDE_HEAD_DIMS[-1])
 
 
 def _valid_mask(tq, tk, q_offset, k_offset, kv_len, causal, device):
@@ -127,13 +155,14 @@ def flash_forward_plain(q, k, v, q_offset, k_offset, kv_len, causal, scale,
     go in tiles of ``FWD_KEY_TILE``, ``p`` is taken against the running
     row max after each tile and rounded there, and each tile's share is
     rescaled to the final max in float32, as the kernel's accumulator is;
-    ``l`` sums the unrounded ``p``.  Above ``HEAD_DIMS[-1]`` it is
-    ignored: the sliced kernels round nothing.  ``None`` is the float32
-    statement of the function.
+    ``l`` sums the unrounded ``p``.  The key tile is the kernel's at the
+    head dim (:func:`fwd_key_tile`).  Where the sliced kernel runs (above
+    ``WIDE_HEAD_DIMS[-1]``, :func:`rounds_at`) it is ignored: that kernel
+    rounds nothing.  ``None`` is the float32 statement of the function.
     """
     bh, tq, _ = q.shape
     valid = _valid_mask(tq, k.shape[1], q_offset, k_offset, kv_len, causal, q.device)
-    if round_dtype is not None and q.shape[-1] <= HEAD_DIMS[-1]:
+    if round_dtype is not None and rounds_at(q.shape[-1]):
         return _forward_online(q, k, v, valid, scale, round_dtype)
     outs, lses = [], []
     with torch.autocast(device_type=q.device.type, enabled=False):
@@ -156,8 +185,8 @@ def _forward_online(q, k, v, valid, scale, round_dtype):
     scores in log2 units (``scale·log2 e`` times the float32 product, the
     sentinel after the scale), the running max over key tiles, ``p`` rounded
     to ``round_dtype`` against it."""
-    bh, tq, _ = q.shape
-    tk, n = k.shape[1], FWD_KEY_TILE
+    bh, tq, d = q.shape
+    tk, n = k.shape[1], fwd_key_tile(d)
     nt = -(-tk // n)
     outs, lses = [], []
     with torch.autocast(device_type=q.device.type, enabled=False):
@@ -193,12 +222,19 @@ def _backward_plain(q, k, v, g_out, lse, delta, g_lse, q_offset, k_offset,
     ``round_dtype`` serves the checks of the tensor-core kernels only, no
     path of the port: it is the dtype those kernels round ``g_out``, ``p``
     and ``ds`` to before their products (bfloat16), and with it ``scale``
-    multiplies the float32 products as in the kernels instead of ``q``;
-    above ``HEAD_DIMS[-1]`` it is ignored (the sliced kernels round
-    nothing).  ``None`` is the float32 statement of the function.
+    multiplies the float32 products as in the kernels instead of ``q``.
+    Where a part runs on a sliced kernel (:func:`rounds_at`: dq above
+    ``HEAD_DIMS[-1]``, dk and dv above ``WIDE_HEAD_DIMS[-1]``) it is ignored
+    for that part, which then is the float32 one.  ``None`` is the float32
+    statement of the function.
     """
-    bh, tq, _ = q.shape
-    if q.shape[-1] > HEAD_DIMS[-1]:
+    bh, tq, d = q.shape
+    if round_dtype is not None and dq and dkv and rounds_at(d) != rounds_at(d, dq=True):
+        # the two parts round differently at this head dim: one pass each
+        args = (q, k, v, g_out, lse, delta, g_lse, q_offset, k_offset, kv_len, causal, scale)
+        return (_backward_plain(*args, dkv=False, round_dtype=round_dtype)[0],
+                *_backward_plain(*args, dq=False, round_dtype=round_dtype)[1:])
+    if not rounds_at(d, dq=dq):
         round_dtype = None
     valid = _valid_mask(tq, k.shape[1], q_offset, k_offset, kv_len, causal, q.device)
     matched = round_dtype is not None
@@ -251,7 +287,8 @@ def flash_backward_plain(q, k, v, out, lse, g_out, g_lse, q_offset, k_offset,
 def padded_head_dim(d):
     """The head dim a head dim ``d`` runs at: up to ``HEAD_DIMS[-1]`` the
     smallest instantiated one (``HEAD_DIMS``) that holds it, above it ``d``
-    itself (the sliced kernels take any width).  Zero columns change no
+    itself (the sliced kernels take any width; the bfloat16 K2 and K4 there
+    pad to :func:`wide_head_dim` instead).  Zero columns change no
     score ``q·k`` and add nothing to ``p·v``, so the kernel's output, lse
     and gradients in the first ``d`` columns are those of the unpadded call
     (given the unpadded head dim's scale); the padded columns are
@@ -262,6 +299,30 @@ def padded_head_dim(d):
         if 1 <= d <= dim:
             return dim
     raise ValueError(f"flash attention kernels take head dims of 1 or more, not {d}")
+
+
+def wide_head_dim(d):
+    """The head dim bfloat16 K2 and K4 run at for a head dim ``d`` above
+    ``HEAD_DIMS[-1]``: the smallest of ``WIDE_HEAD_DIMS`` that holds it, or
+    ``None`` above the largest (the sliced kernels, at ``d`` itself).
+    Zero-padded as :func:`padded_head_dim` says."""
+    return next((dim for dim in WIDE_HEAD_DIMS if HEAD_DIMS[-1] < d <= dim), None)
+
+
+def _kernel_head_dim(d, dtype, dq=False):
+    """The head dim a kernel runs at: the tensor-core kernels' padded ones
+    (any kernel up to ``HEAD_DIMS[-1]``, bfloat16 K2 and K4 up to
+    ``WIDE_HEAD_DIMS[-1]``), else ``d`` itself (the sliced kernels)."""
+    if d > HEAD_DIMS[-1] and dtype == torch.bfloat16 and not dq:
+        return wide_head_dim(d) or d
+    return padded_head_dim(d)
+
+
+def _g_dtype(q, dq=False):
+    """The dtype a backward kernel takes ``g_out`` in: the inputs' where it
+    runs on the tensor cores (its products take bfloat16 tiles), float32
+    on the sliced kernels (float32 arithmetic in both types)."""
+    return q.dtype if rounds_at(q.shape[-1], dq) else torch.float32
 
 
 def _pad_head_dim(t, dim):
@@ -297,7 +358,7 @@ def flash_forward_cuda(q, k, v, q_offset, k_offset, kv_len, causal, scale):
     head dim (:func:`padded_head_dim`)."""
     _check_cuda(q, k, v)
     bh, tq, d = q.shape
-    dim = padded_head_dim(d)
+    dim = _kernel_head_dim(d, q.dtype)
     q, k, v = (_pad_head_dim(t, dim) for t in (q, k, v))
     out = torch.empty((bh, tq, dim), dtype=torch.float32, device=q.device)
     lse = torch.empty((bh, tq), dtype=torch.float32, device=q.device)
@@ -314,15 +375,13 @@ def flash_forward_cuda(q, k, v, q_offset, k_offset, kv_len, causal, scale):
 def _bwd_cuda(kernel, out_rows, q, k, v, g_out, lse, delta, g_lse, q_offset,
               k_offset, kv_len, causal, scale):
     """One backward kernel: float32 outputs of ``(bh, rows, d)`` for each
-    of ``out_rows``, computed at the padded head dim and sliced back."""
+    of ``out_rows``, computed at the kernel's head dim and sliced back."""
     _check_cuda(q, k, v)
     d = q.shape[-1]
-    dim = padded_head_dim(d)
+    dq = kernel is DQ_KERNEL
+    dim = _kernel_head_dim(d, q.dtype, dq)
     ins = [_pad_head_dim(t, dim) for t in (q, k, v)]
-    # the bfloat16 kernels take g_out in bfloat16 (their products run on
-    # bfloat16 tiles), the float32 kernels and the sliced kernels above
-    # HEAD_DIMS[-1] (float32 arithmetic in both types) in float32
-    ins += [_pad_head_dim(g_out.to(q.dtype if dim <= HEAD_DIMS[-1] else torch.float32), dim)]
+    ins += [_pad_head_dim(g_out.to(_g_dtype(q, dq)), dim)]
     ins += [t.float().contiguous() for t in (lse, delta, g_lse)]
     outs = [torch.empty((q.shape[0], rows, dim), dtype=torch.float32, device=q.device)
             for rows in out_rows]
@@ -352,11 +411,12 @@ def flash_backward_cuda(q, k, v, out, lse, g_out, g_lse, q_offset, k_offset,
     """K3 then K4 on the card; same contract as
     :func:`flash_backward_plain`."""
     # Δ from the float32 cotangent; one cast of g_out serves both launches
-    # (none above HEAD_DIMS[-1], where the kernels take it in float32)
-    g_dtype = q.dtype if q.shape[-1] <= HEAD_DIMS[-1] else torch.float32
-    args = (q, k, v, g_out.to(g_dtype), lse, flash_delta(out, g_out), g_lse, q_offset,
-            k_offset, kv_len, causal, scale)
-    return (flash_dq_cuda(*args), *flash_dkv_cuda(*args))
+    # where both take it in one dtype (above HEAD_DIMS[-1] the sliced K3
+    # takes float32, the tensor-core K4 bfloat16)
+    g_dkv = g_out.to(_g_dtype(q))
+    g_dq = g_dkv if _g_dtype(q, dq=True) == g_dkv.dtype else g_out.to(torch.float32)
+    rest = (lse, flash_delta(out, g_out), g_lse, q_offset, k_offset, kv_len, causal, scale)
+    return (flash_dq_cuda(q, k, v, g_dq, *rest), *flash_dkv_cuda(q, k, v, g_dkv, *rest))
 
 
 def _dispatch(t, cuda_fn, plain_fn):
@@ -487,3 +547,197 @@ def flash_attention(q, k, v, q_offset=0, k_offset=0, kv_len=None, causal=False,
     if return_lse:
         return out, lse.reshape(b, h, tq)
     return out
+
+
+# ---- the derived bound of the tensor-core kernels' roundings (checks only)
+#
+# A per-element bound on how far the bfloat16 tensor-core kernels (K2, K3,
+# K4) may lie from their rounding-matched function; it serves the checks of
+# those kernels (chip_smoke.py phase 3, the tests), no path of the port.
+# The kernels round p (K2, K4) and ds (K3, K4) to bfloat16 before their
+# second products.  Their float32 p and ds differ from any other float32
+# computation of the same function in the last bits (the tensor cores sum
+# the scores in their own order, ex2.approx against exp), so a value that
+# lies close to a bfloat16 rounding boundary may round the other way and
+# move by one bfloat16 step.  A fixed ratio of the output's largest
+# magnitude cannot hold that at every length and head dim; this bound
+# counts it instead:
+#  - the reference is the rounding-matched function in float64: scores,
+#    softmax, p and ds exact but for float64's own rounding, p and ds
+#    rounded to bfloat16 through float32 (as the kernels round their float32
+#    values), the second products in float64;
+#  - eps, per element, is how far the kernel's float32 p or ds may lie from
+#    the exact value, from the kernel's arithmetic step by step
+#    (tc_dot_error for the tensor-core sums of S and dP; float32 rounding of
+#    each scale, subtraction and product; ex2.approx's relative error);
+#  - an element within eps of a bfloat16 rounding boundary may round to the
+#    other side: one bfloat16 step.  The bound on an output element is the
+#    sum over such elements of that step times the magnitude of the other
+#    operand of the product (|v|, |g_out|, |k|, |q|), in exact arithmetic.
+# The float32 sums of the second products and the softmax's rescaling are
+# not in it: the caller adds the float32 term of its tolerance (FLASH_RTOL
+# times the reference's largest magnitude).  The derivation, with the
+# numbers it gives, is in CHANGES.md.
+
+#: float32's unit roundoff (round to nearest)
+_U = 2.0 ** -24
+#: a tensor-core accumulation step: float32's last bit, truncated
+_U_TC = 2.0 ** -23
+#: relative error of ``ex2.approx.ftz.f32`` (2 ulp), with a margin of 2
+_EXP2_REL = 2.0 ** -21
+#: width of the probabilistic bound on a tensor-core sum: an element's sum
+#: leaves it with probability at most 2·exp(-λ²/2) = 3e-8
+BOUND_LAMBDA = 6.0
+#: significand bits (with the implicit one) of the rounding dtypes
+_SIGNIFICAND = {torch.bfloat16: 8, torch.float16: 11}
+#: score elements a chunk of the bound's float64 work holds at once
+_BOUND_CHUNK_ELEMS = 2 ** 24
+
+
+def tc_dot_error(a, b):
+    """``(err, exact)`` for ``a·bᵀ`` over the last axis, ``(..., Ta, Tb)``
+    each, float64: ``exact`` the product, ``err`` a bound on how far a
+    tensor-core kernel's float32 sum of it lies from ``exact``.
+
+    The kernels sum over the head dim in 16-deep slices in order (one wgmma
+    instruction each).  Each step adds 16 exact products (bfloat16 times
+    bfloat16 fits float32) to the accumulator and rounds, or truncates, at
+    most 17 times; each such error is at most ``_U_TC`` times the step's
+    largest intermediate, itself at most ``|P| + A``: ``P`` the partial sum
+    before the slice, ``A`` the slice's sum of ``|products|``.  Taken as
+    independent and of mean zero (the probabilistic model of Higham and
+    Mary, 2019), they sum to at most ``λ·_U_TC·sqrt(17·Σ (|P| + A)²)``
+    (λ = ``BOUND_LAMBDA``), with probability at least ``1 - 2·exp(-λ²/2)``
+    an element."""
+    a, b = a.double(), b.double().transpose(-1, -2)
+    exact = torch.zeros(a.shape[:-1] + b.shape[-1:], dtype=torch.float64, device=a.device)
+    sq = torch.zeros_like(exact)
+    for s0 in range(0, a.shape[-1], 16):
+        a_s, b_s = a[..., s0:s0 + 16], b[..., s0:s0 + 16, :]
+        sq += (exact.abs() + a_s.abs() @ b_s.abs()) ** 2
+        exact += a_s @ b_s
+    return BOUND_LAMBDA * _U_TC * torch.sqrt(17.0 * sq), exact
+
+
+def near_rounding_boundary(x, eps, dtype=torch.bfloat16):
+    """``(rounded, step)`` for float64 ``x``: ``x`` rounded to ``dtype``
+    through float32, as a kernel rounds its float32 values, and, where
+    ``x`` lies within ``eps`` of a rounding boundary of ``dtype``, the step
+    a rounding to the other side makes (0 elsewhere and at 0)."""
+    _, ex = torch.frexp(x.abs())  # |x| = m·2^ex, m in [0.5, 1)
+    spacing = torch.ldexp(torch.ones_like(x), ex - _SIGNIFICAND[dtype])
+    r = x.abs() / spacing
+    near = ((r - r.floor() - 0.5).abs() * spacing <= eps) & (x != 0)
+    return x.float().to(dtype).double(), torch.where(near, spacing, 0.0)
+
+
+def rounding_bound_forward(q, k, v, q_offset, k_offset, kv_len, causal, scale,
+                            round_dtype=torch.bfloat16):
+    """``(want, bound)``, ``(BH, Tq, d)`` float32 each, for K2 on bfloat16
+    ``q``, ``k``, ``v``: ``want`` the rounding-matched forward in float64
+    (the online softmax over the kernel's key tiles, ``p`` rounded to
+    ``round_dtype`` against the running max), ``bound`` per output element
+    the sum of one step of each ``p`` near a boundary times ``|v|``, over
+    ``l``.
+
+    The kernel's ``p = 2^(t − m)``: ``t = c·s``, ``c = scale·log2 e``
+    rounded to float32 and the product rounded (2u|t| beside c·err(s)); the
+    running max ``m`` off by at most the largest error of a ``t`` so far;
+    the subtraction u|t − m|; ``ex2.approx`` relative ``_EXP2_REL``; so
+    ``eps(p) = p·(ln 2·(err(t) + err(m) + u|t − m|) + _EXP2_REL)``."""
+    bh, tq, d = q.shape
+    tk, n = k.shape[1], fwd_key_tile(d)
+    nt = -(-tk // n)
+    valid = _valid_mask(tq, tk, q_offset, k_offset, kv_len, causal, q.device)
+    c = scale * _LOG2E
+    vf = v.double()
+
+    def tiles(x, fill):  # (.., Tk) -> (.., key tiles, n), padded with `fill`
+        return torch.nn.functional.pad(x, (0, nt * n - tk), value=fill).unflatten(-1, (nt, n))
+
+    wants, bounds = [], []
+    for sl in _chunks(bh, tq, nt * n, _BOUND_CHUNK_ELEMS):
+        err_s, s = tc_dot_error(q[sl], k[sl])
+        t = torch.where(valid, s * c, _NEG)
+        err_t = torch.where(valid, err_s * c + 2 * _U * t.abs(), 0.0)
+        t, err_t = tiles(t, _NEG), tiles(err_t, 0.0)
+        m_run = t.amax(dim=-1).cummax(dim=-1).values  # the max after each tile
+        err_m = err_t.amax(dim=-1).cummax(dim=-1).values
+        x = t - m_run.unsqueeze(-1)
+        p = torch.exp2(x)
+        err_p = p * (_LN2 * (err_t + err_m.unsqueeze(-1) + _U * x.abs()) + _EXP2_REL)
+        pr, step = near_rounding_boundary(p, err_p, round_dtype)
+        m = m_run[..., -1]
+        rescale = torch.exp2(m_run - m.unsqueeze(-1)).unsqueeze(-1)  # each tile to the final max
+        l = torch.clamp_min((p * rescale).sum(dim=(-2, -1)), 1e-30).unsqueeze(-1)
+        untile = lambda x: (x * rescale).flatten(-2)[..., :tk]
+        ok = (m > _MASKED_LSE).unsqueeze(-1)
+        wants.append(torch.where(ok, untile(pr) @ vf[sl] / l, 0.0))
+        bounds.append(torch.where(ok, untile(step) @ vf[sl].abs() / l, 0.0))
+    return torch.cat(wants).float(), torch.cat(bounds).float()
+
+
+def rounding_bound_backward(q, k, v, g_out, lse, delta, g_lse, q_offset, k_offset, kv_len,
+                            causal, scale, dq=True, round_dtype=torch.bfloat16):
+    """``(wants, bounds)`` for K3 (``dq``: one each, ``(BH, Tq, d)``) or K4
+    (two each: dk and dv, ``(BH, Tk, d)``), float32, on bfloat16 ``q``,
+    ``k``, ``v`` and a ``g_out`` the kernels take in bfloat16 (cast once,
+    so the same on both sides): ``want`` the rounding-matched backward in
+    float64 (``p`` and ``ds`` rounded to ``round_dtype``), ``bound`` the sum
+    of one step of each ``p`` (dv) or ``ds`` (dq, dk) near a boundary times
+    ``|g_out|``, ``scale·|k|`` or ``scale·|q|``.
+
+    The kernels' ``p = 2^(fma(s, c, −λ))`` with ``c = scale·log2 e`` and
+    ``λ = lse·log2 e`` rounded to float32: ``err(x) = c·err(s) + 2u|c·s| +
+    u|λ| + u|x|``, ``eps(p) = p·(ln 2·err(x) + _EXP2_REL)``; ``y = dp − σ``
+    with ``σ = Δ − g_lse`` rounded (u|σ|) and the subtraction (u|y|), and
+    ``ds = p·y`` rounded (u|ds|): ``eps(ds) = eps(p)·|y| + p·(err(dp) +
+    u|σ| + u|y|) + u|ds|``."""
+    bh, tq, d = q.shape
+    tk = k.shape[1]
+    valid = _valid_mask(tq, tk, q_offset, k_offset, kv_len, causal, q.device)
+    c = scale * _LOG2E
+    qf, kf = q.double(), k.double()
+    go = g_out.to(torch.bfloat16).double()
+    lam2 = torch.where(lse <= _MASKED_LSE, 0.0, lse.double()) * _LOG2E
+    sub = delta.double() - g_lse.double()
+    outs = []
+    for sl in _chunks(bh, tq, tk, _BOUND_CHUNK_ELEMS):
+        err_s, s = tc_dot_error(q[sl], k[sl])
+        err_dp, dp = tc_dot_error(go[sl], v[sl])
+        la, su = lam2[sl].unsqueeze(-1), sub[sl].unsqueeze(-1)
+        x = s * c - la
+        p = torch.where(valid, torch.exp2(x), 0.0)
+        err_x = err_s * c + 2 * _U * (s * c).abs() + _U * la.abs() + _U * x.abs()
+        err_p = p * (_LN2 * err_x + _EXP2_REL)
+        y = dp - su
+        ds = p * y
+        err_ds = err_p * y.abs() + p * (err_dp + _U * su.abs() + _U * y.abs()) + _U * ds.abs()
+        dsr, ds_step = near_rounding_boundary(ds, err_ds, round_dtype)
+        if dq:
+            outs.append(((dsr @ kf[sl]) * scale, (ds_step @ kf[sl].abs()) * scale))
+        else:
+            pr, p_step = near_rounding_boundary(p, err_p, round_dtype)
+            dst, ds_stept = dsr.transpose(1, 2), ds_step.transpose(1, 2)
+            outs.append(((dst @ qf[sl]) * scale, pr.transpose(1, 2) @ go[sl],
+                         (ds_stept @ qf[sl].abs()) * scale, p_step.transpose(1, 2) @ go[sl].abs()))
+    cols = [torch.cat(x).float() for x in zip(*outs)]
+    half = len(cols) // 2
+    return cols[:half], cols[half:]
+
+
+def bound_excess(got, want, bound, rtol, atol):
+    """The largest ``|got − want| / (bound + rtol·max|want| + atol)`` over
+    the elements: at most 1 when ``got`` keeps to the bound."""
+    if not got.numel():
+        return 0.0
+    tol = bound.double() + rtol * float(want.abs().max()) + atol
+    return float(((got.double() - want.double()).abs() / tol).max())
+
+
+def bound_share(bound, want):
+    """``max(bound) / max|want|``: how much of the output the flips the
+    bound allows could be worth, for the report (0 for an output of
+    zeros)."""
+    top = float(want.abs().max()) if want.numel() else 0.0
+    return float(bound.max()) / top if top > 0 else 0.0

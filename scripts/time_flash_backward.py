@@ -10,8 +10,9 @@ versions of the package can be compared inside one run on one card:
     python3 scripts/time_flash_backward.py --root _checkout/parent --root . \\
         --root . --root _checkout/parent
 
-Shapes: the sequence path's (B 16, H 4, T 4096, d 32, bfloat16, not causal)
-and B 1, H 8, T 8192, d 128, bfloat16, causal.  The inputs are random from
+Shapes: the sequence path's (B 16, H 4, T 4096, d 32, bfloat16, not causal),
+B 1, H 8, T 8192, d 128, bfloat16, causal, and head dim 256 (Gemma's) at
+B 8, H 4, T 4096, bfloat16, not causal.  The inputs are random from
 a seed; ``g_out`` is float32, as the model hands it to the kernels.  Times
 are CUDA events around 20 launches after 3 warm-up launches.  Beside them,
 ``scaled_dot_product_attention``'s forward and its backward (dq, dk and dv
@@ -28,6 +29,7 @@ import sys
 SHAPES = [  # (name, B, H, T, d, causal)
     ("main", 16, 4, 4096, 32, False),
     ("tpu", 1, 8, 8192, 128, True),
+    ("d256", 8, 4, 4096, 256, False),
 ]
 
 

@@ -11,10 +11,15 @@ compute in float32 from the same inputs; they differ in the order of the
 float32 sums and in ``expf`` against torch's ``exp``).  The backward kernels
 take no atomics, so two launches agree bit for bit.
 
-Head dims 160, 256 and 320 run on the sliced kernels
-(``csrc/flash_attention_wide.cuh``), in float32 on the CUDA cores in both
-types: there the rounding-matched plain version is the float32 one, and
-the same tolerances hold.
+Head dims 160, 256 and 320 run K3 and the float32 K2 and K4 on the sliced
+kernels (``csrc/flash_attention_wide.cuh``), in float32 on the CUDA cores:
+there the rounding-matched plain version is the float32 one, and the same
+tolerances hold.  The bfloat16 K2 and K4 run there on the tensor cores
+(``csrc/flash_attention_wide_wgmma.cuh``, the head dim zero-padded to 192,
+256 or 320) with the roundings below, and are held as below; at T 2048
+also to the derived bound of ``ops/flash_attention.py`` (one bfloat16 step for
+each ``p`` or ``ds`` the kernels' float32 arithmetic may round the other
+way, plus 1e-4·max + 1e-6), against which a fixed ratio has no margin.
 
 For bfloat16 inputs K2, K3 and K4 run their products on the tensor cores
 and round ``p`` (and in the backward ``g_out`` and ``ds``) to bfloat16
@@ -37,7 +42,8 @@ import torch
 
 fa = importlib.import_module("coinstac_dinunet_tpu_torch.ops.flash_attention")
 
-# the instantiated head dims and, above 128, the sliced kernels' (no padding)
+# the instantiated head dims and, above 128, head dims the bfloat16 K2 and
+# K4 pad to 192, 256 and 320 (the sliced kernels run them unpadded)
 KERNEL_HEAD_DIMS = (*fa.HEAD_DIMS, 160, 256, 320)
 
 CASES = [  # (causal, q_offset, k_offset, kv_len, g_lse nonzero)
@@ -258,7 +264,8 @@ def test_autograd_function_launches_the_kernels(card):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_autograd_function_launches_the_kernels_above_head_dim_128(card, dtype):
     """Head dim 256 through the autograd function: one launch of each
-    kernel (the sliced ones), never the plain version."""
+    kernel (the tensor-core K2 and K4 in bfloat16, the sliced ones
+    otherwise), never the plain version."""
     q, k, v = [torch.randn((2, 2, 200, 256), device=card, dtype=dtype,
                            requires_grad=True) for _ in range(3)]
     before = [kern.launches for kern in fa.KERNELS]
@@ -266,6 +273,27 @@ def test_autograd_function_launches_the_kernels_above_head_dim_128(card, dtype):
     out.float().pow(2).sum().backward()
     assert [kern.launches - b for kern, b in zip(fa.KERNELS, before)] == [1, 1, 1]
     assert torch.isfinite(q.grad.float()).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [160, 256, 320])
+def test_bf16_wide_kernels_of_a_long_sequence_keep_to_the_derived_bound(card, d):
+    """The tensor-core K2 and K4 above 128 over many key and query tiles,
+    mask-free and causal, within the derived bound of their
+    rounding-matched function (1e-4·max + 1e-6 beside it), one launch
+    each."""
+    for case in [(False, 0, 0, 2048, False), (True, 0, 0, 2048, True)]:
+        qkv, pos, _ = _inputs(card, d, torch.bfloat16, case, bh=2, t=2048)
+        before = fa.FWD_KERNEL.launches
+        out, lse = fa.flash_forward_cuda(*qkv, *pos)
+        assert fa.FWD_KERNEL.launches == before + 1
+        want, bound = fa.rounding_bound_forward(*qkv, *pos)
+        assert fa.bound_excess(out, want, bound, 1e-4, 1e-6) <= 1
+        _close(lse, fa.flash_forward_plain(*qkv, *pos)[1])
+        args = _backward_args(card, d, case, torch.bfloat16, 2048)
+        got = fa.flash_dkv_cuda(*args)
+        for g, w, b in zip(got, *fa.rounding_bound_backward(*args, dq=False)):
+            assert fa.bound_excess(g, w, b, 1e-4, 1e-6) <= 1
 
 
 @pytest.mark.cuda

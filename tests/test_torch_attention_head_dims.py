@@ -13,11 +13,16 @@ itself.  The kernels are held against the plain versions on the card by
 XLA path and 1e-4 of the interpreted Pallas kernel, gradients within 2e-4
 + 1e-3·|g| (``tests/test_torch_attention.py``'s bounds).
 
-Above 128 the card runs the sliced kernels at the head dim itself, no
-padding, in float32 whatever the input type: their plain version is the
-float32 one, ``round_dtype`` changes nothing there, and the port's
-function must equal JAX within the same bounds, over the offset,
-``kv_len`` and causal masks and a T that is no tile multiple.
+Above 128, bfloat16 K2 and K4 run on the tensor cores at the head dim
+zero-padded to 192, 256 or 320 (``wide_head_dim``), with the roundings of
+the kernels below it (``p`` and ``ds`` in bfloat16, the forward's online
+softmax over key tiles of 64); K3, float32 inputs and bfloat16 head dims
+above 320 run on the sliced kernels at the head dim itself, in float32.
+So the rounding-matched plain forward and dk/dv round there (held to the
+JAX package's bfloat16 attention within 2e-2·max, the format's error, as
+below 128), the rounding-matched dq does not, and the unrounded plain
+versions equal JAX within the bounds above, over the offset, ``kv_len``
+and causal masks and a T that is no tile multiple.
 """
 import importlib
 
@@ -59,7 +64,7 @@ def test_padded_head_dim_maps_every_dim_to_an_instantiated_one():
         dim = fa.padded_head_dim(d)
         assert dim in fa.HEAD_DIMS and dim >= d
         assert all(h < d for h in fa.HEAD_DIMS if h < dim)
-    for d in (129, 160, 256, 320, 1000):  # the sliced kernels: no padding
+    for d in (129, 160, 256, 320, 1000):  # K3 and float32: the sliced kernels, no padding
         assert fa.padded_head_dim(d) == d
     with pytest.raises(ValueError, match="head dims of 1 or more"):
         fa.padded_head_dim(0)
@@ -169,19 +174,144 @@ def test_wide_plain_backward_matches_jax(d, mask):
 
 @pytest.mark.parametrize("d", WIDE_HEAD_DIMS)
 def test_wide_plain_versions_ignore_round_dtype(d):
-    """The sliced kernels round nothing to bfloat16 (no tensor core takes
-    a bfloat16 operand there), so above 128 the rounding-matched plain
-    versions the card checks them against are the float32 ones, bit for
-    bit, forward and backward."""
+    """K3 above 128 runs on the sliced kernel, which rounds nothing to
+    bfloat16 (no tensor core takes a bfloat16 operand there), so its
+    rounding-matched plain version is the float32 one, bit for bit, also
+    when dq and dk/dv come from one call; the forward and dk/dv, on the
+    tensor cores up to 320, follow ``round_dtype``."""
     arrays = _qkv(200 + d, d, t=100)
     q, k, v = (torch.from_numpy(a).reshape(2, 100, d).to(torch.bfloat16) for a in arrays)
     pos = (0, 0, 100, True, d ** -0.5)
     exact = fa.flash_forward_plain(q, k, v, *pos)
     matched = fa.flash_forward_plain(q, k, v, *pos, round_dtype=torch.bfloat16)
-    assert all(torch.equal(a, b) for a, b in zip(exact, matched))
+    assert not torch.equal(exact[0], matched[0])
     g_out = torch.from_numpy(_qkv(300 + d, d, t=100)[0]).reshape(2, 100, d)
     args = (q, k, v, g_out, exact[1], fa.flash_delta(exact[0], g_out),
             torch.zeros(2, 100), *pos)
-    assert torch.equal(fa.flash_dq_plain(*args), fa.flash_dq_plain(*args, round_dtype=torch.bfloat16))
-    assert all(torch.equal(a, b) for a, b in zip(
-        fa.flash_dkv_plain(*args), fa.flash_dkv_plain(*args, round_dtype=torch.bfloat16)))
+    dq = fa.flash_dq_plain(*args)
+    assert torch.equal(dq, fa.flash_dq_plain(*args, round_dtype=torch.bfloat16))
+    both = fa._backward_plain(*args, round_dtype=torch.bfloat16)
+    assert torch.equal(both[0], dq)
+    dkv = fa.flash_dkv_plain(*args, round_dtype=torch.bfloat16)
+    assert all(torch.equal(a, b) for a, b in zip(both[1:], dkv))
+    assert not any(torch.equal(a, b) for a, b in zip(dkv, fa.flash_dkv_plain(*args)))
+
+
+def test_wide_head_dim_maps_bf16_k2_k4_to_the_tensor_core_dims():
+    """bfloat16 K2 and K4 from 129 to 320 run at the next of 192, 256 and
+    320; K3, float32 inputs and head dims above 320 at the head dim itself
+    (the sliced kernels); up to 128 every kernel at ``padded_head_dim``."""
+    for d in range(129, 321):
+        dim = fa.wide_head_dim(d)
+        assert dim in fa.WIDE_HEAD_DIMS and dim >= d and dim - d < 64
+        assert fa._kernel_head_dim(d, torch.bfloat16) == dim
+        assert fa._kernel_head_dim(d, torch.bfloat16, dq=True) == d
+        assert fa._kernel_head_dim(d, torch.float32) == d
+    for d in (321, 384, 1000):
+        assert fa.wide_head_dim(d) is None
+        assert fa._kernel_head_dim(d, torch.bfloat16) == d
+    for d in (1, 24, 100, 128):
+        assert fa.wide_head_dim(d) is None
+        assert fa._kernel_head_dim(d, torch.bfloat16) == fa.padded_head_dim(d)
+    assert fa.rounds_at(320) and not fa.rounds_at(321) and not fa.rounds_at(129, dq=True)
+    assert [fa.fwd_key_tile(d) for d in (128, 129, 320)] == [128, 64, 64]
+
+
+def _online_tiles(q, k, v, pos, n, round_dtype):
+    """The wide K2's loop written out, key tile by key tile: the running max
+    m, the rescale of l and the accumulator, p rounded before P·V."""
+    q_offset, k_offset, kv_len, causal, scale = pos
+    tk = k.shape[1]
+    valid = fa._valid_mask(q.shape[1], tk, q_offset, k_offset, kv_len, causal, q.device)
+    t_all = torch.where(valid, (q.float() @ k.float().transpose(1, 2)) * (scale * fa._LOG2E),
+                        fa._NEG)
+    m = torch.full(q.shape[:2], fa._NEG)
+    l = torch.zeros(q.shape[:2])
+    acc = torch.zeros(q.shape)
+    for c0 in range(0, tk, n):
+        t = t_all[..., c0:c0 + n]
+        m_new = torch.maximum(m, t.amax(dim=-1))
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(t - m_new.unsqueeze(-1))
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha.unsqueeze(-1) + p.to(round_dtype).float() @ v[:, c0:c0 + n].float()
+        m = m_new
+    ok = m > fa._MASKED_LSE
+    return torch.where(ok.unsqueeze(-1), acc / torch.clamp_min(l, 1e-30).unsqueeze(-1), 0.0)
+
+
+@pytest.mark.parametrize("mask", WIDE_MASKS)
+@pytest.mark.parametrize("d", WIDE_HEAD_DIMS)
+def test_wide_rounding_matched_forward_takes_key_tiles_of_64(d, mask):
+    """Above 128 the rounding-matched plain forward is the wide K2's loop
+    over key tiles of 64 (``fwd_key_tile``): within float32 rounding of it
+    (1e-5·max), and not the loop over tiles of 128."""
+    q_offset, k_offset, kv_len, causal = mask
+    arrays = _qkv(400 + d, d, t=300)
+    q, k, v = (torch.from_numpy(a).reshape(2, 300, d).to(torch.bfloat16) for a in arrays)
+    pos = (q_offset, k_offset, 300 if kv_len is None else kv_len * 3, causal, d ** -0.5)
+    got = fa.flash_forward_plain(q, k, v, *pos, round_dtype=torch.bfloat16)[0]
+    want = _online_tiles(q, k, v, pos, 64, torch.bfloat16)
+    tol = 1e-5 * float(want.abs().max())
+    assert float((got - want).abs().max()) <= tol
+    assert float((got - _online_tiles(q, k, v, pos, 128, torch.bfloat16)).abs().max()) > tol
+
+
+# bfloat16 carries 8 bits: the rounding-matched plain versions and the JAX
+# package's bfloat16 attention each err by the format's error, so they are
+# held to each other within 2e-2 of the largest magnitude, as below 128
+# (tests/test_torch_attention.py)
+BF16_FORMAT_RTOL = 2e-2
+
+
+def _bf16_jax_inputs(seed, d, t=100):
+    arrays = _qkv(seed, d, t=t)
+    bf = [np.array(jnp.asarray(a, jnp.bfloat16).astype(jnp.float32)) for a in arrays]
+    return bf, [jnp.asarray(a, jnp.bfloat16) for a in bf]
+
+
+@pytest.mark.parametrize("impl", ["xla", "pallas_interpret"])
+@pytest.mark.parametrize("mask", WIDE_MASKS)
+@pytest.mark.parametrize("d", WIDE_HEAD_DIMS)
+def test_wide_rounding_matched_forward_matches_jax_in_bf16(d, mask, impl):
+    """The rounding-matched plain K2 above 128 against the JAX package's
+    forward on the same bfloat16 inputs, within BF16_FORMAT_RTOL·max."""
+    q_offset, k_offset, kv_len, causal = mask
+    bf, jx = _bf16_jax_inputs(500 + d, d)
+    b, h, t, _ = bf[0].shape
+    want = np.asarray(jax_flash(*jx, q_offset=q_offset, k_offset=k_offset, kv_len=kv_len,
+                                causal=causal, impl=impl).astype(jnp.float32))
+    q, k, v = (torch.from_numpy(a).reshape(b * h, t, d).to(torch.bfloat16) for a in bf)
+    got = fa.flash_forward_plain(q, k, v, q_offset, k_offset, t if kv_len is None else kv_len,
+                                 causal, d ** -0.5, round_dtype=torch.bfloat16)[0]
+    got = got.reshape(b, h, t, d).numpy()
+    assert np.abs(got - want).max() <= BF16_FORMAT_RTOL * np.abs(want).max()
+
+
+@pytest.mark.parametrize("mask", WIDE_MASKS)
+@pytest.mark.parametrize("d", WIDE_HEAD_DIMS)
+def test_wide_rounding_matched_dkv_matches_jax_in_bf16(d, mask):
+    """The rounding-matched plain K4 above 128 (``g_out``, ``p`` and ``ds``
+    in bfloat16) against the JAX package's dk and dv (``jax.vjp`` of its XLA
+    path on the same bfloat16 inputs and cotangents), within
+    BF16_FORMAT_RTOL·max."""
+    q_offset, k_offset, kv_len, causal = mask
+    bf, jx = _bf16_jax_inputs(600 + d, d)
+    b, h, t, _ = bf[0].shape
+    rng = np.random.default_rng(700 + d)
+    g_out = np.array(jnp.asarray(rng.normal(size=(b, h, t, d)), jnp.bfloat16)
+                     .astype(jnp.float32))
+    g_lse = rng.normal(size=(b, h, t)).astype(np.float32)
+    pos = dict(q_offset=q_offset, k_offset=k_offset, kv_len=kv_len, causal=causal)
+    _, vjp = jax.vjp(lambda a, c, e: jax_flash(a, c, e, impl="xla", return_lse=True, **pos),
+                     *jx)
+    want = vjp((jnp.asarray(g_out, jnp.bfloat16), jnp.asarray(g_lse)))[1:]
+    q, k, v = (torch.from_numpy(a).reshape(b * h, t, d).to(torch.bfloat16) for a in bf)
+    ppos = (q_offset, k_offset, t if kv_len is None else kv_len, causal, d ** -0.5)
+    out, lse = fa.flash_forward_plain(q, k, v, *ppos)
+    g = torch.from_numpy(g_out).reshape(b * h, t, d)
+    args = (q, k, v, g, lse, fa.flash_delta(out, g), torch.from_numpy(g_lse).reshape(b * h, t),
+            *ppos)
+    for got, w in zip(fa.flash_dkv_plain(*args, round_dtype=torch.bfloat16), want):
+        w = np.asarray(w.astype(jnp.float32)).reshape(b * h, t, d)
+        assert np.abs(got.numpy() - w).max() <= BF16_FORMAT_RTOL * np.abs(w).max()
