@@ -22,10 +22,10 @@ Phases, in order; any failure exits non-zero before the last line:
    T 4096 timed), and at head dims 160, 256 and 320 (a T that is no tile
    multiple, causal with offsets and a masked key tail, keys past kv_len,
    every row masked, in both types; d 256 at B 8, H 4, T 4096 timed in both
-   types beside ``scaled_dot_product_attention``), where the bfloat16 K2
-   and K4 run on the tensor cores
+   types beside ``scaled_dot_product_attention``), where the bfloat16 K2,
+   K3 and K4 run on the tensor cores
    (``csrc/flash_attention_wide_wgmma.cuh``, zero-padded to 192, 256 or
-   320) and K3 and the float32 K2 and K4 unpadded on the sliced kernels
+   320) and the float32 ones unpadded on the sliced kernels
    (``csrc/flash_attention_wide.cuh``), within stated tolerances
    (the bfloat16 tensor-core forward, dq and dk/dv against the plain
    version with the kernels' bfloat16 roundings and against the float32
@@ -655,11 +655,10 @@ _FLASH_PADDED_EDGES = [
 ]
 # head dims above 128: a T that is no tile multiple, causal with both
 # offsets and a masked key tail, keys past kv_len, every row masked; in both
-# types.  In bfloat16, K2 and K4 run on the tensor-core kernels of
+# types.  In bfloat16, K2, K3 and K4 run on the tensor-core kernels of
 # csrc/flash_attention_wide_wgmma.cuh (d zero-padded to 192, 256 or 320)
-# and are held to the rounding-matched plain version; K3 (and float32 K2,
-# K4) run unpadded on the sliced kernels, in float32, whose
-# "rounding-matched" plain version is the float32 one.
+# and are held to the rounding-matched plain version; in float32 they run
+# unpadded on the sliced kernels.
 _FLASH_WIDE_EDGES = [
     ("t160_d160", 1, 2, 160, 160, False, 0, 0, None, True),
     ("offsets_d160", 1, 2, 333, 160, True, 100, 37, 300, True),
@@ -739,7 +738,7 @@ FLASH_LONG_T = 1024  # from here on a case counts as long
 # padded, so its p is 0) and the rounding in float16 instead of bfloat16
 # (the float64 function with p and ds in float16).  The kernels each case
 # holds so: (case, kernels).
-FLASH_DERIVED = {"d256_long": ("fwd", "dkv"), "d24_long": ("fwd", "dq", "dkv")}
+FLASH_DERIVED = {"d256_long": ("fwd", "dq", "dkv"), "d24_long": ("fwd", "dq", "dkv")}
 # Against the float32 plain version the difference is the format's: 2^-9
 # relative on each of p (K2) or g_out, p and ds (K3, K4).
 # scaled_dot_product_attention's forward and backward on the same inputs
@@ -756,8 +755,8 @@ FLASH_PADDED_TIMED = ("d4_long", "d8_long", "d24_long_f32")
 FLASH_WIDE_TIMED = ("d256_long", "d256_long_f32")
 FLASH_TIMED = ("main", "tpu", "vectorized", *FLASH_D16_TIMED, *FLASH_PADDED_TIMED,
                *FLASH_WIDE_TIMED)
-# K2 and K4 on bfloat16 inputs above head dim 128 (the kernels line's
-# "wide_bf16" entries of flash_attention_fwd and flash_attention_dkv)
+# K2, K3 and K4 on bfloat16 inputs above head dim 128 (the kernels line's
+# "wide_bf16" entries)
 FLASH_WIDE_SOURCE = "coinstac_dinunet_tpu_torch/csrc/flash_attention_wide_wgmma.cuh"
 FLASH_SOURCES = {
     "flash_attention_fwd": ("coinstac_dinunet_tpu_torch/csrc/flash_attention_fwd.cu",
@@ -889,7 +888,8 @@ def check_derived_backward(fa, kernels, case, args, grads):
     if "dq" in kernels:
         (want,), (bound,) = fa.rounding_bound_backward(*args, dq=True)
         errs["dq"], excess = _derived(fa, grads[0], want, bound, f"K3 dq at {case}")
-        faults = {"key_tile_dropped": fa.flash_dq_cuda(*args[:7], qo, ko, kv_len - 64, causal,
+        tile = fa.dq_key_tile(args[0].shape[-1])
+        faults = {"key_tile_dropped": fa.flash_dq_cuda(*args[:7], qo, ko, kv_len - tile, causal,
                                                        scale),
                   "ds_in_float16": fa.rounding_bound_backward(
                       *args, dq=True, round_dtype=torch.float16)[0][0]}
@@ -927,7 +927,7 @@ def check_flash(dev, report):
     errs = {name: 0.0 for name in FLASH_SOURCES}
     errs_f32 = {name: 0.0 for name in FLASH_SOURCES}
     library_errs = {}
-    wide_errs = {"flash_attention_fwd": 0.0, "flash_attention_dkv": 0.0}
+    wide_errs = {name: 0.0 for name in FLASH_SOURCES}
     exp_per_s = (EXP_PER_CLOCK_PER_SM * torch.cuda.get_device_properties(dev).multi_processor_count
                  * max_sm_clock_hz())
     for (case, b, h, t, d, dtype, causal, qo, ko, kv, nz_glse) in FLASH_CASES:
@@ -1052,8 +1052,8 @@ def check_flash(dev, report):
         errs["flash_attention_dq"] = max(errs["flash_attention_dq"], e_dq)
         errs["flash_attention_dkv"] = max(errs["flash_attention_dkv"], e_dkv)
         if bf16 and d > fa.HEAD_DIMS[-1]:
-            wide_errs["flash_attention_fwd"] = max(wide_errs["flash_attention_fwd"], e_fwd)
-            wide_errs["flash_attention_dkv"] = max(wide_errs["flash_attention_dkv"], e_dkv)
+            for name, e in zip(FLASH_SOURCES, (e_fwd, e_dq, e_dkv)):
+                wide_errs[name] = max(wide_errs[name], e)
         row = {"case": case, "shape": [b, h, t, d], "dtype": dtype, "causal": causal,
                "q_offset": qo, "k_offset": ko, "kv_len": kv_len, "g_lse_nonzero": nz_glse,
                "max_abs_err": {"fwd": e_fwd, "dq": e_dq, "dkv": e_dkv},
@@ -1086,17 +1086,24 @@ def check_flash(dev, report):
         # bfloat16 cases: max_abs_err is against the rounding-matched plain
         # version, this one against the float32 plain version
         kern["max_abs_err_vs_float32_plain"] = errs_f32[name]
-    # K2 and K4 on bfloat16 above head dim 128: their own kernels, timed at
-    # d256_long, beside the main path's
+    # K2, K3 and K4 on bfloat16 above head dim 128: their own kernels, timed
+    # at d256_long, beside the main path's
     wide = next(row for row in rows if row["case"] == "d256_long")
+    parts = {"flash_attention_fwd": ("fwd",), "flash_attention_dq": ("dq",),
+             "flash_attention_dkv": ("dk", "dv")}
     for name in wide_errs:
+        times = wide["times"][name]
         kernels[name]["wide_bf16"] = {
             "source": FLASH_WIDE_SOURCE, "replaces": FLASH_SOURCES[name][1],
             "head_dims": f"{fa.HEAD_DIMS[-1] + 1}-{fa.WIDE_HEAD_DIMS[-1]}, zero-padded to "
                          + ", ".join(map(str, fa.WIDE_HEAD_DIMS)),
-            "max_abs_err": wide_errs[name], "timed_at": "d256_long", **wide["times"][name],
-            "derived_bound": ({"fwd": wide["derived_bound"]["fwd"]} if name.endswith("fwd") else
-                              {n: wide["derived_bound"][n] for n in ("dk", "dv")})}
+            "max_abs_err": wide_errs[name], "timed_at": "d256_long", **times,
+            "derived_bound": {n: wide["derived_bound"][n] for n in parts[name]}}
+        log(f"  {name} bfloat16 d256_long: {times['ms']:.4f} ms, "
+            f"{times['bound_ms'] / times['ms']:.1%} of its bound {times['bound_ms']:.4f} ms, "
+            f"{times['ms'] / times['library_ms']:.2f} x the library's "
+            + ("forward" if name.endswith("fwd") else "whole backward")
+            + f" {times['library_ms']:.4f} ms")
     return [kernels[name] for name in FLASH_SOURCES]
 
 

@@ -6,10 +6,10 @@
 // flash_attention_fwd.cu, flash_attention_bwd.cu and the wgmma headers keep
 // a whole (rows, d) tile per operand in shared memory and a whole output row
 // in registers, which stops at d = 128; flash_attention_wide_wgmma.cuh
-// takes bfloat16 K2 and K4 from 129 to 320 onto the tensor cores.  These
-// kernels take the rest, at any d above 128, with the same masks and
-// outputs: K3 in both types, K2 and K4 on float32 inputs, and bfloat16 K2
-// and K4 above 320.
+// takes bfloat16 K2, K3 and K4 from 129 to 320 onto the tensor cores.
+// These kernels take the rest, at any d above 128, with the same masks and
+// outputs: K2, K3 and K4 on float32 inputs, and on bfloat16 inputs above
+// 320.
 //  - the head dim goes in slices of kS = 128 columns (the last one
 //    zero-filled past d), so shared memory holds a few (64, 128) slices
 //    and never a whole row, whatever d is;
@@ -29,8 +29,8 @@
 // bfloat16 on the way.  So the float32 plain version in
 // ops/flash_attention.py states these kernels' function in both types (its
 // round_dtype is ignored wherever they run, ops/flash_attention.py
-// rounds_at): the bfloat16 dq above 128 is not rounded as the TPU rounds
-// it, until K3 moves to the tensor cores too.
+// rounds_at): bfloat16 inputs above 320 are not rounded as the TPU's matrix
+// unit rounds them.
 //
 // Bound on an H100: the same products as at d <= 128 (4, 6 and 8 operations
 // per valid pair and head-dim element), over the CUDA cores' 67 TFLOP/s for

@@ -1,22 +1,24 @@
-// Flash attention K2 (forward) and K4 (dk, dv) at head dims above 128 for
-// bfloat16 inputs on Hopper's tensor cores (sm_90a).
+// Flash attention K2 (forward), K3 (dq) and K4 (dk, dv) at head dims above
+// 128 for bfloat16 inputs on Hopper's tensor cores (sm_90a).
 //
 // Replace the TPU kernels coinstac_dinunet_tpu/ops/flash_attention.py::
-// _flash_kernel (K2) and ::_dkv_kernel (K4) for bfloat16 q, k, v at head
-// dims 129 to 320, which ops/flash_attention.py zero-pads to D = 192, 256
-// or 320 (a multiple of 64; zero columns change no score).  The function and
-// its roundings are those of flash_attention_fwd_wgmma.cuh and
-// flash_attention_bwd_wgmma.cuh, as on the TPU's matrix unit: every tile
-// product takes bfloat16 operands and sums in float32; `scale` (with log2 e
-// folded in) multiplies the float32 scores; p (K2, K4) and ds (K4) are
-// rounded to bfloat16 only as the register A operand of the second
-// products, and g_out arrives in bfloat16 (one cast in the wrapper).
-// Float32 inputs above 128, bfloat16 inputs above 320 and K3 above 128 keep
-// the sliced CUDA-core kernels of flash_attention_wide.cuh.
+// _flash_kernel (K2), ::_dq_kernel (K3) and ::_dkv_kernel (K4) for bfloat16
+// q, k, v at head dims 129 to 320, which ops/flash_attention.py zero-pads
+// to D = 192, 256 or 320 (a multiple of 64; zero columns change no score).
+// The function and its roundings are those of flash_attention_fwd_wgmma.cuh
+// and flash_attention_bwd_wgmma.cuh, as on the TPU's matrix unit: every
+// tile product takes bfloat16 operands and sums in float32; `scale` (with
+// log2 e folded in) multiplies the float32 scores; p (K2, K4) and ds (K3,
+// K4) are rounded to bfloat16 only as the register A operand of the second
+// products, and g_out arrives in bfloat16 (one cast in the wrapper); dq and
+// dk take `scale` at the store.  Float32 inputs above 128 and bfloat16
+// inputs above 320 keep the sliced CUDA-core kernels of
+// flash_attention_wide.cuh.
 //
-// Bound on an H100 (989 TFLOP/s bfloat16, 3.35 TB/s): K2 does 4·d and K4
-// 8·d tensor operations per valid (query, key) pair, with one exp, on a few
-// bytes per row; at these head dims the products bind.
+// Bound on an H100 (989 TFLOP/s bfloat16, 3.35 TB/s): K2 does 4·d, K3 6·d
+// and K4 8·d tensor operations per valid (query, key) pair, with one exp,
+// on a few bytes per row; at these head dims the products bind (K3 at
+// d = 256, B 8, H 4, T 4096: 0.834 ms).
 //
 // Design.  The kernels at d <= 128 keep a whole head-dim row of every tile
 // in shared memory and a whole output row in registers.  At D = 256 a
@@ -44,12 +46,19 @@
 //    shared memory in bfloat16 and the output columns split over the two
 //    warpgroups, was not built: no instance here spills (ptxas -v) and the
 //    split ran at a third of the bound at d = 256 (PERF.md §6).
+//  - K3 is the dk kernel's mirror image: q and g_out resident (64 rows a
+//    warpgroup; one warpgroup at D = 320, as the dk kernel), K and V
+//    streaming, S = q·kᵀ and dP = g_out·vᵀ, ds = p·(dp − Δ + g_lse) with the
+//    row's (lse, Δ − g_lse) in registers, dq += dS·K with the streamed K
+//    tile as B.  Its key tiles are 64 rows at D = 192 and 32 above
+//    (DqConfig::kN), and only key tiles some row of the block sees are
+//    fetched.
 //  - Everything else is the d <= 128 kernels': TMA into the swizzled tile
 //    layout of hopper_mma.cuh, the masks and sentinels (fully masked rows
 //    give zeros and lse -1e30), the online softmax on the fragments (K2),
 //    the per-query (lse, Δ − g_lse) staged through shared memory one tile
-//    ahead (K4), and the warpgroup index through a shuffle so that ptxas
-//    keeps the wgmma pipeline.
+//    ahead (K4) or held in registers (K3), and the warpgroup index through
+//    a shuffle so that ptxas keeps the wgmma pipeline.
 // A column chunk past D in the last slice (D = 320) is never loaded or
 // stored; its products read stale shared memory into an accumulator chunk
 // that is dropped.
@@ -588,6 +597,233 @@ template <int D>
 int launch_dkv(const BwdArgs& a) {
   const int err = launch_dkv_part<D, false>(a);
   return err != 0 ? err : launch_dkv_part<D, true>(a);
+}
+
+// ------------------------------------------------------------------- K3
+
+template <int D>
+struct DqConfig {
+  using L = TileLayout<D>;
+  // at D = 320 two resident (128, D) q and g_out tiles would not fit
+  static constexpr int kWarpgroups = D > 256 ? 1 : 2;
+  static constexpr int kThreads = kWarpgroups * kWarpgroup;
+  static constexpr int kBlockRows = 64 * kWarpgroups;
+  // keys of a streamed K/V tile (dq_key_tile in ops/flash_attention.py),
+  // halved above D = 192: at 256 two 64 x 64 score fragments would not fit
+  // in registers beside the 64 x 256 accumulator, at 320 two stages of 64
+  // keys not in shared memory beside the resident q and g_out
+  static constexpr int kN = D > 192 ? 32 : 64;
+  static constexpr int kResidentBytes = 2 * L::bytes(kBlockRows);  // q, g_out
+  static constexpr int kStageBytes = 2 * L::bytes(kN);              // K, V
+  static constexpr int kFixed = 1024 + kResidentBytes;
+  static constexpr int kStages = kFixed + 3 * kStageBytes + 4 * 8 <= kSmemLimit ? 3 : 2;
+  static constexpr int kSmemBytes = kFixed + kStages * kStageBytes + (1 + kStages) * 8;
+  static_assert(kSmemBytes <= kSmemLimit, "K3 tiles exceed a block's shared memory");
+};
+
+// dq (slice blockIdx.z) = scale·Σ_j ds_j·k_j: the q rows and their g_out rows
+// resident, the K and V tiles streaming; ds in bfloat16 as the register A
+// operand of dS·K, whose B is the streamed K tile read MN-major.
+template <int D>
+__global__ void __launch_bounds__(DqConfig<D>::kThreads, 1)
+    flash_dq_wide_kernel(const __grid_constant__ CUtensorMap map_q,
+                         const __grid_constant__ CUtensorMap map_g,
+                         const __grid_constant__ CUtensorMap map_k,
+                         const __grid_constant__ CUtensorMap map_v,
+                         const float* __restrict__ lse, const float* __restrict__ delta,
+                         const float* __restrict__ g_lse, float* __restrict__ dq, int tq,
+                         int tk, float scale, bool causal, int q_offset, int k_offset,
+                         int kv_len) {
+  using C = DqConfig<D>;
+  using L = TileLayout<D>;
+  constexpr int N = C::kN;
+  constexpr int kStages = C::kStages;
+  constexpr int kSl = Slices<D>::kChunksPer;
+
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  // resident q and g_out, the ring of (K, V) stages, the barriers (bar(0)
+  // the resident tiles', bar(1 + stage) a stage's)
+  const uint32_t s_q = smem_addr(smem);
+  const uint32_t s_g = s_q + L::bytes(C::kBlockRows);
+  const uint32_t s_stage = s_q + C::kResidentBytes;
+  const uint32_t s_bars = s_stage + kStages * C::kStageBytes;
+  auto bar = [&](int i) { return s_bars + 8 * i; };
+
+  const int tid = threadIdx.x;
+  const int warp_id = __shfl_sync(0xffffffffu, tid / 32, 0);
+  const int wg = warp_id / 4;
+  const int warp = warp_id % 4;
+  const int g = (tid % 32) / 4;
+  const int c4 = tid % 4;
+  const int bh = blockIdx.y;
+  int chunk0;
+  const int n_oc = slice_chunks<D>(blockIdx.z, &chunk0);
+  const int row0 = blockIdx.x * C::kBlockRows;  // first q row
+  const int wg_row0 = row0 + 64 * wg;
+  const int64_t kv_eff = kv_len < tk ? kv_len : tk;
+
+  // key tiles [0, n_tiles) that some q row of the block sees
+  int n_tiles = 0;
+  if (kv_eff > 0) {
+    int64_t n = (kv_eff + N - 1) / N;
+    if (causal) {
+      const int last = row0 + C::kBlockRows < tq ? row0 + C::kBlockRows : tq;
+      const int64_t span = (int64_t)q_offset + last - 1 - k_offset;
+      const int64_t nc = span < 0 ? 0 : span / N + 1;
+      if (nc < n) n = nc;
+    }
+    n_tiles = (int)n;
+  }
+
+  if (tid == 0) {
+#pragma unroll
+    for (int i = 0; i < 1 + kStages; ++i) mbar_init(bar(i), 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  auto fill_stage = [&](int i) {  // key tile i into stage i % kStages
+    const int st = i % kStages;
+    const uint32_t dst = s_stage + st * C::kStageBytes;
+    mbar_expect(bar(1 + st), C::kStageBytes);
+    tma_load_tile<D>(dst, &map_k, bar(1 + st), i * N, bh, N);
+    tma_load_tile<D>(dst + L::bytes(N), &map_v, bar(1 + st), i * N, bh, N);
+  };
+  if (tid == 0 && n_tiles > 0) {
+    mbar_expect(bar(0), C::kResidentBytes);
+#pragma unroll
+    for (int w = 0; w < C::kWarpgroups; ++w) {
+      tma_load_tile<D>(s_q + w * L::bytes(64), &map_q, bar(0), row0 + 64 * w, bh, 64);
+      tma_load_tile<D>(s_g + w * L::bytes(64), &map_g, bar(0), row0 + 64 * w, bh, 64);
+    }
+    for (int i = 0; i < kStages - 1 && i < n_tiles; ++i) fill_stage(i);
+  }
+
+  // the thread's two fragment rows, q rows wg_row0 + 16 warp + g + 8 h, see
+  // the key columns up to col_lim[h]
+  float row_lse[2], row_sub[2];
+  int col_lim[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int64_t r = wg_row0 + 16 * warp + g + 8 * h;
+    const bool in = r < tq;
+    row_lse[h] = in ? safe_lse(lse[(int64_t)bh * tq + r]) * kLog2e : kLsePad;
+    row_sub[h] = in ? delta[(int64_t)bh * tq + r] - g_lse[(int64_t)bh * tq + r] : 0.0f;
+    int64_t lim = kv_eff - 1;
+    if (causal && q_offset + r - k_offset < lim) lim = q_offset + r - k_offset;
+    col_lim[h] = lim < -1 ? -1 : (int)lim;
+  }
+
+  float acc[kSl][32];
+#pragma unroll
+  for (int c = 0; c < kSl; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[c][i] = 0.0f;
+
+  const float scale2 = scale * kLog2e;
+  const uint32_t wg_q = s_q + wg * L::bytes(64), wg_g = s_g + wg * L::bytes(64);
+  const int64_t lo = (int64_t)q_offset + wg_row0 - k_offset;  // first row's last key
+
+  for (int i = 0; i < n_tiles; ++i) {
+    const int st = i % kStages;
+    if (tid == 0 && i + kStages - 1 < n_tiles) fill_stage(i + kStages - 1);
+    if (i == 0) mbar_wait(bar(0), 0);
+    mbar_wait(bar(1 + st), (i / kStages) & 1);
+
+    // whether this warpgroup's 64 q rows see none / all of the tile's keys
+    const int64_t c0 = (int64_t)i * N;
+    const bool none = wg_row0 >= tq || (causal && lo + 63 < c0);
+    const bool all = c0 + N <= kv_eff && (!causal || lo >= c0 + N - 1);
+
+    if (!none) {
+      const uint32_t sk = s_stage + st * C::kStageBytes, sv = sk + L::bytes(N);
+      float s[N / 2], dp[N / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int c = kk / L::kSlices, off = (kk % L::kSlices) * 32;
+        wgmma_ss(s, make_desc<D>(wg_q + c * L::chunk_bytes(64) + off),
+                 make_desc<D>(sk + c * L::chunk_bytes(N) + off), kk > 0);
+      }
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int c = kk / L::kSlices, off = (kk % L::kSlices) * 32;
+        wgmma_ss(dp, make_desc<D>(wg_g + c * L::chunk_bytes(64) + off),
+                 make_desc<D>(sv + c * L::chunk_bytes(N) + off), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      pin(s);
+      pin(dp);
+
+      // p = 2^(s·c − λ), ds = p·(dp − σ), packed to bfloat16 (p's registers
+      // are not read again)
+      uint32_t pa[N / 4], da[N / 4];
+      const int col0 = (int)c0 + 2 * c4;
+      if (all)
+        wgmma_bwd::softmax_grad<N, true, false>(s, dp, pa, da, scale2, row_lse, row_sub,
+                                                col_lim, nullptr, col0, 0);
+      else
+        wgmma_bwd::softmax_grad<N, true, true>(s, dp, pa, da, scale2, row_lse, row_sub,
+                                               col_lim, nullptr, col0, 0);
+
+      // dq += dS·K over the slice's chunks of the K tile
+      const uint32_t b0 = sk + chunk0 * L::chunk_bytes(N);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < N / 16; ++kk) {
+#pragma unroll
+        for (int c = 0; c < kSl; ++c)
+          wgmma_rs(acc[c], &da[4 * kk],
+                   make_desc<D>(b0 + c * L::chunk_bytes(N) + kk * 16 * L::kPitch));
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      pin(da);
+#pragma unroll
+      for (int c = 0; c < kSl; ++c) pin(acc[c]);
+    }
+    __syncthreads();  // the stage is free again
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int64_t r = wg_row0 + 16 * warp + g + 8 * h;
+    if (r >= tq) continue;
+    const int64_t base = ((int64_t)bh * tq + r) * D + 2 * c4;
+#pragma unroll
+    for (int c = 0; c < kSl; ++c) {
+      if (c >= n_oc) continue;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int x = 4 * j + 2 * h;
+        *reinterpret_cast<float2*>(dq + base + (chunk0 + c) * L::kChunkCols + 8 * j) =
+            make_float2(acc[c][x] * scale, acc[c][x + 1] * scale);
+      }
+    }
+  }
+}
+
+// Launch K3 on bfloat16 q, k, v and a bfloat16 g_out at a padded head dim D.
+template <int D>
+int launch_dq(const BwdArgs& a) {
+  using C = DqConfig<D>;
+  CUtensorMap mq, mg, mk, mv;
+  if (!make_tile_map<D>(&mq, a.q, a.bh, a.tq, 64) ||
+      !make_tile_map<D>(&mg, a.g_out, a.bh, a.tq, 64) ||
+      !make_tile_map<D>(&mk, a.k, a.bh, a.tk, C::kN) ||
+      !make_tile_map<D>(&mv, a.v, a.bh, a.tk, C::kN))
+    return (int)cudaErrorInvalidValue;
+  auto kernel = flash_dq_wide_kernel<D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmemBytes);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((a.tq + C::kBlockRows - 1) / C::kBlockRows, a.bh, Slices<D>::kCount);
+  kernel<<<grid, C::kThreads, C::kSmemBytes, a.stream>>>(
+      mq, mg, mk, mv, (const float*)a.lse, (const float*)a.delta, (const float*)a.g_lse,
+      (float*)a.out0, a.tq, a.tk, a.scale, a.causal != 0, a.q_offset, a.k_offset, a.kv_len);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace wide_wgmma

@@ -4,8 +4,8 @@
 // The flash-attention kernels for bfloat16 inputs are built from these: the
 // forward (flash_attention_fwd_wgmma.cuh, replacing the TPU kernel
 // _flash_kernel) and the backward (flash_attention_bwd_wgmma.cuh, replacing
-// _dq_kernel and _dkv_kernel), and above head dim 128 the forward and dk/dv
-// (flash_attention_wide_wgmma.cuh).
+// _dq_kernel and _dkv_kernel), and above head dim 128 the forward, dq and
+// dk/dv (flash_attention_wide_wgmma.cuh).
 //
 // Tile layout.  A (rows, D) bfloat16 tile sits in shared memory as D / 64
 // column chunks (one chunk of D columns at D = 16 and D = 32), each chunk a

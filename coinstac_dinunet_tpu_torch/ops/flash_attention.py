@@ -24,16 +24,15 @@ Two implementations of each direction:
   cores.  They are instantiated for head dims 16, 32, 64 and 128; any
   other head dim up to 128 runs on the next of them, q, k, v and g_out
   zero-padded in the head dim and out, dq, dk, dv sliced back
-  (:func:`padded_head_dim`; zero columns change no score).  Above 128, K2
-  and K4 on bfloat16 inputs run on the tensor cores as well
+  (:func:`padded_head_dim`; zero columns change no score).  Above 128, K2,
+  K3 and K4 on bfloat16 inputs run on the tensor cores as well
   (``csrc/flash_attention_wide_wgmma.cuh``, the same roundings), at head
   dims 192, 256 and 320, any head dim from 129 to 320 zero-padded to the
-  next of them (:func:`wide_head_dim`).  Every other case above 128 — K3 in
-  both types, K2 and K4 on float32 inputs or above 320 — runs unpadded on
-  the sliced kernels of ``csrc/flash_attention_wide.cuh`` (128-column
-  slices of the head dim, each output slice written against a known lse),
-  which compute in float32 on the CUDA cores and round nothing to
-  bfloat16;
+  next of them (:func:`wide_head_dim`).  Every other case above 128 —
+  float32 inputs, and bfloat16 inputs above 320 — runs unpadded on the
+  sliced kernels of ``csrc/flash_attention_wide.cuh`` (128-column slices
+  of the head dim, each output slice written against a known lse), which
+  compute in float32 on the CUDA cores and round nothing to bfloat16;
 - :func:`flash_forward_plain` and :func:`flash_backward_plain`, plain
   PyTorch in float32 with autocast off (the dense form of the same
   identities, the counterparts of ``_flash_xla`` and the XLA backward),
@@ -79,11 +78,11 @@ _LN2 = 0.6931471805599453
 #: next of them, q, k, v and g_out zero-padded in the head dim
 #: (:func:`padded_head_dim`); above it see ``WIDE_HEAD_DIMS``
 HEAD_DIMS = (16, 32, 64, 128)
-#: head dims above ``HEAD_DIMS[-1]`` that K2 and K4 on bfloat16 inputs run
-#: at on the tensor cores (``csrc/flash_attention_wide_wgmma.cuh``): a head
-#: dim from 129 to the largest runs on the next of them, zero-padded
-#: (:func:`wide_head_dim`); K3, float32 inputs and bfloat16 head dims above
-#: the largest run on the sliced kernels at their own width
+#: head dims above ``HEAD_DIMS[-1]`` that K2, K3 and K4 on bfloat16 inputs
+#: run at on the tensor cores (``csrc/flash_attention_wide_wgmma.cuh``): a
+#: head dim from 129 to the largest runs on the next of them, zero-padded
+#: (:func:`wide_head_dim`); float32 inputs and bfloat16 head dims above the
+#: largest run on the sliced kernels at their own width
 WIDE_HEAD_DIMS = (192, 256, 320)
 #: keys of a K/V tile of the bfloat16 forward kernel up to ``HEAD_DIMS[-1]``
 #: (``Config<D>::kN`` in ``csrc/flash_attention_fwd_wgmma.cuh``): the tiles
@@ -93,6 +92,14 @@ FWD_KEY_TILE = 128
 #: ``csrc/flash_attention_wide_wgmma.cuh``): a 64 x D float32 accumulator
 #: leaves registers for a 64 x 64 score fragment only
 WIDE_FWD_KEY_TILE = 64
+#: keys of a K/V tile of the bfloat16 K3 (``Config<D, true>::kN`` in
+#: ``csrc/flash_attention_bwd_wgmma.cuh``, ``DqConfig<D>::kN`` in
+#: ``csrc/flash_attention_wide_wgmma.cuh``) up to head dim 192; above it
+#: the tiles are halved: at 256 two 64 x 64 score fragments would not fit in
+#: registers beside the 64 x 256 float32 accumulator, at 320 two stages of
+#: 64 keys not in shared memory beside the resident q and g_out
+DQ_KEY_TILE = 64
+WIDE_DQ_KEY_TILE = 32
 
 _ARGS = [ctypes.c_void_p] * 3  # q, k, v
 _SHAPE = [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
@@ -117,12 +124,19 @@ def fwd_key_tile(d):
     return FWD_KEY_TILE if d <= HEAD_DIMS[-1] else WIDE_FWD_KEY_TILE
 
 
+def dq_key_tile(d):
+    """Keys of a K/V tile of the bfloat16 K3 at head dim ``d`` (up to
+    ``WIDE_HEAD_DIMS[-1]``, where it runs on the tensor cores)."""
+    return DQ_KEY_TILE if d <= WIDE_HEAD_DIMS[0] else WIDE_DQ_KEY_TILE
+
+
 def rounds_at(d, dq=False):
     """Whether the bfloat16 kernel at head dim ``d`` rounds its operands to
-    bfloat16, i.e. runs on the tensor cores: K2 and K4 up to
-    ``WIDE_HEAD_DIMS[-1]``, K3 (``dq``) up to ``HEAD_DIMS[-1]``; the sliced
-    kernels above compute in float32."""
-    return d <= (HEAD_DIMS[-1] if dq else WIDE_HEAD_DIMS[-1])
+    bfloat16, i.e. runs on the tensor cores: K2, K3 (``dq``) and K4 alike,
+    up to ``WIDE_HEAD_DIMS[-1]``; the sliced kernels above compute in
+    float32.  ``dq`` names the kernel a check asks about; the answer is
+    the same for all three."""
+    return d <= WIDE_HEAD_DIMS[-1]
 
 
 def _valid_mask(tq, tk, q_offset, k_offset, kv_len, causal, device):
@@ -223,18 +237,12 @@ def _backward_plain(q, k, v, g_out, lse, delta, g_lse, q_offset, k_offset,
     path of the port: it is the dtype those kernels round ``g_out``, ``p``
     and ``ds`` to before their products (bfloat16), and with it ``scale``
     multiplies the float32 products as in the kernels instead of ``q``.
-    Where a part runs on a sliced kernel (:func:`rounds_at`: dq above
-    ``HEAD_DIMS[-1]``, dk and dv above ``WIDE_HEAD_DIMS[-1]``) it is ignored
-    for that part, which then is the float32 one.  ``None`` is the float32
-    statement of the function.
+    Where the sliced kernels run (above ``WIDE_HEAD_DIMS[-1]``,
+    :func:`rounds_at`) it is ignored: those kernels round nothing.
+    ``None`` is the float32 statement of the function.
     """
     bh, tq, d = q.shape
-    if round_dtype is not None and dq and dkv and rounds_at(d) != rounds_at(d, dq=True):
-        # the two parts round differently at this head dim: one pass each
-        args = (q, k, v, g_out, lse, delta, g_lse, q_offset, k_offset, kv_len, causal, scale)
-        return (_backward_plain(*args, dkv=False, round_dtype=round_dtype)[0],
-                *_backward_plain(*args, dq=False, round_dtype=round_dtype)[1:])
-    if not rounds_at(d, dq=dq):
+    if not rounds_at(d):
         round_dtype = None
     valid = _valid_mask(tq, k.shape[1], q_offset, k_offset, kv_len, causal, q.device)
     matched = round_dtype is not None
@@ -287,8 +295,8 @@ def flash_backward_plain(q, k, v, out, lse, g_out, g_lse, q_offset, k_offset,
 def padded_head_dim(d):
     """The head dim a head dim ``d`` runs at: up to ``HEAD_DIMS[-1]`` the
     smallest instantiated one (``HEAD_DIMS``) that holds it, above it ``d``
-    itself (the sliced kernels take any width; the bfloat16 K2 and K4 there
-    pad to :func:`wide_head_dim` instead).  Zero columns change no
+    itself (the sliced kernels take any width; the bfloat16 K2, K3 and K4
+    there pad to :func:`wide_head_dim` instead).  Zero columns change no
     score ``q·k`` and add nothing to ``p·v``, so the kernel's output, lse
     and gradients in the first ``d`` columns are those of the unpadded call
     (given the unpadded head dim's scale); the padded columns are
@@ -302,27 +310,27 @@ def padded_head_dim(d):
 
 
 def wide_head_dim(d):
-    """The head dim bfloat16 K2 and K4 run at for a head dim ``d`` above
+    """The head dim bfloat16 K2, K3 and K4 run at for a head dim ``d`` above
     ``HEAD_DIMS[-1]``: the smallest of ``WIDE_HEAD_DIMS`` that holds it, or
     ``None`` above the largest (the sliced kernels, at ``d`` itself).
     Zero-padded as :func:`padded_head_dim` says."""
     return next((dim for dim in WIDE_HEAD_DIMS if HEAD_DIMS[-1] < d <= dim), None)
 
 
-def _kernel_head_dim(d, dtype, dq=False):
-    """The head dim a kernel runs at: the tensor-core kernels' padded ones
-    (any kernel up to ``HEAD_DIMS[-1]``, bfloat16 K2 and K4 up to
-    ``WIDE_HEAD_DIMS[-1]``), else ``d`` itself (the sliced kernels)."""
-    if d > HEAD_DIMS[-1] and dtype == torch.bfloat16 and not dq:
+def _kernel_head_dim(d, dtype):
+    """The head dim a kernel runs at: the padded ones (any kernel up to
+    ``HEAD_DIMS[-1]``, the bfloat16 ones up to ``WIDE_HEAD_DIMS[-1]`` on
+    the tensor cores), else ``d`` itself (the sliced kernels)."""
+    if d > HEAD_DIMS[-1] and dtype == torch.bfloat16:
         return wide_head_dim(d) or d
     return padded_head_dim(d)
 
 
-def _g_dtype(q, dq=False):
-    """The dtype a backward kernel takes ``g_out`` in: the inputs' where it
-    runs on the tensor cores (its products take bfloat16 tiles), float32
-    on the sliced kernels (float32 arithmetic in both types)."""
-    return q.dtype if rounds_at(q.shape[-1], dq) else torch.float32
+def _g_dtype(q):
+    """The dtype the backward kernels take ``g_out`` in: the inputs' where
+    they run on the tensor cores (their products take bfloat16 tiles),
+    float32 on the sliced kernels (float32 arithmetic in both types)."""
+    return q.dtype if rounds_at(q.shape[-1]) else torch.float32
 
 
 def _pad_head_dim(t, dim):
@@ -378,10 +386,9 @@ def _bwd_cuda(kernel, out_rows, q, k, v, g_out, lse, delta, g_lse, q_offset,
     of ``out_rows``, computed at the kernel's head dim and sliced back."""
     _check_cuda(q, k, v)
     d = q.shape[-1]
-    dq = kernel is DQ_KERNEL
-    dim = _kernel_head_dim(d, q.dtype, dq)
+    dim = _kernel_head_dim(d, q.dtype)
     ins = [_pad_head_dim(t, dim) for t in (q, k, v)]
-    ins += [_pad_head_dim(g_out.to(_g_dtype(q, dq)), dim)]
+    ins += [_pad_head_dim(g_out.to(_g_dtype(q)), dim)]
     ins += [t.float().contiguous() for t in (lse, delta, g_lse)]
     outs = [torch.empty((q.shape[0], rows, dim), dtype=torch.float32, device=q.device)
             for rows in out_rows]
@@ -410,13 +417,11 @@ def flash_backward_cuda(q, k, v, out, lse, g_out, g_lse, q_offset, k_offset,
                         kv_len, causal, scale):
     """K3 then K4 on the card; same contract as
     :func:`flash_backward_plain`."""
-    # Δ from the float32 cotangent; one cast of g_out serves both launches
-    # where both take it in one dtype (above HEAD_DIMS[-1] the sliced K3
-    # takes float32, the tensor-core K4 bfloat16)
-    g_dkv = g_out.to(_g_dtype(q))
-    g_dq = g_dkv if _g_dtype(q, dq=True) == g_dkv.dtype else g_out.to(torch.float32)
+    # Δ from the float32 cotangent; one cast of g_out serves both launches,
+    # which take it in one dtype at every head dim
+    g = g_out.to(_g_dtype(q))
     rest = (lse, flash_delta(out, g_out), g_lse, q_offset, k_offset, kv_len, causal, scale)
-    return (flash_dq_cuda(q, k, v, g_dq, *rest), *flash_dkv_cuda(q, k, v, g_dkv, *rest))
+    return (flash_dq_cuda(q, k, v, g, *rest), *flash_dkv_cuda(q, k, v, g, *rest))
 
 
 def _dispatch(t, cuda_fn, plain_fn):

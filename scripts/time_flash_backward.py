@@ -10,14 +10,18 @@ versions of the package can be compared inside one run on one card:
     python3 scripts/time_flash_backward.py --root _checkout/parent --root . \\
         --root . --root _checkout/parent
 
-Shapes: the sequence path's (B 16, H 4, T 4096, d 32, bfloat16, not causal),
-B 1, H 8, T 8192, d 128, bfloat16, causal, and head dim 256 (Gemma's) at
-B 8, H 4, T 4096, bfloat16, not causal.  The inputs are random from
-a seed; ``g_out`` is float32, as the model hands it to the kernels.  Times
-are CUDA events around 20 launches after 3 warm-up launches.  Beside them,
+Shapes (``--shape``, repeatable; by default the first three): the sequence
+path's (B 16, H 4, T 4096, d 32, bfloat16, not causal), B 1, H 8, T 8192,
+d 128, bfloat16, causal, head dim 256 (Gemma's) at B 8, H 4, T 4096,
+bfloat16, not causal, and head dim 384 at the same B, H and T (``d384``,
+on the sliced kernels).  The inputs are random from a seed; ``g_out`` is
+float32, as the model hands it to the kernels.  Times are CUDA events
+around 20 launches after 3 warm-up launches.  Beside them,
 ``scaled_dot_product_attention``'s forward and its backward (dq, dk and dv
-together) on the same inputs.  One JSON object per root and shape goes to
-standard output, then the card's name and power limit.  Imports torch only.
+together) on the same inputs, and the names of the CUDA kernels one
+forward and backward of it launched (``torch.profiler``), which say the
+backend that ran.  One JSON object per root and shape goes to standard
+output, then the card's name and power limit.  Imports torch only.
 """
 import argparse
 import importlib
@@ -30,7 +34,9 @@ SHAPES = [  # (name, B, H, T, d, causal)
     ("main", 16, 4, 4096, 32, False),
     ("tpu", 1, 8, 8192, 128, True),
     ("d256", 8, 4, 4096, 256, False),
+    ("d384", 8, 4, 4096, 384, False),
 ]
+DEFAULT_SHAPES = ("main", "tpu", "d256")
 
 
 def cuda_ms(fn, iters=20, warmup=3):
@@ -48,8 +54,24 @@ def cuda_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def worker(root):
-    """Time the package under ``root`` (this process imports it once)."""
+def library_kernels(fn):
+    """Names of the CUDA kernels one call of ``fn`` launched, the longest
+    first (``torch.profiler``; empty where it sees no device activity)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+    events.sort(key=lambda e: -getattr(e, "device_time_total", 0.0))
+    return [e.key[:120] for e in events[:6]]
+
+
+def worker(root, shapes):
+    """Time the package under ``root`` (this process imports it once) at
+    the named shapes."""
     import torch
     import torch.nn.functional as F
 
@@ -57,6 +79,8 @@ def worker(root):
     fa = importlib.import_module("coinstac_dinunet_tpu_torch.ops.flash_attention")
     dev = torch.device("cuda", 0)
     for name, b, h, t, d, causal in SHAPES:
+        if name not in shapes:
+            continue
         gen = torch.Generator(device=dev).manual_seed(0)
         bh = b * h
         q, k, v = [torch.randn((bh, t, d), generator=gen, device=dev).to(torch.bfloat16)
@@ -74,20 +98,28 @@ def worker(root):
         gl = g_out.reshape(b, h, t, d).to(q.dtype)
         lib_ms = cuda_ms(lambda: torch.autograd.grad(lib_out, (ql, kl, vl), gl,
                                                      retain_graph=True))
+        lib_names = library_kernels(lambda: torch.autograd.grad(
+            F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal), (ql, kl, vl), gl))
         print(json.dumps({"root": root, "shape": name, "fwd_ms": fwd_ms, "dq_ms": dq_ms,
                           "dkv_ms": dkv_ms, "library_forward_ms": lib_fwd_ms,
-                          "library_backward_ms": lib_ms,
+                          "library_backward_ms": lib_ms, "library_kernels": lib_names,
                           "device": torch.cuda.get_device_name(0)}), flush=True)
+        del q, k, v, out, lse, g_out, args, ql, kl, vl, gl, lib_out
+        torch.cuda.empty_cache()
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", action="append", default=[],
                     help="a directory holding coinstac_dinunet_tpu_torch (repeatable)")
+    ap.add_argument("--shape", action="append", choices=[s[0] for s in SHAPES],
+                    help="a shape to time (repeatable; default: "
+                         + ", ".join(DEFAULT_SHAPES) + ")")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     ns = ap.parse_args()
+    shapes = ns.shape or list(DEFAULT_SHAPES)
     if ns.worker:
-        worker(ns.worker)
+        worker(ns.worker, shapes)
         return 0
     import torch
 
@@ -95,7 +127,8 @@ def main():
         print("time_flash_backward: no CUDA device is available", file=sys.stderr)
         return 2
     for root in ns.root or ["."]:
-        subprocess.run([sys.executable, os.path.abspath(__file__), "--worker", root], check=True)
+        subprocess.run([sys.executable, os.path.abspath(__file__), "--worker", root,
+                        *(f"--shape={s}" for s in shapes)], check=True)
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip())

@@ -13,16 +13,16 @@ itself.  The kernels are held against the plain versions on the card by
 XLA path and 1e-4 of the interpreted Pallas kernel, gradients within 2e-4
 + 1e-3·|g| (``tests/test_torch_attention.py``'s bounds).
 
-Above 128, bfloat16 K2 and K4 run on the tensor cores at the head dim
+Above 128, bfloat16 K2, K3 and K4 run on the tensor cores at the head dim
 zero-padded to 192, 256 or 320 (``wide_head_dim``), with the roundings of
 the kernels below it (``p`` and ``ds`` in bfloat16, the forward's online
-softmax over key tiles of 64); K3, float32 inputs and bfloat16 head dims
-above 320 run on the sliced kernels at the head dim itself, in float32.
-So the rounding-matched plain forward and dk/dv round there (held to the
+softmax over key tiles of 64); float32 inputs and bfloat16 head dims above
+320 run on the sliced kernels at the head dim itself, in float32.  So the
+rounding-matched plain forward, dq and dk/dv round up to 320 (held to the
 JAX package's bfloat16 attention within 2e-2·max, the format's error, as
-below 128), the rounding-matched dq does not, and the unrounded plain
-versions equal JAX within the bounds above, over the offset, ``kv_len``
-and causal masks and a T that is no tile multiple.
+below 128) and not above it, and the unrounded plain versions equal JAX
+within the bounds above, over the offset, ``kv_len`` and causal masks and a
+T that is no tile multiple.
 """
 import importlib
 
@@ -172,49 +172,56 @@ def test_wide_plain_backward_matches_jax(d, mask):
         np.testing.assert_allclose(g.numpy(), w, **GRAD_TOL)
 
 
-@pytest.mark.parametrize("d", WIDE_HEAD_DIMS)
+@pytest.mark.parametrize("d", (*WIDE_HEAD_DIMS, 384))
 def test_wide_plain_versions_ignore_round_dtype(d):
-    """K3 above 128 runs on the sliced kernel, which rounds nothing to
-    bfloat16 (no tensor core takes a bfloat16 operand there), so its
-    rounding-matched plain version is the float32 one, bit for bit, also
-    when dq and dk/dv come from one call; the forward and dk/dv, on the
-    tensor cores up to 320, follow ``round_dtype``."""
+    """Up to 320 K2, K3 and K4 run on the tensor cores, so every plain
+    version follows ``round_dtype`` and differs from the float32 one; one
+    call for dq and dk/dv gives what two calls give.  Above 320 the sliced
+    kernels round nothing to bfloat16 (no tensor core takes a bfloat16
+    operand there), so all three rounding-matched plain versions are the
+    float32 ones, bit for bit."""
     arrays = _qkv(200 + d, d, t=100)
     q, k, v = (torch.from_numpy(a).reshape(2, 100, d).to(torch.bfloat16) for a in arrays)
     pos = (0, 0, 100, True, d ** -0.5)
+    rounds = d <= fa.WIDE_HEAD_DIMS[-1]
+    assert fa.rounds_at(d, dq=True) == fa.rounds_at(d) == rounds
     exact = fa.flash_forward_plain(q, k, v, *pos)
     matched = fa.flash_forward_plain(q, k, v, *pos, round_dtype=torch.bfloat16)
-    assert not torch.equal(exact[0], matched[0])
+    assert torch.equal(exact[0], matched[0]) != rounds
     g_out = torch.from_numpy(_qkv(300 + d, d, t=100)[0]).reshape(2, 100, d)
     args = (q, k, v, g_out, exact[1], fa.flash_delta(exact[0], g_out),
             torch.zeros(2, 100), *pos)
-    dq = fa.flash_dq_plain(*args)
-    assert torch.equal(dq, fa.flash_dq_plain(*args, round_dtype=torch.bfloat16))
+    dq = fa.flash_dq_plain(*args, round_dtype=torch.bfloat16)
+    assert torch.equal(dq, fa.flash_dq_plain(*args)) != rounds
     both = fa._backward_plain(*args, round_dtype=torch.bfloat16)
     assert torch.equal(both[0], dq)
     dkv = fa.flash_dkv_plain(*args, round_dtype=torch.bfloat16)
     assert all(torch.equal(a, b) for a, b in zip(both[1:], dkv))
-    assert not any(torch.equal(a, b) for a, b in zip(dkv, fa.flash_dkv_plain(*args)))
+    exact_dkv = fa.flash_dkv_plain(*args)
+    assert all(torch.equal(a, b) != rounds for a, b in zip(dkv, exact_dkv))
 
 
 def test_wide_head_dim_maps_bf16_k2_k4_to_the_tensor_core_dims():
-    """bfloat16 K2 and K4 from 129 to 320 run at the next of 192, 256 and
-    320; K3, float32 inputs and head dims above 320 at the head dim itself
+    """bfloat16 K2, K3 and K4 from 129 to 320 run at the next of 192, 256
+    and 320 (one head dim for all three: ``_kernel_head_dim`` serves every
+    launch); float32 inputs and head dims above 320 at the head dim itself
     (the sliced kernels); up to 128 every kernel at ``padded_head_dim``."""
     for d in range(129, 321):
         dim = fa.wide_head_dim(d)
         assert dim in fa.WIDE_HEAD_DIMS and dim >= d and dim - d < 64
         assert fa._kernel_head_dim(d, torch.bfloat16) == dim
-        assert fa._kernel_head_dim(d, torch.bfloat16, dq=True) == d
         assert fa._kernel_head_dim(d, torch.float32) == d
+        assert fa.rounds_at(d, dq=True)
     for d in (321, 384, 1000):
         assert fa.wide_head_dim(d) is None
         assert fa._kernel_head_dim(d, torch.bfloat16) == d
     for d in (1, 24, 100, 128):
         assert fa.wide_head_dim(d) is None
         assert fa._kernel_head_dim(d, torch.bfloat16) == fa.padded_head_dim(d)
-    assert fa.rounds_at(320) and not fa.rounds_at(321) and not fa.rounds_at(129, dq=True)
+    assert fa.rounds_at(320) and not fa.rounds_at(321)
+    assert fa.rounds_at(320, dq=True) and not fa.rounds_at(321, dq=True)
     assert [fa.fwd_key_tile(d) for d in (128, 129, 320)] == [128, 64, 64]
+    assert [fa.dq_key_tile(d) for d in (128, 192, 193, 320)] == [64, 64, 32, 32]
 
 
 def _online_tiles(q, k, v, pos, n, round_dtype):
@@ -315,3 +322,32 @@ def test_wide_rounding_matched_dkv_matches_jax_in_bf16(d, mask):
     for got, w in zip(fa.flash_dkv_plain(*args, round_dtype=torch.bfloat16), want):
         w = np.asarray(w.astype(jnp.float32)).reshape(b * h, t, d)
         assert np.abs(got.numpy() - w).max() <= BF16_FORMAT_RTOL * np.abs(w).max()
+
+
+@pytest.mark.parametrize("mask", WIDE_MASKS)
+@pytest.mark.parametrize("d", WIDE_HEAD_DIMS)
+def test_wide_rounding_matched_dq_matches_jax_in_bf16(d, mask):
+    """The rounding-matched plain K3 above 128 (``g_out`` and ``ds`` in
+    bfloat16, as the tensor-core K3 rounds them) against the JAX package's
+    dq (``jax.vjp`` of its XLA path on the same bfloat16 inputs and
+    cotangents), within BF16_FORMAT_RTOL·max."""
+    q_offset, k_offset, kv_len, causal = mask
+    bf, jx = _bf16_jax_inputs(800 + d, d)
+    b, h, t, _ = bf[0].shape
+    rng = np.random.default_rng(900 + d)
+    g_out = np.array(jnp.asarray(rng.normal(size=(b, h, t, d)), jnp.bfloat16)
+                     .astype(jnp.float32))
+    g_lse = rng.normal(size=(b, h, t)).astype(np.float32)
+    pos = dict(q_offset=q_offset, k_offset=k_offset, kv_len=kv_len, causal=causal)
+    _, vjp = jax.vjp(lambda a, c, e: jax_flash(a, c, e, impl="xla", return_lse=True, **pos),
+                     *jx)
+    want = np.asarray(vjp((jnp.asarray(g_out, jnp.bfloat16), jnp.asarray(g_lse)))[0]
+                      .astype(jnp.float32)).reshape(b * h, t, d)
+    q, k, v = (torch.from_numpy(a).reshape(b * h, t, d).to(torch.bfloat16) for a in bf)
+    ppos = (q_offset, k_offset, t if kv_len is None else kv_len, causal, d ** -0.5)
+    out, lse = fa.flash_forward_plain(q, k, v, *ppos)
+    g = torch.from_numpy(g_out).reshape(b * h, t, d)
+    args = (q, k, v, g, lse, fa.flash_delta(out, g), torch.from_numpy(g_lse).reshape(b * h, t),
+            *ppos)
+    got = fa.flash_dq_plain(*args, round_dtype=torch.bfloat16)
+    assert np.abs(got.numpy() - want).max() <= BF16_FORMAT_RTOL * np.abs(want).max()

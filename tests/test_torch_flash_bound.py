@@ -78,8 +78,8 @@ def test_near_boundary_flags_values_by_their_distance_to_a_rounding_midpoint():
 
 @pytest.mark.parametrize("d", HEAD_DIMS)
 def test_float32_rounding_matched_plain_versions_keep_to_the_bound(d):
-    """The float32 rounding-matched plain K2, K4 (and K3 up to 128, where
-    it rounds) lie within the bound of the float64 reference."""
+    """The float32 rounding-matched plain K2, K3 and K4 (up to 320, where
+    they round) lie within the bound of the float64 reference."""
     qkv, pos, args = _inputs(d, d)
     want, bound = fa.rounding_bound_forward(*qkv, *pos)
     got = fa.flash_forward_plain(*qkv, *pos, round_dtype=torch.bfloat16)[0]
@@ -95,10 +95,10 @@ def test_float32_rounding_matched_plain_versions_keep_to_the_bound(d):
 
 @pytest.mark.parametrize("d", HEAD_DIMS)
 def test_planted_faults_cross_the_bound(d):
-    """One key tile dropped (K2, K3: ``kv_len`` one tile short; K4: the lse
-    of the first query tile padded, so its ``p`` is 0) and the rounding in
-    float16 instead of bfloat16: every output crosses its bound (K3 where
-    it rounds, up to 128)."""
+    """One key tile dropped (K2, K3: ``kv_len`` one tile of the kernel's
+    short; K4: the lse of the first query tile padded, so its ``p`` is 0)
+    and the rounding in float16 instead of bfloat16: every output crosses
+    its bound (K3 where it rounds, up to 320)."""
     qkv, pos, args = _inputs(50 + d, d)
     q_offset, k_offset, kv_len, causal, scale = pos
     want, bound = fa.rounding_bound_forward(*qkv, *pos)
@@ -116,8 +116,8 @@ def test_planted_faults_cross_the_bound(d):
         assert fa.bound_excess(x, w, b, RTOL, ATOL) > 1 and fa.bound_excess(y, w, b, RTOL, ATOL) > 1
     if fa.rounds_at(d, dq=True):
         (w,), (b,) = fa.rounding_bound_backward(*args, dq=True)
-        dropped = fa.flash_dq_plain(*args[:7], q_offset, k_offset, kv_len - 64, causal, scale,
-                                    round_dtype=torch.bfloat16)
+        dropped = fa.flash_dq_plain(*args[:7], q_offset, k_offset, kv_len - fa.dq_key_tile(d),
+                                    causal, scale, round_dtype=torch.bfloat16)
         f16 = fa.rounding_bound_backward(*args, dq=True, round_dtype=torch.float16)[0][0]
         assert fa.bound_excess(dropped, w, b, RTOL, ATOL) > 1 and fa.bound_excess(f16, w, b, RTOL, ATOL) > 1
 
