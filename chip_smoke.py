@@ -26,14 +26,18 @@ Phases, in order; any failure exits non-zero before the last line:
    K3 and K4 run on the tensor cores
    (``csrc/flash_attention_wide_wgmma.cuh``, zero-padded to 192, 256 or
    320) and the float32 ones unpadded on the sliced kernels
-   (``csrc/flash_attention_wide.cuh``), within stated tolerances
-   (the bfloat16 tensor-core forward, dq and dk/dv against the plain
-   version with the kernels' bfloat16 roundings and against the float32
-   one, with ``scaled_dot_product_attention``'s forward and backward as the
-   witnesses of the format's error; at d 256 and at d 24, T 4096, against
-   the derived bound of ``ops/flash_attention.py`` instead of a fixed ratio,
-   which two planted faults must cross), with bit-identical results from
-   two launches of each;
+   (``csrc/flash_attention_wide.cuh``), and at head dims 384 (both types),
+   512 and 576 (bfloat16; d 384 also at B 8, H 4, T 4096, timed), where the
+   bfloat16 K2 and K4 run on the tensor cores up to 512 (padded to 384 or
+   512) and K3 above 320 and all three above 512 on the sliced kernels,
+   which round as the TPU does; within stated tolerances
+   (the bfloat16 forward, dq and dk/dv against the plain version with the
+   kernels' bfloat16 roundings and against the float32 one, with
+   ``scaled_dot_product_attention``'s forward and backward as the
+   witnesses of the format's error; at d 256, d 384 and d 24, T 4096,
+   against the derived bound of ``ops/flash_attention.py`` instead of a
+   fixed ratio, which two planted faults must cross), with bit-identical
+   results from two launches of each;
 4. reference — the VBM model's and the sequence model's logits on the card
    against the CPU on a small input (float32, TF32 off), within 1e-4; the
    compression math (``orthogonalize``, ``power_iteration_BC`` with the
@@ -658,7 +662,8 @@ _FLASH_PADDED_EDGES = [
 # types.  In bfloat16, K2, K3 and K4 run on the tensor-core kernels of
 # csrc/flash_attention_wide_wgmma.cuh (d zero-padded to 192, 256 or 320)
 # and are held to the rounding-matched plain version; in float32 they run
-# unpadded on the sliced kernels.
+# unpadded on the sliced kernels.  (Above 320: the d 384, 512 and 576 cases
+# below.)
 _FLASH_WIDE_EDGES = [
     ("t160_d160", 1, 2, 160, 160, False, 0, 0, None, True),
     ("offsets_d160", 1, 2, 333, 160, True, 100, 37, 300, True),
@@ -698,9 +703,16 @@ FLASH_CASES = [
     ("d256_long_f32", 8, 4, 4096, 256, "float32", False, 0, 0, None, False),
     # the padded head dim 24 in bfloat16 at T 4096, under the derived bound
     ("d24_long", 8, 4, 4096, 24, "bfloat16", False, 0, 0, None, False),
-    # above 320 every kernel runs on the sliced ones, in both types
+    # d 384 in both types (bf16: K2 and K4 on the tensor cores, K3 on the
+    # sliced kernel, which rounds ds as they do), 512 in bf16 (the same) and
+    # 576 in bf16 (every kernel sliced, rounding as the TPU does)
     ("offsets_d384", 1, 2, 333, 384, "float32", True, 100, 37, 300, True),
     ("offsets_d384_bf16", 1, 2, 333, 384, "bfloat16", True, 100, 37, 300, True),
+    ("offsets_d512_bf16", 1, 2, 333, 512, "bfloat16", True, 100, 37, 300, True),
+    ("offsets_d576_bf16", 1, 2, 333, 576, "bfloat16", True, 100, 37, 300, True),
+    # head dim 384 at the sequence model's T, timed, all three under the
+    # derived bound
+    ("d384_long", 8, 4, 4096, 384, "bfloat16", False, 0, 0, None, False),
 ]
 # Tolerance of a kernel's output against its plain version: 1e-4 of the
 # plain output's largest magnitude, plus 1e-6.  Both compute in float32 from
@@ -738,7 +750,8 @@ FLASH_LONG_T = 1024  # from here on a case counts as long
 # padded, so its p is 0) and the rounding in float16 instead of bfloat16
 # (the float64 function with p and ds in float16).  The kernels each case
 # holds so: (case, kernels).
-FLASH_DERIVED = {"d256_long": ("fwd", "dq", "dkv"), "d24_long": ("fwd", "dq", "dkv")}
+FLASH_DERIVED = {"d256_long": ("fwd", "dq", "dkv"), "d24_long": ("fwd", "dq", "dkv"),
+                 "d384_long": ("fwd", "dq", "dkv")}
 # Against the float32 plain version the difference is the format's: 2^-9
 # relative on each of p (K2) or g_out, p and ds (K3, K4).
 # scaled_dot_product_attention's forward and backward on the same inputs
@@ -748,16 +761,26 @@ FLASH_DERIVED = {"d256_long": ("fwd", "dq", "dkv"), "d24_long": ("fwd", "dq", "d
 # must give the same bits (no atomics).
 FLASH_BF16_RTOL = 2e-2
 FLASH_BF16_LIBRARY_FACTOR = 2.0
-FLASH_LIBRARY_CASES = ("main", "tpu", "d256_long")
+FLASH_LIBRARY_CASES = ("main", "tpu", "d256_long", "d384_long")
 # the cases whose kernel, plain-version, bound and library times are taken
 FLASH_D16_TIMED = ("seq_example", "seq_example_f32", "d16_long")
 FLASH_PADDED_TIMED = ("d4_long", "d8_long", "d24_long_f32")
 FLASH_WIDE_TIMED = ("d256_long", "d256_long_f32")
+FLASH_D384_TIMED = ("d384_long",)
 FLASH_TIMED = ("main", "tpu", "vectorized", *FLASH_D16_TIMED, *FLASH_PADDED_TIMED,
-               *FLASH_WIDE_TIMED)
+               *FLASH_WIDE_TIMED, *FLASH_D384_TIMED)
 # K2, K3 and K4 on bfloat16 inputs above head dim 128 (the kernels line's
-# "wide_bf16" entries)
+# "wide_bf16" entries at d256_long, "d384_bf16" at d384_long: the
+# instances that run there)
 FLASH_WIDE_SOURCE = "coinstac_dinunet_tpu_torch/csrc/flash_attention_wide_wgmma.cuh"
+FLASH_SLICED_SOURCE = "coinstac_dinunet_tpu_torch/csrc/flash_attention_wide.cuh"
+FLASH_D384_INSTANCES = {
+    "flash_attention_fwd": (FLASH_WIDE_SOURCE,
+                            ["flash_fwd_wide_kernel<384>", "flash_fwd_wide_kernel<512>"]),
+    "flash_attention_dq": (FLASH_SLICED_SOURCE, ["wide::dq_kernel<__nv_bfloat16>"]),
+    "flash_attention_dkv": (FLASH_WIDE_SOURCE,
+                            ["flash_dkv_split_kernel<384>", "flash_dkv_split_kernel<512>"]),
+}
 FLASH_SOURCES = {
     "flash_attention_fwd": ("coinstac_dinunet_tpu_torch/csrc/flash_attention_fwd.cu",
                             "coinstac_dinunet_tpu/ops/flash_attention.py:79"),
@@ -1077,7 +1100,8 @@ def check_flash(dev, report):
     for row in rows:
         for group, cases in (("times_d16", FLASH_D16_TIMED),
                              ("times_padded_d", FLASH_PADDED_TIMED),
-                             ("times_d256", FLASH_WIDE_TIMED)):
+                             ("times_d256", FLASH_WIDE_TIMED),
+                             ("times_d384", FLASH_D384_TIMED)):
             if row["case"] in cases:
                 for name, kern in kernels.items():
                     kern.setdefault(group, {})[row["case"]] = row["times"][name]
@@ -1093,17 +1117,29 @@ def check_flash(dev, report):
              "flash_attention_dkv": ("dk", "dv")}
     for name in wide_errs:
         times = wide["times"][name]
+        dims = fa.WIDE_DQ_HEAD_DIMS if name == "flash_attention_dq" else fa.WIDE_HEAD_DIMS
         kernels[name]["wide_bf16"] = {
             "source": FLASH_WIDE_SOURCE, "replaces": FLASH_SOURCES[name][1],
-            "head_dims": f"{fa.HEAD_DIMS[-1] + 1}-{fa.WIDE_HEAD_DIMS[-1]}, zero-padded to "
-                         + ", ".join(map(str, fa.WIDE_HEAD_DIMS)),
+            "head_dims": f"{fa.HEAD_DIMS[-1] + 1}-{dims[-1]}, zero-padded to "
+                         + ", ".join(map(str, dims)),
             "max_abs_err": wide_errs[name], "timed_at": "d256_long", **times,
             "derived_bound": {n: wide["derived_bound"][n] for n in parts[name]}}
-        log(f"  {name} bfloat16 d256_long: {times['ms']:.4f} ms, "
-            f"{times['bound_ms'] / times['ms']:.1%} of its bound {times['bound_ms']:.4f} ms, "
-            f"{times['ms'] / times['library_ms']:.2f} x the library's "
-            + ("forward" if name.endswith("fwd") else "whole backward")
-            + f" {times['library_ms']:.4f} ms")
+    # at d384_long: the D 384 / 512 instances of K2 and K4, the sliced K3
+    d384 = next(row for row in rows if row["case"] == "d384_long")
+    for name, (source, instances) in FLASH_D384_INSTANCES.items():
+        kernels[name]["d384_bf16"] = {
+            "source": source, "instances": instances, "replaces": FLASH_SOURCES[name][1],
+            "max_abs_err": d384["max_abs_err"][name.split("_")[-1]], "timed_at": "d384_long",
+            **d384["times"][name],
+            "derived_bound": {n: d384["derived_bound"][n] for n in parts[name]}}
+    for name in FLASH_SOURCES:
+        for key in ("wide_bf16", "d384_bf16"):
+            times = kernels[name][key]
+            log(f"  {name} bfloat16 {times['timed_at']}: {times['ms']:.4f} ms, "
+                f"{times['bound_ms'] / times['ms']:.1%} of its bound {times['bound_ms']:.4f} ms, "
+                f"{times['ms'] / times['library_ms']:.2f} x the library's "
+                + ("forward" if name.endswith("fwd") else "whole backward")
+                + f" {times['library_ms']:.4f} ms")
     return [kernels[name] for name in FLASH_SOURCES]
 
 

@@ -31,13 +31,14 @@
 //    arithmetic: both products of a step run on the CUDA cores from float32
 //    tiles in shared memory, as in the forward (flash_attention.cuh), and
 //    agree with the plain version to the last bits.
-//  - above head dim 128: K3 and K4 on bfloat16 q, k, v at the padded head
-//    dims 192, 256 and 320 on the tensor-core kernels of
-//    flash_attention_wide_wgmma.cuh (g_out in bfloat16; K3 at d = 256,
+//  - above head dim 128: K3 on bfloat16 q, k, v at the padded head dims
+//    192, 256 and 320 and K4 at 192, 256, 320, 384 and 512 on the
+//    tensor-core kernels of flash_attention_wide_wgmma.cuh (K3 at d = 256,
 //    B 8, H 4, T 4096 bound by its products at 0.834 ms); both on float32
-//    inputs, and on bfloat16 above 320, on the sliced kernels of
-//    flash_attention_wide.cuh (one block per output slice of 128 columns,
-//    g_out in float32).
+//    inputs, and on bfloat16 where those stop, on the sliced kernels of
+//    flash_attention_wide.cuh (one block per output slice of 128 columns;
+//    on bfloat16 inputs they round g_out, p and ds to bfloat16 as well).
+//    g_out arrives in the inputs' type everywhere.
 //
 // Bound on an H100.  K3 does 6·Tq·Tk·D product operations per bh and K4
 // 8·Tq·Tk·D (half under the causal mask), and each one exp per valid pair,
@@ -280,6 +281,9 @@ int run(int d, int is_bf16, const Args& a) {
       case 192: return kDq ? wide_wgmma::launch_dq<192>(a) : wide_wgmma::launch_dkv<192>(a);
       case 256: return kDq ? wide_wgmma::launch_dq<256>(a) : wide_wgmma::launch_dkv<256>(a);
       case 320: return kDq ? wide_wgmma::launch_dq<320>(a) : wide_wgmma::launch_dkv<320>(a);
+      // K3 above 320: the sliced kernel below
+      case 384: if (!kDq) return wide_wgmma::launch_dkv<384>(a); break;
+      case 512: if (!kDq) return wide_wgmma::launch_dkv<512>(a); break;
       default: break;
     }
   }
@@ -299,11 +303,11 @@ int run(int d, int is_bf16, const Args& a) {
 
 // Plain C interfaces, loaded with ctypes.  q (bh, tq, d), k and v (bh, tk, d)
 // and g_out (bh, tq, d) in float32 (is_bf16 = 0) or bfloat16 (is_bf16 = 1);
-// above d = 128 g_out is bfloat16 for the bfloat16 K3 and K4 at d = 192,
-// 256 and 320 (the tensor-core kernels of flash_attention_wide_wgmma.cuh,
-// replacing _dq_kernel and _dkv_kernel there; the wrapper pads 129-320 to
-// these) and float32 for every sliced kernel of flash_attention_wide.cuh
-// (float32 inputs, and bfloat16 inputs at any other d);
+// above d = 128 the bfloat16 K3 at d = 192, 256 and 320 and K4 at d = 192,
+// 256, 320, 384 and 512 run on the tensor-core kernels of
+// flash_attention_wide_wgmma.cuh (replacing _dq_kernel and _dkv_kernel
+// there; the wrapper pads 129-320 and 129-512 to these), every other d
+// above 128 on the sliced kernels of flash_attention_wide.cuh;
 // lse, delta and g_lse (bh, tq) float32; dq (bh, tq, d), dk and dv
 // (bh, tk, d) float32.  d is 16, 32, 64, 128 or any d above 128.  Each launches on `stream` and
 // returns cudaGetLastError() (0 = launched), or cudaErrorInvalidValue when

@@ -35,11 +35,11 @@
 //    cores' 67 TFLOP/s.  Shared memory: Q, K, V tiles (64 x (D + 1) floats
 //    each) and P (64 x 65): 42 KB at D = 32, 116 KB at D = 128, so the
 //    launch raises the block's dynamic shared memory limit.
-//  - above head dim 128: bfloat16 q, k, v at the padded head dims 192, 256
-//    and 320 on the tensor-core kernel of flash_attention_wide_wgmma.cuh;
-//    float32 inputs, and bfloat16 above 320, on the sliced kernels of
-//    flash_attention_wide.cuh (an lse kernel, then one block per output
-//    slice of 128 columns).
+//  - above head dim 128: bfloat16 q, k, v at the padded head dims 192, 256,
+//    320, 384 and 512 on the tensor-core kernel of
+//    flash_attention_wide_wgmma.cuh; float32 inputs, and bfloat16 above
+//    512, on the sliced kernels of flash_attention_wide.cuh (an lse kernel,
+//    then one block per output slice of 128 columns).
 #include "flash_attention.cuh"
 #include "flash_attention_fwd_wgmma.cuh"
 #include "flash_attention_wide.cuh"
@@ -162,9 +162,10 @@ int run(int is_bf16, const FwdArgs& a) {
 // Plain C interface, loaded with ctypes.  q (bh, tq, d), k and v (bh, tk, d)
 // in float32 (is_bf16 = 0) or bfloat16 (is_bf16 = 1); out (bh, tq, d) and
 // lse (bh, tq) float32.  d is 16, 32, 64, 128 or any d above 128: bfloat16
-// at d = 192, 256 and 320 on the tensor cores (flash_attention_wide_wgmma.cuh,
-// the wrapper pads 129-320 to these), any other d above 128 on the sliced
-// kernels of flash_attention_wide.cuh; tk > 0.  Launches on `stream` and
+// at d = 192, 256, 320, 384 and 512 on the tensor cores
+// (flash_attention_wide_wgmma.cuh, the wrapper pads 129-512 to these), any
+// other d above 128 on the sliced kernels of flash_attention_wide.cuh;
+// tk > 0.  Launches on `stream` and
 // returns cudaGetLastError() (0 = launched).
 extern "C" int coinn_flash_fwd(const void* q, const void* k, const void* v,
                                void* out, void* lse, int bh, int tq, int tk,
@@ -179,6 +180,8 @@ extern "C" int coinn_flash_fwd(const void* q, const void* k, const void* v,
       case 192: return coinn_flash::wide_wgmma::launch_fwd<192>(a);
       case 256: return coinn_flash::wide_wgmma::launch_fwd<256>(a);
       case 320: return coinn_flash::wide_wgmma::launch_fwd<320>(a);
+      case 384: return coinn_flash::wide_wgmma::launch_fwd<384>(a);
+      case 512: return coinn_flash::wide_wgmma::launch_fwd<512>(a);
       default: break;
     }
   }

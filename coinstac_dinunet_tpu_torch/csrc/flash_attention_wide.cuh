@@ -6,10 +6,10 @@
 // flash_attention_fwd.cu, flash_attention_bwd.cu and the wgmma headers keep
 // a whole (rows, d) tile per operand in shared memory and a whole output row
 // in registers, which stops at d = 128; flash_attention_wide_wgmma.cuh
-// takes bfloat16 K2, K3 and K4 from 129 to 320 onto the tensor cores.
-// These kernels take the rest, at any d above 128, with the same masks and
-// outputs: K2, K3 and K4 on float32 inputs, and on bfloat16 inputs above
-// 320.
+// takes bfloat16 K2 and K4 from 129 to 512, and K3 to 320, onto the tensor
+// cores.  These kernels take the rest, at any d above 128, with the same
+// masks and outputs: K2, K3 and K4 on float32 inputs, and on bfloat16
+// inputs K3 above 320 and all three above 512.
 //  - the head dim goes in slices of kS = 128 columns (the last one
 //    zero-filled past d), so shared memory holds a few (64, 128) slices
 //    and never a whole row, whatever d is;
@@ -22,15 +22,20 @@
 //  - the slices are visited so that the block's own output slice is loaded
 //    last: after the score loop, the shared tile the product needs is
 //    already there.
-// Arithmetic: CUDA cores and float32 throughout, in both input types, as
-// the float32 kernels of flash_attention.cuh (the 64 x 64 score tiles, the
-// thread layout and q scaled on load are theirs): bfloat16 inputs are
-// widened on load, g_out arrives in float32, and nothing is rounded to
-// bfloat16 on the way.  So the float32 plain version in
-// ops/flash_attention.py states these kernels' function in both types (its
-// round_dtype is ignored wherever they run, ops/flash_attention.py
-// rounds_at): bfloat16 inputs above 320 are not rounded as the TPU's matrix
-// unit rounds them.
+// Arithmetic: CUDA cores and float32 sums, as the float32 kernels of
+// flash_attention.cuh (the 64 x 64 score tiles, the thread layout and q
+// scaled on load are theirs); g_out arrives in the inputs' type.  On
+// bfloat16 inputs the second products take the operands the TPU's matrix
+// unit takes: p (K2, K4) and ds (K3, K4) rounded to bfloat16 (round_to),
+// and K2's p taken against the running max of its key tiles, not the
+// final lse: an online softmax over the 64-key tiles (m_j = max(m_{j-1},
+// the tile's max), acc = acc·exp(m_{j-1} − m_j) + bf16(exp(s − m_j))·v, at
+// the end out = acc·exp(m_last − lse)), as _flash_kernel rounds it; the lse
+// kernel keeps its float32 sums, as the TPU's l does.  So the
+// rounding-matched plain versions of ops/flash_attention.py (round_dtype)
+// state these kernels' function on bfloat16 inputs, over key tiles of 64
+// (SLICED_KEY_TILE), and the float32 ones on float32 inputs, which no
+// rounding touches.
 //
 // Bound on an H100: the same products as at d <= 128 (4, 6 and 8 operations
 // per valid pair and head-dim element), over the CUDA cores' 67 TFLOP/s for
@@ -41,12 +46,25 @@
 // times are in PERF.md.
 #pragma once
 
+#include <type_traits>
+
 #include "flash_attention.cuh"
 
 namespace coinn_flash {
 namespace wide {
 
 constexpr int kS = 128;  // head-dim columns of a slice
+
+// x as the second products take it on inputs of type T: rounded to nearest
+// even bfloat16 for bfloat16 inputs, untouched for float32 inputs.
+template <typename T>
+__device__ __forceinline__ float round_to(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ float round_to<__nv_bfloat16>(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
 
 // A kernel's shared memory: `mats` (64, kS) slices, `scores` (64, 64)
 // tiles and `vecs` vectors of 64.
@@ -137,9 +155,14 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // The forward's second kernel: output slice blockIdx.z of every query row,
-// out = Σ_j exp(s_j − lse)·v_j; zeros for a row whose keys are all masked.
+// out = Σ_j exp(s_j − lse)·v_j on float32 inputs; on bfloat16 inputs the
+// online softmax of the header note, p rounded against the running max;
+// zeros for a row whose keys are all masked.  Its shared memory (116 KB)
+// leaves room for one block an SM, which the launch bounds state: with the
+// thread count alone ptxas aimed at three blocks, 80 registers, and the
+// bfloat16 instance spilled.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
     out_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                const float* __restrict__ lse, float* __restrict__ out, int tq, int tk, int d,
                float scale, bool causal, int q_offset, int k_offset, int kv_len) {
@@ -148,9 +171,11 @@ __global__ void __launch_bounds__(kThreads)
   float* sK = sQ + kTile * (kS + 1);
   float* sV = sK + kTile * (kS + 1);
   float* sP = sV + kTile * (kS + 1);
-  // the block's rows' lse in shared memory, not in a per-thread array
-  // (which the bfloat16 instance kept on the stack)
+  // the block's rows' lse, and on bfloat16 inputs their running max, in
+  // shared memory, not in per-thread arrays (which the bfloat16 instance
+  // kept on the stack)
   float* sLse = sP + kTile * (kTile + 1);
+  float* sM = sLse + kTile;
   const int tx = threadIdx.x % 16;
   const int ty = threadIdx.x / 16;
   const int64_t bh = blockIdx.y;
@@ -160,11 +185,13 @@ __global__ void __launch_bounds__(kThreads)
   const int64_t row_pos0 = (int64_t)q_offset + q0;
   const int n_tiles = k_tiles(kv_eff, row_pos0 + kTile - 1, k_offset, causal);
   const int n_sl = n_slices(d);
+  constexpr bool kOnline = std::is_same<T, __nv_bfloat16>::value;
 
   float acc[kPer][kS / 16] = {};
   if (threadIdx.x < kTile) {
     const int64_t r = q0 + threadIdx.x;
     sLse[threadIdx.x] = r < tq ? lse[bh * tq + r] : kLsePad;
+    if constexpr (kOnline) sM[threadIdx.x] = kNeg;
   }
   __syncthreads();
   for (int t = 0; t < n_tiles; ++t) {
@@ -182,11 +209,31 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int i = 0; i < kPer; ++i) {
       const int64_t row = row_pos0 + ty + 16 * i;
+      float* p_row = sP + (ty + 16 * i) * (kTile + 1) + tx;
+      if constexpr (kOnline) {
+        const float m_old = sM[ty + 16 * i];
+        float mx = kNeg;
 #pragma unroll
-      for (int j = 0; j < kPer; ++j) {
-        const bool ok = key_valid(row, c0 + tx + 16 * j, kv_eff, k_offset, causal);
-        sP[(ty + 16 * i) * (kTile + 1) + tx + 16 * j] =
-            ok ? expf(s[i][j] - sLse[ty + 16 * i]) : 0.0f;
+        for (int j = 0; j < kPer; ++j)
+          if (key_valid(row, c0 + tx + 16 * j, kv_eff, k_offset, causal))
+            mx = fmaxf(mx, s[i][j]);
+        const float m_new = fmaxf(m_old, half_warp_max(mx));
+        const float alpha = expf(m_old - m_new);
+#pragma unroll
+        for (int j = 0; j < kS / 16; ++j) acc[i][j] *= alpha;
+#pragma unroll
+        for (int j = 0; j < kPer; ++j) {
+          const bool ok = key_valid(row, c0 + tx + 16 * j, kv_eff, k_offset, causal);
+          p_row[16 * j] = ok ? round_to<T>(expf(s[i][j] - m_new)) : 0.0f;
+        }
+        __syncwarp();  // every lane of the row has read m_old
+        if (tx == 0) sM[ty + 16 * i] = m_new;
+      } else {
+#pragma unroll
+        for (int j = 0; j < kPer; ++j) {
+          const bool ok = key_valid(row, c0 + tx + 16 * j, kv_eff, k_offset, causal);
+          p_row[16 * j] = ok ? expf(s[i][j] - sLse[ty + 16 * i]) : 0.0f;
+        }
       }
     }
     __syncthreads();
@@ -196,21 +243,25 @@ __global__ void __launch_bounds__(kThreads)
   for (int i = 0; i < kPer; ++i) {
     const int64_t r = q0 + ty + 16 * i;
     if (r >= tq) continue;
-    const bool row_ok = sLse[ty + 16 * i] > kMaskedLse;
+    const float row_lse = sLse[ty + 16 * i];
+    const bool row_ok = row_lse > kMaskedLse;
+    // the online sums, at the running max, to the final lse
+    const float fin = kOnline ? expf(sM[ty + 16 * i] - row_lse) : 1.0f;
     float* ob = out + (bh * tq + r) * d;
 #pragma unroll
     for (int j = 0; j < kS / 16; ++j) {
       const int col = z * kS + tx + 16 * j;
-      if (col < d) ob[col] = row_ok ? acc[i][j] : 0.0f;
+      if (col < d) ob[col] = row_ok ? (kOnline ? acc[i][j] * fin : acc[i][j]) : 0.0f;
     }
   }
 }
 
-// K3: dq slice blockIdx.z, dq = scale·Σ_j ds_j·k_j with the keys streaming.
+// K3: dq slice blockIdx.z, dq = scale·Σ_j ds_j·k_j with the keys streaming;
+// ds rounded to T (round_to).
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-              const float* __restrict__ g_out, const float* __restrict__ lse,
+              const T* __restrict__ g_out, const float* __restrict__ lse,
               const float* __restrict__ delta, const float* __restrict__ g_lse,
               float* __restrict__ dq, int tq, int tk, int d, float scale, bool causal,
               int q_offset, int k_offset, int kv_len) {
@@ -259,7 +310,7 @@ __global__ void __launch_bounds__(kThreads)
       for (int j = 0; j < kPer; ++j) {
         const bool ok = key_valid(row, c0 + tx + 16 * j, kv_eff, k_offset, causal);
         const float p = ok ? expf(s[i][j] - row_lse[i]) : 0.0f;
-        sS[(ty + 16 * i) * (kTile + 1) + tx + 16 * j] = p * (dp[i][j] - row_sub[i]);
+        sS[(ty + 16 * i) * (kTile + 1) + tx + 16 * j] = round_to<T>(p * (dp[i][j] - row_sub[i]));
       }
     }
     __syncthreads();
@@ -279,11 +330,12 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // K4: dk and dv slice blockIdx.z of one key tile, the queries streaming on
-// the transposed score tile, as the float32 kernel of flash_attention_bwd.cu.
+// the transposed score tile, as the float32 kernel of flash_attention_bwd.cu;
+// p and ds rounded to T (round_to).
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-               const float* __restrict__ g_out, const float* __restrict__ lse,
+               const T* __restrict__ g_out, const float* __restrict__ lse,
                const float* __restrict__ delta, const float* __restrict__ g_lse,
                float* __restrict__ dk, float* __restrict__ dv, int tq, int tk, int d,
                float scale, bool causal, int q_offset, int k_offset, int kv_len) {
@@ -342,8 +394,8 @@ __global__ void __launch_bounds__(kThreads)
         const bool ok = r < tq &&
                         key_valid((int64_t)q_offset + r, col, kv_eff, k_offset, causal);
         const float p = ok ? expf(st[i][j] - sLse[qc]) : 0.0f;
-        sP[(ty + 16 * i) * (kTile + 1) + qc] = p;
-        sS[(ty + 16 * i) * (kTile + 1) + qc] = p * (dpt[i][j] - sSub[qc]);
+        sP[(ty + 16 * i) * (kTile + 1) + qc] = round_to<T>(p);
+        sS[(ty + 16 * i) * (kTile + 1) + qc] = round_to<T>(p * (dpt[i][j] - sSub[qc]));
       }
     }
     __syncthreads();
@@ -374,7 +426,9 @@ int set_smem(K kernel, size_t bytes) {
 // stream; `a` is an FwdArgs.
 template <typename T, typename Args>
 int launch_fwd(const Args& a, int d) {
-  const size_t smem_lse = kSmem(2, 0, 0), smem_out = kSmem(3, 1, 1);
+  // the output kernel's vectors: lse, and on bfloat16 inputs the running max
+  const size_t smem_lse = kSmem(2, 0, 0);
+  const size_t smem_out = kSmem(3, 1, std::is_same<T, __nv_bfloat16>::value ? 2 : 1);
   int err = set_smem(lse_kernel<T>, smem_lse);
   if (err == 0) err = set_smem(out_kernel<T>, smem_out);
   if (err != 0) return err;
@@ -400,7 +454,7 @@ int launch_bwd(const Args& a, int d) {
     const int err = set_smem(dq_kernel<T>, smem);
     if (err != 0) return err;
     dq_kernel<T><<<dim3((a.tq + kTile - 1) / kTile, a.bh, n_sl), kThreads, smem, a.stream>>>(
-        (const T*)a.q, (const T*)a.k, (const T*)a.v, (const float*)a.g_out, (const float*)a.lse,
+        (const T*)a.q, (const T*)a.k, (const T*)a.v, (const T*)a.g_out, (const float*)a.lse,
         (const float*)a.delta, (const float*)a.g_lse, (float*)a.out0, a.tq, a.tk, d, a.scale,
         a.causal != 0, a.q_offset, a.k_offset, a.kv_len);
   } else {
@@ -408,7 +462,7 @@ int launch_bwd(const Args& a, int d) {
     const int err = set_smem(dkv_kernel<T>, smem);
     if (err != 0) return err;
     dkv_kernel<T><<<dim3((a.tk + kTile - 1) / kTile, a.bh, n_sl), kThreads, smem, a.stream>>>(
-        (const T*)a.q, (const T*)a.k, (const T*)a.v, (const float*)a.g_out, (const float*)a.lse,
+        (const T*)a.q, (const T*)a.k, (const T*)a.v, (const T*)a.g_out, (const float*)a.lse,
         (const float*)a.delta, (const float*)a.g_lse, (float*)a.out0, (float*)a.out1, a.tq,
         a.tk, d, a.scale, a.causal != 0, a.q_offset, a.k_offset, a.kv_len);
   }

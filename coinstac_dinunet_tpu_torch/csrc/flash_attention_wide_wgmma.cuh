@@ -2,18 +2,19 @@
 // 128 for bfloat16 inputs on Hopper's tensor cores (sm_90a).
 //
 // Replace the TPU kernels coinstac_dinunet_tpu/ops/flash_attention.py::
-// _flash_kernel (K2), ::_dq_kernel (K3) and ::_dkv_kernel (K4) for bfloat16
-// q, k, v at head dims 129 to 320, which ops/flash_attention.py zero-pads
-// to D = 192, 256 or 320 (a multiple of 64; zero columns change no score).
+// _flash_kernel (K2) and ::_dkv_kernel (K4) for bfloat16 q, k, v at head
+// dims 129 to 512, which ops/flash_attention.py zero-pads to D = 192, 256,
+// 320, 384 or 512 (a multiple of 64; zero columns change no score), and
+// ::_dq_kernel (K3) at 129 to 320 (D = 192, 256, 320).
 // The function and its roundings are those of flash_attention_fwd_wgmma.cuh
 // and flash_attention_bwd_wgmma.cuh, as on the TPU's matrix unit: every
 // tile product takes bfloat16 operands and sums in float32; `scale` (with
 // log2 e folded in) multiplies the float32 scores; p (K2, K4) and ds (K3,
 // K4) are rounded to bfloat16 only as the register A operand of the second
 // products, and g_out arrives in bfloat16 (one cast in the wrapper); dq and
-// dk take `scale` at the store.  Float32 inputs above 128 and bfloat16
-// inputs above 320 keep the sliced CUDA-core kernels of
-// flash_attention_wide.cuh.
+// dk take `scale` at the store.  Float32 inputs above 128, bfloat16 K3
+// above 320 and bfloat16 inputs above 512 keep the sliced CUDA-core kernels
+// of flash_attention_wide.cuh.
 //
 // Bound on an H100 (989 TFLOP/s bfloat16, 3.35 TB/s): K2 does 4·d, K3 6·d
 // and K4 8·d tensor operations per valid (query, key) pair, with one exp,
@@ -26,26 +27,33 @@
 // and a (128, D) bfloat16 tile 64 KB, so:
 //  - The streamed tiles are 64 rows (K2's keys, K4's dv queries) and the
 //    ring two or three stages deep, whatever fits beside the resident tiles
-//    in the 227 KB of a block (Config::kStages; 2 at D = 256).
+//    in the 227 KB of a block (Config::kStages; 2 at D = 256).  At D = 384
+//    and 512 a 128-row resident q tile is 96 or 128 KB, and two 64-key
+//    stages no longer fit beside it: K2's key tiles are 32 rows there
+//    (three stages at 384, two at 512).
 //  - The output columns go in slices over grid z (Slices): one slice up to
-//    D = 256, two above it (320 = 192 + 128), so no accumulator is wider
-//    than 256 columns.  Each z-block computes the full-width scores itself,
-//    in the same order, and accumulates its own slice; the scores are
-//    recomputed once per slice (only above 256).  K2's z = 0 block writes
-//    lse.  No block writes another's output: no atomics, and two launches
-//    give the same bits.
-//  - K4 runs as two kernels, one accumulator each: the dv kernel (S = k·qᵀ,
-//    p, dv += Pᵀ·g_out; K resident) and the dk kernel (S and dP = v·g_outᵀ,
-//    ds, dk += dSᵀ·q; K and V resident).  Keeping dk and dv in one block
-//    would take two 64 x D accumulators, 256 registers a thread at D = 256.
-//    The split costs 10·d operations a pair against the function's 8·d.
-//    The dk kernel holds two score fragments beside its accumulator, so its
-//    streamed tiles are 32 rows, and at D = 320 its resident K and V take
-//    one warpgroup's 64 rows (two would not fit in shared memory).  The
-//    other way to one accumulator a warpgroup, P and dS staged through
-//    shared memory in bfloat16 and the output columns split over the two
-//    warpgroups, was not built: no instance here spills (ptxas -v) and the
-//    split ran at a third of the bound at d = 256 (PERF.md §6).
+//    D = 256, two above it (320 = 192 + 128, 384 = 192 + 192, 512 = 256 +
+//    256), so no accumulator is wider than 256 columns.  Each z-block
+//    computes the full-width scores itself, in the same order, and
+//    accumulates its own slice; the scores are recomputed once per slice
+//    (only above 256: at D = 384 and 512, K2 does 6·d tensor operations a
+//    pair against the function's 4·d).  K2's z = 0 block writes lse.  No
+//    block writes another's output: no atomics, and two launches give the
+//    same bits.
+//  - K4 up to D = 320 runs as two kernels, one accumulator each: the dv
+//    kernel (S = k·qᵀ, p, dv += Pᵀ·g_out; K resident) and the dk kernel (S
+//    and dP = v·g_outᵀ, ds, dk += dSᵀ·q; K and V resident).  Keeping dk and
+//    dv in one warpgroup would take two 64 x D accumulators, 256 registers
+//    a thread at D = 256.  The split costs 10·d operations a pair against
+//    the function's 8·d.  The dk kernel holds two score fragments beside
+//    its accumulator, so its streamed tiles are 32 rows, and at D = 320 its
+//    resident K and V take one warpgroup's 64 rows (two would not fit in
+//    shared memory).  Up to D = 320 no instance spills and the two kernels
+//    reach a third of the bound at d = 256 (PERF.md §6).  At D = 384 and
+//    512 they would compute S four times and dP twice over the two slices
+//    (16·d a pair), so K4 runs there as one kernel a slice whose two
+//    warpgroups share S's p through shared memory (SplitConfig below: 12·d
+//    a pair; 8.1 against the two kernels' 11.4 ms at d 384, PERF.md §6).
 //  - K3 is the dk kernel's mirror image: q and g_out resident (64 rows a
 //    warpgroup; one warpgroup at D = 320, as the dk kernel), K and V
 //    streaming, S = q·kᵀ and dP = g_out·vᵀ, ds = p·(dp − Δ + g_lse) with the
@@ -62,6 +70,12 @@
 // A column chunk past D in the last slice (D = 320) is never loaded or
 // stored; its products read stale shared memory into an accumulator chunk
 // that is dropped.
+//
+// Bound at D = 384 (B 8, H 4, T 4096, not causal): the function's products
+// over the tensor cores, K2 0.834 ms and K4 1.668 ms; with the recompute,
+// 1.25 and 2.50 ms.  The scores of both are m64n32 products there, whose A
+// tile (64 x 16) each instruction reads from shared memory again: the
+// shared-memory reads, not the tensor cores, bound them.
 #pragma once
 
 #include <climits>
@@ -103,7 +117,9 @@ struct FwdConfig {
   using L = TileLayout<D>;
   static constexpr int kThreads = 2 * kWarpgroup;
   static constexpr int kBlockRows = 128;
-  static constexpr int kN = 64;  // keys of a K/V tile (fwd_key_tile in ops/flash_attention.py)
+  // keys of a K/V tile (fwd_key_tile in ops/flash_attention.py): 32 where a
+  // 128-row q tile leaves room for no two 64-key stages
+  static constexpr int kN = D > 320 ? 32 : 64;
   static constexpr int kQBytes = L::bytes(kBlockRows);
   static constexpr int kKBytes = L::bytes(kN);
   static constexpr int kStageBytes = kKBytes + kN * Slices<D>::kCols * 2;  // K, V's slice
@@ -591,12 +607,289 @@ int launch_dkv_part(const BwdArgs& a) {
   return (int)cudaGetLastError();
 }
 
+// ------------------------------------------------- K4 at D = 384 and 512
+//
+// One kernel a z-slice, where the two kernels above recompute too much: a
+// block owns 64 key rows, K and V resident, and streams (q, g_out) tiles
+// whole.  Warpgroup 0 computes S = K·qᵀ, p (masked) and dv += Pᵀ·g_out over
+// its slice; warpgroup 1 computes dP = V·g_outᵀ at the same time, takes p
+// from warpgroup 0 through shared memory in float32 (fragment order: the two
+// warpgroups' fragments have one layout, so thread t reads what thread t
+// wrote), forms ds = p·(dp − Δ + g_lse) and runs dk += dSᵀ·q.  S and dP are
+// computed once a slice: 12·d operations a pair over the two slices against
+// the two kernels' 16·d, and the tensor cores see both warpgroups at once.
+// p and ds are rounded to bfloat16 only as the register A operands, as
+// everywhere.
+
+template <int D>
+struct SplitConfig {
+  using L = TileLayout<D>;
+  static constexpr int kThreads = 2 * kWarpgroup;
+  // q rows of a streamed tile: two stages of (q, g_out) beside the resident
+  // K and V
+  static constexpr int kN = D > 384 ? 16 : 32;
+  static constexpr int kResidentBytes = 2 * L::bytes(64);   // K, V
+  static constexpr int kStageBytes = 2 * L::bytes(kN);      // q, g_out
+  static constexpr int kPBytes = 64 * kN * 4;               // p, float32
+  static constexpr int kVecFloats = 4 * kN;                 // 2 slots of (lse, Δ − g_lse)
+  static constexpr int kFixed = 1024 + kResidentBytes + kPBytes + kVecFloats * 4;
+  static constexpr int kStages = kFixed + 3 * kStageBytes + 4 * 8 <= kSmemLimit ? 3 : 2;
+  static constexpr int kSmemBytes = kFixed + kStages * kStageBytes + (1 + kStages) * 8;
+  static_assert(kSmemBytes <= kSmemLimit, "K4 tiles exceed a block's shared memory");
+};
+
+// named barrier 1 of the block's 256 threads: warpgroup 0 arrives when p is
+// in shared memory, warpgroup 1 waits for it
+__device__ __forceinline__ void p_ready_arrive() {
+  asm volatile("bar.arrive 1, 256;" ::: "memory");
+}
+__device__ __forceinline__ void p_ready_wait() {
+  asm volatile("bar.sync 1, 256;" ::: "memory");
+}
+
+template <int D>
+__global__ void __launch_bounds__(SplitConfig<D>::kThreads, 1)
+    flash_dkv_split_kernel(const __grid_constant__ CUtensorMap map_k,
+                           const __grid_constant__ CUtensorMap map_v,
+                           const __grid_constant__ CUtensorMap map_q,
+                           const __grid_constant__ CUtensorMap map_g,
+                           const float* __restrict__ lse, const float* __restrict__ delta,
+                           const float* __restrict__ g_lse, float* __restrict__ dk,
+                           float* __restrict__ dv, int tq, int tk, float scale, bool causal,
+                           int q_offset, int k_offset, int kv_len) {
+  using C = SplitConfig<D>;
+  using L = TileLayout<D>;
+  constexpr int N = C::kN;
+  constexpr int kStages = C::kStages;
+  constexpr int kSl = Slices<D>::kChunksPer;
+
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  // resident K and V, the ring of (q, g_out) stages, p, the vector slots,
+  // the barriers (bar(0) the resident tiles', bar(1 + stage) a stage's)
+  const uint32_t s_k = smem_addr(smem);
+  const uint32_t s_v = s_k + L::bytes(64);
+  const uint32_t s_stage = s_k + C::kResidentBytes;
+  float* s_p = reinterpret_cast<float*>(smem + C::kResidentBytes + kStages * C::kStageBytes);
+  float* s_vec = s_p + 64 * N;
+  const uint32_t s_bars = s_stage + kStages * C::kStageBytes + C::kPBytes + C::kVecFloats * 4;
+  auto bar = [&](int i) { return s_bars + 8 * i; };
+
+  const int tid = threadIdx.x;
+  const int warp_id = __shfl_sync(0xffffffffu, tid / 32, 0);
+  const int wg = warp_id / 4;  // 0: S, p, dv; 1: dP, ds, dk
+  const int warp = warp_id % 4;
+  const int lane = tid % kWarpgroup;
+  const int g = (tid % 32) / 4;
+  const int c4 = tid % 4;
+  const int bh = blockIdx.y;
+  int chunk0;
+  const int n_oc = slice_chunks<D>(blockIdx.z, &chunk0);
+  const int row0 = blockIdx.x * 64;  // first key row
+  const int64_t kv_eff = kv_len < tk ? kv_len : tk;
+
+  // streamed q tiles [t_first, t_last) that some key row of the block sees
+  int t_first = 0, t_last = 0;
+  if (causal) {
+    const int64_t need = (int64_t)k_offset + row0 - q_offset - (N - 1);
+    if (need > 0) t_first = (int)((need + N - 1) / N);
+  }
+  if (row0 < kv_eff) t_last = (tq + N - 1) / N;  // else: keys all masked
+  const int n_tiles = t_last > t_first ? t_last - t_first : 0;
+
+  if (tid == 0) {
+#pragma unroll
+    for (int i = 0; i < 1 + kStages; ++i) mbar_init(bar(i), 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  auto fill_stage = [&](int i) {  // tile t_first + i into stage i % kStages
+    const int st = i % kStages;
+    const uint32_t dst = s_stage + st * C::kStageBytes;
+    const int row = (t_first + i) * N;
+    mbar_expect(bar(1 + st), C::kStageBytes);
+    tma_load_tile<D>(dst, &map_q, bar(1 + st), row, bh, N);
+    tma_load_tile<D>(dst + L::bytes(N), &map_g, bar(1 + st), row, bh, N);
+  };
+  if (tid == 0 && n_tiles > 0) {
+    mbar_expect(bar(0), C::kResidentBytes);
+    tma_load_tile<D>(s_k, &map_k, bar(0), row0, bh, 64);
+    tma_load_tile<D>(s_v, &map_v, bar(0), row0, bh, 64);
+    for (int i = 0; i < kStages - 1 && i < n_tiles; ++i) fill_stage(i);
+  }
+
+  // the thread's two fragment rows, key rows row0 + 16 warp + g + 8 h, are
+  // seen by q rows from col_lim[h] on
+  int col_lim[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int64_t r = row0 + 16 * warp + g + 8 * h;
+    int64_t lim = causal ? (int64_t)k_offset + r - q_offset : 0;
+    if (lim < 0) lim = 0;
+    if (r >= kv_eff || lim > INT_MAX) lim = INT_MAX;
+    col_lim[h] = (int)lim;
+  }
+
+  // (lse, Δ − g_lse) of the streamed q rows, one tile ahead
+  float v_lse = kLsePad, v_sub = 0.0f;
+  auto load_vec = [&](int t) {
+    const int64_t r = (int64_t)t * N + tid;
+    const bool in = tid < N && r < tq;
+    v_lse = in ? safe_lse(lse[(int64_t)bh * tq + r]) * kLog2e : kLsePad;
+    v_sub = in ? delta[(int64_t)bh * tq + r] - g_lse[(int64_t)bh * tq + r] : 0.0f;
+  };
+  auto store_vec = [&](int slot) {
+    if (tid < N) {
+      s_vec[slot * 2 * N + tid] = v_lse;
+      s_vec[slot * 2 * N + N + tid] = v_sub;
+    }
+  };
+  if (n_tiles > 0) {
+    load_vec(t_first);
+    store_vec(0);
+  }
+  __syncthreads();
+
+  float acc[kSl][32];
+#pragma unroll
+  for (int c = 0; c < kSl; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[c][i] = 0.0f;
+
+  const float scale2 = scale * kLog2e;
+  // the first key's first q row
+  const int64_t lo = (int64_t)k_offset + row0 - q_offset;
+  float2* s_p2 = reinterpret_cast<float2*>(s_p);
+
+  for (int i = 0; i < n_tiles; ++i) {
+    const int t = t_first + i;
+    const int st = i % kStages;
+    if (tid == 0 && i + kStages - 1 < n_tiles) fill_stage(i + kStages - 1);
+    if (i + 1 < n_tiles) load_vec(t + 1);
+    if (i == 0) mbar_wait(bar(0), 0);
+    mbar_wait(bar(1 + st), (i / kStages) & 1);
+
+    // whether the block's 64 key rows see none / all of the tile's q rows
+    const int64_t c0 = (int64_t)t * N;
+    const bool none = row0 >= kv_eff || (causal && c0 + N - 1 < lo);
+    const bool all = c0 + N <= tq && row0 + 63 < kv_eff && (!causal || c0 >= lo + 63);
+
+    if (!none) {
+      const uint32_t sq = s_stage + st * C::kStageBytes, sg = sq + L::bytes(N);
+      const float* vec = s_vec + (i & 1) * 2 * N + 2 * c4;
+      // S = K·qᵀ (warpgroup 0) or dP = V·g_outᵀ (warpgroup 1) over D
+      const uint32_t sa = wg == 0 ? s_k : s_v, sb = wg == 0 ? sq : sg;
+      float s[N / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int c = kk / L::kSlices, off = (kk % L::kSlices) * 32;
+        wgmma_ss(s, make_desc<D>(sa + c * L::chunk_bytes(64) + off),
+                 make_desc<D>(sb + c * L::chunk_bytes(N) + off), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      pin(s);
+
+      uint32_t a[N / 4];
+      if (wg == 0) {
+        const int col0 = (int)c0 + 2 * c4;
+        if (all)
+          dkv_fragment<N, false, false>(s, s, a, scale2, col_lim, vec, col0, tq);
+        else
+          dkv_fragment<N, false, true>(s, s, a, scale2, col_lim, vec, col0, tq);
+#pragma unroll
+        for (int x = 0; x < N / 4; ++x) s_p2[x * kWarpgroup + lane] = make_float2(s[2 * x], s[2 * x + 1]);
+        p_ready_arrive();
+      } else {
+        p_ready_wait();
+#pragma unroll
+        for (int j = 0; j < N / 8; ++j) {
+          const float2 sub = *reinterpret_cast<const float2*>(vec + N + 8 * j);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const float2 p = s_p2[(2 * j + h) * kWarpgroup + lane];
+            const int i0 = 4 * j + 2 * h;
+            a[2 * j + h] = pack_bf16(p.x * (s[i0] - sub.x), p.y * (s[i0 + 1] - sub.y));
+          }
+        }
+      }
+
+      // dv += Pᵀ·g_out (warpgroup 0) or dk += dSᵀ·q (warpgroup 1) over the
+      // slice's chunks of the stage's tile
+      const uint32_t b0 = (wg == 0 ? sg : sq) + chunk0 * L::chunk_bytes(N);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < N / 16; ++kk) {
+#pragma unroll
+        for (int c = 0; c < kSl; ++c)
+          wgmma_rs(acc[c], &a[4 * kk],
+                   make_desc<D>(b0 + c * L::chunk_bytes(N) + kk * 16 * L::kPitch));
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      pin(a);
+#pragma unroll
+      for (int c = 0; c < kSl; ++c) pin(acc[c]);
+    }
+
+    if (i + 1 < n_tiles) store_vec((i + 1) & 1);
+    __syncthreads();  // the stage, p and the vector slot are free again
+  }
+
+  float* out = wg == 0 ? dv : dk;
+  const float mul = wg == 0 ? 1.0f : scale;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int64_t r = row0 + 16 * warp + g + 8 * h;
+    if (r >= tk) continue;
+    const int64_t base = ((int64_t)bh * tk + r) * D + 2 * c4;
+#pragma unroll
+    for (int c = 0; c < kSl; ++c) {
+      if (c >= n_oc) continue;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int x = 4 * j + 2 * h;
+        *reinterpret_cast<float2*>(out + base + (chunk0 + c) * L::kChunkCols + 8 * j) =
+            make_float2(acc[c][x] * mul, acc[c][x + 1] * mul);
+      }
+    }
+  }
+}
+
+template <int D>
+int launch_dkv_split(const BwdArgs& a) {
+  using C = SplitConfig<D>;
+  CUtensorMap mk, mv, mq, mg;
+  if (!make_tile_map<D>(&mk, a.k, a.bh, a.tk, 64) ||
+      !make_tile_map<D>(&mv, a.v, a.bh, a.tk, 64) ||
+      !make_tile_map<D>(&mq, a.q, a.bh, a.tq, C::kN) ||
+      !make_tile_map<D>(&mg, a.g_out, a.bh, a.tq, C::kN))
+    return (int)cudaErrorInvalidValue;
+  auto kernel = flash_dkv_split_kernel<D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmemBytes);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((a.tk + 63) / 64, a.bh, Slices<D>::kCount);
+  kernel<<<grid, C::kThreads, C::kSmemBytes, a.stream>>>(
+      mk, mv, mq, mg, (const float*)a.lse, (const float*)a.delta, (const float*)a.g_lse,
+      (float*)a.out0, (float*)a.out1, a.tq, a.tk, a.scale, a.causal != 0, a.q_offset,
+      a.k_offset, a.kv_len);
+  return (int)cudaGetLastError();
+}
+
 // Launch K4 on bfloat16 q, k, v and a bfloat16 g_out at a padded head dim
-// D: the dv kernel, then the dk kernel, on one stream.
+// D: up to 320 the dv kernel, then the dk kernel, on one stream; above it
+// the one kernel of the split.
 template <int D>
 int launch_dkv(const BwdArgs& a) {
-  const int err = launch_dkv_part<D, false>(a);
-  return err != 0 ? err : launch_dkv_part<D, true>(a);
+  if constexpr (D > 320) {
+    return launch_dkv_split<D>(a);
+  } else {
+    const int err = launch_dkv_part<D, false>(a);
+    return err != 0 ? err : launch_dkv_part<D, true>(a);
+  }
 }
 
 // ------------------------------------------------------------------- K3

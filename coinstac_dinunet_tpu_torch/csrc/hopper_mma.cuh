@@ -240,6 +240,18 @@ __device__ __forceinline__ void pin(uint32_t (&r)[N]) {
 
 // d (64 x N, float32) = A·Bᵀ + (accumulate ? d : 0): A a 64 x 16 slice and B
 // an N x 16 slice of K-major bfloat16 tiles in shared memory.
+__device__ __forceinline__ void wgmma_ss(float (&d)[8], uint64_t a, uint64_t b,
+                                         int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 " COINN_REGS8
+      ", %8, %9, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : COINN_ACC8(d)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
 __device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t a, uint64_t b,
                                          int accumulate) {
   asm volatile(

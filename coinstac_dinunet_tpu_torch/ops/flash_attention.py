@@ -24,23 +24,25 @@ Two implementations of each direction:
   cores.  They are instantiated for head dims 16, 32, 64 and 128; any
   other head dim up to 128 runs on the next of them, q, k, v and g_out
   zero-padded in the head dim and out, dq, dk, dv sliced back
-  (:func:`padded_head_dim`; zero columns change no score).  Above 128, K2,
-  K3 and K4 on bfloat16 inputs run on the tensor cores as well
+  (:func:`padded_head_dim`; zero columns change no score).  Above 128, K2
+  and K4 on bfloat16 inputs run on the tensor cores as well
   (``csrc/flash_attention_wide_wgmma.cuh``, the same roundings), at head
-  dims 192, 256 and 320, any head dim from 129 to 320 zero-padded to the
-  next of them (:func:`wide_head_dim`).  Every other case above 128 —
-  float32 inputs, and bfloat16 inputs above 320 — runs unpadded on the
-  sliced kernels of ``csrc/flash_attention_wide.cuh`` (128-column slices
-  of the head dim, each output slice written against a known lse), which
-  compute in float32 on the CUDA cores and round nothing to bfloat16;
+  dims 192, 256, 320, 384 and 512, any head dim from 129 to 512
+  zero-padded to the next of them (:func:`wide_head_dim`), and K3 up to
+  320.  Every other case above 128 — float32 inputs, bfloat16 K3 above
+  320, and bfloat16 above 512 — runs unpadded on the sliced kernels of
+  ``csrc/flash_attention_wide.cuh`` (128-column slices of the head dim,
+  each output slice written against a known lse), which compute on the
+  CUDA cores and, on bfloat16 inputs, round ``g_out``, ``p`` and ``ds``
+  to bfloat16 before their second products as the tensor-core kernels do
+  (K2 ``p`` against the running max of its key tiles);
 - :func:`flash_forward_plain` and :func:`flash_backward_plain`, plain
   PyTorch in float32 with autocast off (the dense form of the same
   identities, the counterparts of ``_flash_xla`` and the XLA backward),
   taken for tensors on the CPU and used on the card only to check the
-  kernels.  Their ``round_dtype`` option gives them the tensor-core
-  kernels' bfloat16 roundings, for those checks only, wherever a
-  tensor-core kernel runs (:func:`rounds_at`; elsewhere it rounds
-  nothing).
+  kernels.  Their ``round_dtype`` option gives them the bfloat16 kernels'
+  roundings, for those checks only, at every head dim
+  (:func:`rounds_at`).
 
 :class:`FlashAttention` is the ``torch.autograd.Function`` over
 ``(BH, T, d)``: it returns float32 ``(out, lse)`` and takes a cotangent for
@@ -78,12 +80,15 @@ _LN2 = 0.6931471805599453
 #: next of them, q, k, v and g_out zero-padded in the head dim
 #: (:func:`padded_head_dim`); above it see ``WIDE_HEAD_DIMS``
 HEAD_DIMS = (16, 32, 64, 128)
-#: head dims above ``HEAD_DIMS[-1]`` that K2, K3 and K4 on bfloat16 inputs
-#: run at on the tensor cores (``csrc/flash_attention_wide_wgmma.cuh``): a
-#: head dim from 129 to the largest runs on the next of them, zero-padded
+#: head dims above ``HEAD_DIMS[-1]`` that K2 and K4 on bfloat16 inputs run
+#: at on the tensor cores (``csrc/flash_attention_wide_wgmma.cuh``): a head
+#: dim from 129 to the largest runs on the next of them, zero-padded
 #: (:func:`wide_head_dim`); float32 inputs and bfloat16 head dims above the
 #: largest run on the sliced kernels at their own width
-WIDE_HEAD_DIMS = (192, 256, 320)
+WIDE_HEAD_DIMS = (192, 256, 320, 384, 512)
+#: the same for K3 (``DqConfig`` in ``csrc/flash_attention_wide_wgmma.cuh``);
+#: above the largest the bfloat16 K3 runs on the sliced kernel
+WIDE_DQ_HEAD_DIMS = (192, 256, 320)
 #: keys of a K/V tile of the bfloat16 forward kernel up to ``HEAD_DIMS[-1]``
 #: (``Config<D>::kN`` in ``csrc/flash_attention_fwd_wgmma.cuh``): the tiles
 #: over which its running max, and so its rounding of p, advances
@@ -92,6 +97,9 @@ FWD_KEY_TILE = 128
 #: ``csrc/flash_attention_wide_wgmma.cuh``): a 64 x D float32 accumulator
 #: leaves registers for a 64 x 64 score fragment only
 WIDE_FWD_KEY_TILE = 64
+#: the same at D = 384 and 512, where two 64-key stages would not fit in
+#: shared memory beside the resident 128-row q tile
+WIDEST_FWD_KEY_TILE = 32
 #: keys of a K/V tile of the bfloat16 K3 (``Config<D, true>::kN`` in
 #: ``csrc/flash_attention_bwd_wgmma.cuh``, ``DqConfig<D>::kN`` in
 #: ``csrc/flash_attention_wide_wgmma.cuh``) up to head dim 192; above it
@@ -100,6 +108,10 @@ WIDE_FWD_KEY_TILE = 64
 #: 64 keys not in shared memory beside the resident q and g_out
 DQ_KEY_TILE = 64
 WIDE_DQ_KEY_TILE = 32
+#: keys of a K/V tile of the sliced kernels (``kTile`` in
+#: ``csrc/flash_attention.cuh``): their K2 advances its running max over
+#: these
+SLICED_KEY_TILE = 64
 
 _ARGS = [ctypes.c_void_p] * 3  # q, k, v
 _SHAPE = [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
@@ -120,23 +132,30 @@ KERNELS = (FWD_KERNEL, DQ_KERNEL, DKV_KERNEL)
 
 
 def fwd_key_tile(d):
-    """Keys of a K/V tile of the bfloat16 forward kernel at head dim ``d``."""
-    return FWD_KEY_TILE if d <= HEAD_DIMS[-1] else WIDE_FWD_KEY_TILE
+    """Keys of a K/V tile of the bfloat16 forward kernel that runs a head
+    dim ``d`` (the tiles its running max advances over)."""
+    if d <= HEAD_DIMS[-1]:
+        return FWD_KEY_TILE
+    dim = wide_head_dim(d)
+    if dim is None:
+        return SLICED_KEY_TILE
+    return WIDE_FWD_KEY_TILE if dim <= WIDE_DQ_HEAD_DIMS[-1] else WIDEST_FWD_KEY_TILE
 
 
 def dq_key_tile(d):
-    """Keys of a K/V tile of the bfloat16 K3 at head dim ``d`` (up to
-    ``WIDE_HEAD_DIMS[-1]``, where it runs on the tensor cores)."""
-    return DQ_KEY_TILE if d <= WIDE_HEAD_DIMS[0] else WIDE_DQ_KEY_TILE
+    """Keys of a K/V tile of the bfloat16 K3 that runs a head dim ``d``."""
+    if d > WIDE_DQ_HEAD_DIMS[-1]:
+        return SLICED_KEY_TILE
+    return DQ_KEY_TILE if d <= WIDE_DQ_HEAD_DIMS[0] else WIDE_DQ_KEY_TILE
 
 
 def rounds_at(d, dq=False):
     """Whether the bfloat16 kernel at head dim ``d`` rounds its operands to
-    bfloat16, i.e. runs on the tensor cores: K2, K3 (``dq``) and K4 alike,
-    up to ``WIDE_HEAD_DIMS[-1]``; the sliced kernels above compute in
-    float32.  ``dq`` names the kernel a check asks about; the answer is
-    the same for all three."""
-    return d <= WIDE_HEAD_DIMS[-1]
+    bfloat16 as the TPU's matrix unit does: K2, K3 (``dq``) and K4 at every
+    head dim, the tensor-core kernels and the sliced ones alike.  ``dq``
+    names the kernel a check asks about; the answer is the same for all
+    three."""
+    return True
 
 
 def _valid_mask(tq, tk, q_offset, k_offset, kv_len, causal, device):
@@ -162,21 +181,20 @@ def flash_forward_plain(q, k, v, q_offset, k_offset, kv_len, causal, scale,
     """Plain PyTorch version of K2: ``(BH, Tq, d)``, ``(BH, Tk, d)`` →
     ``(out (BH, Tq, d) float32, lse (BH, Tq) float32)``.
 
-    ``round_dtype`` serves the checks of the tensor-core kernel only, no
-    path of the port: it is the dtype that kernel rounds ``p`` to before
+    ``round_dtype`` serves the checks of the bfloat16 kernels only, no
+    path of the port: it is the dtype those kernels round ``p`` to before
     P·V (bfloat16).  With it, ``scale`` multiplies the float32 product as in
     the kernel instead of ``q``, and ``p`` is the online softmax's: the keys
     go in tiles of ``FWD_KEY_TILE``, ``p`` is taken against the running
     row max after each tile and rounded there, and each tile's share is
     rescaled to the final max in float32, as the kernel's accumulator is;
     ``l`` sums the unrounded ``p``.  The key tile is the kernel's at the
-    head dim (:func:`fwd_key_tile`).  Where the sliced kernel runs (above
-    ``WIDE_HEAD_DIMS[-1]``, :func:`rounds_at`) it is ignored: that kernel
-    rounds nothing.  ``None`` is the float32 statement of the function.
+    head dim (:func:`fwd_key_tile`).  ``None`` is the float32 statement of
+    the function.
     """
     bh, tq, _ = q.shape
     valid = _valid_mask(tq, k.shape[1], q_offset, k_offset, kv_len, causal, q.device)
-    if round_dtype is not None and rounds_at(q.shape[-1]):
+    if round_dtype is not None:
         return _forward_online(q, k, v, valid, scale, round_dtype)
     outs, lses = [], []
     with torch.autocast(device_type=q.device.type, enabled=False):
@@ -195,7 +213,7 @@ def flash_forward_plain(q, k, v, q_offset, k_offset, kv_len, causal, scale,
 
 
 def _forward_online(q, k, v, valid, scale, round_dtype):
-    """:func:`flash_forward_plain` with the tensor-core kernel's arithmetic:
+    """:func:`flash_forward_plain` with the bfloat16 kernels' arithmetic:
     scores in log2 units (``scale·log2 e`` times the float32 product, the
     sentinel after the scale), the running max over key tiles, ``p`` rounded
     to ``round_dtype`` against it."""
@@ -233,17 +251,13 @@ def _backward_plain(q, k, v, g_out, lse, delta, g_lse, q_offset, k_offset,
     """The dense backward over ``bh`` chunks, in float32 with autocast off:
     ``(dq or None, dk or None, dv or None)``.
 
-    ``round_dtype`` serves the checks of the tensor-core kernels only, no
+    ``round_dtype`` serves the checks of the bfloat16 kernels only, no
     path of the port: it is the dtype those kernels round ``g_out``, ``p``
     and ``ds`` to before their products (bfloat16), and with it ``scale``
     multiplies the float32 products as in the kernels instead of ``q``.
-    Where the sliced kernels run (above ``WIDE_HEAD_DIMS[-1]``,
-    :func:`rounds_at`) it is ignored: those kernels round nothing.
     ``None`` is the float32 statement of the function.
     """
     bh, tq, d = q.shape
-    if not rounds_at(d):
-        round_dtype = None
     valid = _valid_mask(tq, k.shape[1], q_offset, k_offset, kv_len, causal, q.device)
     matched = round_dtype is not None
     rnd = (lambda t: t.to(round_dtype).float()) if matched else (lambda t: t)
@@ -295,8 +309,8 @@ def flash_backward_plain(q, k, v, out, lse, g_out, g_lse, q_offset, k_offset,
 def padded_head_dim(d):
     """The head dim a head dim ``d`` runs at: up to ``HEAD_DIMS[-1]`` the
     smallest instantiated one (``HEAD_DIMS``) that holds it, above it ``d``
-    itself (the sliced kernels take any width; the bfloat16 K2, K3 and K4
-    there pad to :func:`wide_head_dim` instead).  Zero columns change no
+    itself (the sliced kernels take any width; the bfloat16 tensor-core
+    kernels there pad to :func:`wide_head_dim` instead).  Zero columns change no
     score ``q·k`` and add nothing to ``p·v``, so the kernel's output, lse
     and gradients in the first ``d`` columns are those of the unpadded call
     (given the unpadded head dim's scale); the padded columns are
@@ -309,28 +323,24 @@ def padded_head_dim(d):
     raise ValueError(f"flash attention kernels take head dims of 1 or more, not {d}")
 
 
-def wide_head_dim(d):
-    """The head dim bfloat16 K2, K3 and K4 run at for a head dim ``d`` above
-    ``HEAD_DIMS[-1]``: the smallest of ``WIDE_HEAD_DIMS`` that holds it, or
-    ``None`` above the largest (the sliced kernels, at ``d`` itself).
-    Zero-padded as :func:`padded_head_dim` says."""
-    return next((dim for dim in WIDE_HEAD_DIMS if HEAD_DIMS[-1] < d <= dim), None)
+def wide_head_dim(d, dq=False):
+    """The head dim bfloat16 K2 and K4 (K3 with ``dq``) run at for a head
+    dim ``d`` above ``HEAD_DIMS[-1]``: the smallest of ``WIDE_HEAD_DIMS``
+    (``WIDE_DQ_HEAD_DIMS``) that holds it, or ``None`` above the largest
+    (the sliced kernels, at ``d`` itself).  Zero-padded as
+    :func:`padded_head_dim` says."""
+    dims = WIDE_DQ_HEAD_DIMS if dq else WIDE_HEAD_DIMS
+    return next((dim for dim in dims if HEAD_DIMS[-1] < d <= dim), None)
 
 
-def _kernel_head_dim(d, dtype):
-    """The head dim a kernel runs at: the padded ones (any kernel up to
-    ``HEAD_DIMS[-1]``, the bfloat16 ones up to ``WIDE_HEAD_DIMS[-1]`` on
-    the tensor cores), else ``d`` itself (the sliced kernels)."""
+def _kernel_head_dim(d, dtype, dq=False):
+    """The head dim a kernel (K3 with ``dq``) runs at: the padded ones (any
+    kernel up to ``HEAD_DIMS[-1]``, the bfloat16 ones on the tensor cores
+    above it, :func:`wide_head_dim`), else ``d`` itself (the sliced
+    kernels)."""
     if d > HEAD_DIMS[-1] and dtype == torch.bfloat16:
-        return wide_head_dim(d) or d
+        return wide_head_dim(d, dq) or d
     return padded_head_dim(d)
-
-
-def _g_dtype(q):
-    """The dtype the backward kernels take ``g_out`` in: the inputs' where
-    they run on the tensor cores (their products take bfloat16 tiles),
-    float32 on the sliced kernels (float32 arithmetic in both types)."""
-    return q.dtype if rounds_at(q.shape[-1]) else torch.float32
 
 
 def _pad_head_dim(t, dim):
@@ -386,9 +396,10 @@ def _bwd_cuda(kernel, out_rows, q, k, v, g_out, lse, delta, g_lse, q_offset,
     of ``out_rows``, computed at the kernel's head dim and sliced back."""
     _check_cuda(q, k, v)
     d = q.shape[-1]
-    dim = _kernel_head_dim(d, q.dtype)
+    dim = _kernel_head_dim(d, q.dtype, dq=kernel is DQ_KERNEL)
     ins = [_pad_head_dim(t, dim) for t in (q, k, v)]
-    ins += [_pad_head_dim(g_out.to(_g_dtype(q)), dim)]
+    # g_out in the inputs' dtype: the bfloat16 kernels round it there
+    ins += [_pad_head_dim(g_out.to(q.dtype), dim)]
     ins += [t.float().contiguous() for t in (lse, delta, g_lse)]
     outs = [torch.empty((q.shape[0], rows, dim), dtype=torch.float32, device=q.device)
             for rows in out_rows]
@@ -418,8 +429,8 @@ def flash_backward_cuda(q, k, v, out, lse, g_out, g_lse, q_offset, k_offset,
     """K3 then K4 on the card; same contract as
     :func:`flash_backward_plain`."""
     # Δ from the float32 cotangent; one cast of g_out serves both launches,
-    # which take it in one dtype at every head dim
-    g = g_out.to(_g_dtype(q))
+    # which take it in the inputs' dtype at every head dim
+    g = g_out.to(q.dtype)
     rest = (lse, flash_delta(out, g_out), g_lse, q_offset, k_offset, kv_len, causal, scale)
     return (flash_dq_cuda(q, k, v, g, *rest), *flash_dkv_cuda(q, k, v, g, *rest))
 
@@ -583,6 +594,11 @@ def flash_attention(q, k, v, q_offset=0, k_offset=0, kv_len=None, causal=False,
 # not in it: the caller adds the float32 term of its tolerance (FLASH_RTOL
 # times the reference's largest magnitude).  The derivation, with the
 # numbers it gives, is in CHANGES.md.
+# The sliced kernels (bfloat16 K3 above 320, and every kernel above 512)
+# round the same values the same way; their scores are float32 fma chains
+# on the CUDA cores over q·scale rounded once, one rounding of at most 2^-24
+# of the running sum a term, which the tensor-core model (17 roundings of
+# 2^-23 a 16-deep step) covers, and their expf errs by less than ex2.approx.
 
 #: float32's unit roundoff (round to nearest)
 _U = 2.0 ** -24

@@ -13,28 +13,44 @@ versions of the package can be compared inside one run on one card:
 Shapes (``--shape``, repeatable; by default the first three): the sequence
 path's (B 16, H 4, T 4096, d 32, bfloat16, not causal), B 1, H 8, T 8192,
 d 128, bfloat16, causal, head dim 256 (Gemma's) at B 8, H 4, T 4096,
-bfloat16, not causal, and head dim 384 at the same B, H and T (``d384``,
-on the sliced kernels).  The inputs are random from a seed; ``g_out`` is
-float32, as the model hands it to the kernels.  Times are CUDA events
+bfloat16, not causal, the other tensor-core head dims 192 and 320
+(``d192``, ``d320``), and head dims 384 and 512 at the same B, H and T
+(``d384``, ``d512``: K2 and K4 on the tensor cores, K3 on the sliced
+kernel), the site-vectorized path's folded batch (``vec``: B 272, H 4,
+T 4096, d 32), and head dim 256 in float32 (``d256_f32``, the sliced
+kernels).  The inputs are random from a seed; ``g_out`` is float32, as
+the model hands it to the kernels.  Each line carries a SHA-256 of the
+kernels' outputs (out, lse, dq, dk, dv) on those inputs, so two roots'
+lines say whether the kernels compute the same bits.  Times are CUDA events
 around 20 launches after 3 warm-up launches.  Beside them,
 ``scaled_dot_product_attention``'s forward and its backward (dq, dk and dv
 together) on the same inputs, and the names of the CUDA kernels one
 forward and backward of it launched (``torch.profiler``), which say the
-backend that ran.  One JSON object per root and shape goes to standard
-output, then the card's name and power limit.  Imports torch only.
+backend that ran.  Before the shapes each root's two flash sources are
+built one after the other, each timed (``build_s``; a source a root built
+before, as the second turn of ``.``, reads about 0).  One JSON object per
+root and shape goes to standard output, then the card's name and power
+limit.  Imports torch only.
 """
 import argparse
+import hashlib
 import importlib
 import json
 import os
 import subprocess
 import sys
+import time
 
-SHAPES = [  # (name, B, H, T, d, causal)
-    ("main", 16, 4, 4096, 32, False),
-    ("tpu", 1, 8, 8192, 128, True),
-    ("d256", 8, 4, 4096, 256, False),
-    ("d384", 8, 4, 4096, 384, False),
+SHAPES = [  # (name, B, H, T, d, causal, dtype)
+    ("main", 16, 4, 4096, 32, False, "bfloat16"),
+    ("tpu", 1, 8, 8192, 128, True, "bfloat16"),
+    ("d192", 8, 4, 4096, 192, False, "bfloat16"),
+    ("d256", 8, 4, 4096, 256, False, "bfloat16"),
+    ("d320", 8, 4, 4096, 320, False, "bfloat16"),
+    ("d384", 8, 4, 4096, 384, False, "bfloat16"),
+    ("d512", 8, 4, 4096, 512, False, "bfloat16"),
+    ("vec", 272, 4, 4096, 32, False, "bfloat16"),
+    ("d256_f32", 8, 4, 4096, 256, False, "float32"),
 ]
 DEFAULT_SHAPES = ("main", "tpu", "d256")
 
@@ -77,19 +93,29 @@ def worker(root, shapes):
 
     sys.path.insert(0, os.path.abspath(root))
     fa = importlib.import_module("coinstac_dinunet_tpu_torch.ops.flash_attention")
+    cuda = importlib.import_module("coinstac_dinunet_tpu_torch.ops._cuda")
+    build_s = {}
+    for source in ("flash_attention_fwd.cu", "flash_attention_bwd.cu"):
+        t0 = time.perf_counter()
+        cuda.build([source])
+        build_s[source] = time.perf_counter() - t0
+    print(json.dumps({"root": root, "build_s": build_s}), flush=True)
     dev = torch.device("cuda", 0)
-    for name, b, h, t, d, causal in SHAPES:
+    for name, b, h, t, d, causal, dtype in SHAPES:
         if name not in shapes:
             continue
         gen = torch.Generator(device=dev).manual_seed(0)
         bh = b * h
-        q, k, v = [torch.randn((bh, t, d), generator=gen, device=dev).to(torch.bfloat16)
+        q, k, v = [torch.randn((bh, t, d), generator=gen, device=dev).to(getattr(torch, dtype))
                    for _ in range(3)]
         pos = (0, 0, t, causal, d ** -0.5)
         out, lse = fa.flash_forward_cuda(q, k, v, *pos)
         fwd_ms = cuda_ms(lambda: fa.flash_forward_cuda(q, k, v, *pos))
         g_out = torch.randn(out.shape, generator=gen, device=dev)
         args = (q, k, v, g_out, lse, fa.flash_delta(out, g_out), torch.zeros_like(lse), *pos)
+        digest = hashlib.sha256()
+        for x in (out, lse, fa.flash_dq_cuda(*args), *fa.flash_dkv_cuda(*args)):
+            digest.update(x.cpu().numpy().tobytes())
         dq_ms = cuda_ms(lambda: fa.flash_dq_cuda(*args))
         dkv_ms = cuda_ms(lambda: fa.flash_dkv_cuda(*args))
         ql, kl, vl = [x.reshape(b, h, t, d).detach().requires_grad_() for x in (q, k, v)]
@@ -100,8 +126,9 @@ def worker(root, shapes):
                                                      retain_graph=True))
         lib_names = library_kernels(lambda: torch.autograd.grad(
             F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal), (ql, kl, vl), gl))
-        print(json.dumps({"root": root, "shape": name, "fwd_ms": fwd_ms, "dq_ms": dq_ms,
-                          "dkv_ms": dkv_ms, "library_forward_ms": lib_fwd_ms,
+        print(json.dumps({"root": root, "shape": name, "dtype": dtype,
+                          "outputs_sha256": digest.hexdigest()[:16], "fwd_ms": fwd_ms,
+                          "dq_ms": dq_ms, "dkv_ms": dkv_ms, "library_forward_ms": lib_fwd_ms,
                           "library_backward_ms": lib_ms, "library_kernels": lib_names,
                           "device": torch.cuda.get_device_name(0)}), flush=True)
         del q, k, v, out, lse, g_out, args, ql, kl, vl, gl, lib_out

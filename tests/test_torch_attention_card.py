@@ -11,19 +11,20 @@ compute in float32 from the same inputs; they differ in the order of the
 float32 sums and in ``expf`` against torch's ``exp``).  The backward kernels
 take no atomics, so two launches agree bit for bit.
 
-Head dims 160, 256 and 320 run the float32 K2, K3 and K4 on the sliced
-kernels (``csrc/flash_attention_wide.cuh``), in float32 on the CUDA cores:
-there the same tolerances hold.  The bfloat16 K2, K3 and K4 run there on
-the tensor cores (``csrc/flash_attention_wide_wgmma.cuh``, the head dim
-zero-padded to 192, 256 or 320) with the roundings below, and are held as
-below; at T 2048 also to the derived bound of ``ops/flash_attention.py``
-(one bfloat16 step for each ``p`` or ``ds`` the kernels' float32 arithmetic
-may round the other way, plus 1e-4·max + 1e-6), against which a fixed
-ratio has no margin.
+Head dims 160, 256, 320, 384, 512 and 576 run the float32 K2, K3 and K4
+on the sliced kernels (``csrc/flash_attention_wide.cuh``), in float32 on
+the CUDA cores: there the same tolerances hold.  The bfloat16 K2 and K4
+run on the tensor cores up to 512 and K3 up to 320
+(``csrc/flash_attention_wide_wgmma.cuh``, the head dim zero-padded to 192,
+256, 320, 384 or 512), the rest on the sliced kernels, all with the
+roundings below, and are held as below; at T 2048 also to the derived
+bound of ``ops/flash_attention.py`` (one bfloat16 step for each ``p`` or
+``ds`` the kernels' float32 arithmetic may round the other way, plus
+1e-4·max + 1e-6), against which a fixed ratio has no margin.
 
-For bfloat16 inputs K2, K3 and K4 run their products on the tensor cores
-and round ``p`` (and in the backward ``g_out`` and ``ds``) to bfloat16
-first.  They are held to the float32 plain version within 2e-2·max + 1e-6
+For bfloat16 inputs K2, K3 and K4 round ``p`` (and in the backward
+``g_out`` and ``ds``) to bfloat16 before their second products, on the
+tensor cores or, where the sliced kernels run, on the CUDA cores.  They are held to the float32 plain version within 2e-2·max + 1e-6
 (the format's error) and to the plain version with the same roundings
 (``round_dtype=torch.bfloat16``; for K2 the online softmax over the
 kernel's key tiles).  What is left against that one is the order of the
@@ -42,9 +43,11 @@ import torch
 
 fa = importlib.import_module("coinstac_dinunet_tpu_torch.ops.flash_attention")
 
-# the instantiated head dims and, above 128, head dims the bfloat16 K2, K3
-# and K4 pad to 192, 256 and 320 (the sliced kernels run them unpadded)
-KERNEL_HEAD_DIMS = (*fa.HEAD_DIMS, 160, 256, 320)
+# the instantiated head dims and, above 128, head dims the bfloat16 K2 and
+# K4 pad to 192, 256, 320, 384 and 512 (K3 to the first three), and 576,
+# where all three run on the sliced kernels, as float32 inputs do at every
+# head dim above 128
+KERNEL_HEAD_DIMS = (*fa.HEAD_DIMS, 160, 256, 320, 384, 512, 576)
 
 CASES = [  # (causal, q_offset, k_offset, kv_len, g_lse nonzero)
     (False, 0, 0, 160, True), (True, 0, 0, 160, True), (False, 0, 0, 96, False),
@@ -271,7 +274,7 @@ def test_autograd_function_launches_the_kernels(card):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_autograd_function_launches_the_kernels_above_head_dim_128(card, dtype):
     """Head dim 256 through the autograd function: one launch of each
-    kernel (the tensor-core K2 and K4 in bfloat16, the sliced ones
+    kernel (the tensor-core K2, K3 and K4 in bfloat16, the sliced ones
     otherwise), never the plain version."""
     q, k, v = [torch.randn((2, 2, 200, 256), device=card, dtype=dtype,
                            requires_grad=True) for _ in range(3)]
@@ -283,12 +286,12 @@ def test_autograd_function_launches_the_kernels_above_head_dim_128(card, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [160, 256, 320])
+@pytest.mark.parametrize("d", [160, 256, 320, 384])
 def test_bf16_wide_kernels_of_a_long_sequence_keep_to_the_derived_bound(card, d):
     """The tensor-core K2 and K4 above 128 over many key and query tiles,
     mask-free and causal, within the derived bound of their
     rounding-matched function (1e-4·max + 1e-6 beside it), one launch
-    each."""
+    each; at d 384 the 32-key tiles of both."""
     for case in [(False, 0, 0, 2048, False), (True, 0, 0, 2048, True)]:
         qkv, pos, _ = _inputs(card, d, torch.bfloat16, case, bh=2, t=2048)
         before = fa.FWD_KERNEL.launches

@@ -1,6 +1,6 @@
 """K2–K4's wrapper contract at head dims the kernels are not instantiated
-for (4, 8 and 24, and 160, 256 and 320 above the largest), against the JAX
-package's ``flash_attention``.
+for (4, 8 and 24, and 160, 256, 320, 384, 448, 512 and 576 above the
+largest), against the JAX package's ``flash_attention``.
 
 On the card the wrapper zero-pads ``q``, ``k``, ``v`` and ``g_out`` in the
 head dim to the next instantiated dim (``padded_head_dim``), passes the
@@ -13,14 +13,16 @@ itself.  The kernels are held against the plain versions on the card by
 XLA path and 1e-4 of the interpreted Pallas kernel, gradients within 2e-4
 + 1e-3·|g| (``tests/test_torch_attention.py``'s bounds).
 
-Above 128, bfloat16 K2, K3 and K4 run on the tensor cores at the head dim
-zero-padded to 192, 256 or 320 (``wide_head_dim``), with the roundings of
-the kernels below it (``p`` and ``ds`` in bfloat16, the forward's online
-softmax over key tiles of 64); float32 inputs and bfloat16 head dims above
-320 run on the sliced kernels at the head dim itself, in float32.  So the
-rounding-matched plain forward, dq and dk/dv round up to 320 (held to the
-JAX package's bfloat16 attention within 2e-2·max, the format's error, as
-below 128) and not above it, and the unrounded plain versions equal JAX
+Above 128, bfloat16 K2 and K4 run on the tensor cores at the head dim
+zero-padded to 192, 256, 320, 384 or 512 (``wide_head_dim``), K3 up to 320,
+with the roundings of the kernels below it (``p`` and ``ds`` in bfloat16,
+the forward's online softmax over key tiles of 64, or 32 at 384 and 512);
+float32 inputs, bfloat16 K3 above 320 and bfloat16 head dims above 512 run
+on the sliced kernels at the head dim itself, which on bfloat16 inputs
+round the same values (the forward's running max over key tiles of 64).
+So the rounding-matched plain forward, dq and dk/dv round at every head
+dim (held to the JAX package's bfloat16 attention within 2e-2·max, the
+format's error, as below 128), and the unrounded plain versions equal JAX
 within the bounds above, over the offset, ``kv_len`` and causal masks and a
 T that is no tile multiple.
 """
@@ -42,6 +44,14 @@ HEAD_DIMS = (4, 8, 24)
 WIDE_HEAD_DIMS = (160, 256, 320)
 # (q_offset, k_offset, kv_len or None, causal); T 100 is no tile multiple
 WIDE_MASKS = [(0, 0, None, False), (0, 0, None, True), (30, 7, 90, True)]
+# (d, mask) of the bfloat16 rounding-matched plain versions held to JAX:
+# every mask up to 320; at 384, 448 (padded to 512) and 512 (K2, K4 on the
+# tensor cores, K3 sliced) and 576 (all three sliced) the offsets, kv_len and
+# causal mask alone, which takes every path the other two take (each case
+# at a new head dim compiles JAX anew, a second or more)
+BF16_CASES = [pytest.param(d, mask, id=f"{d}-mask{i}")
+              for d in (*WIDE_HEAD_DIMS, 384, 448, 512, 576)
+              for i, mask in enumerate(WIDE_MASKS) if d <= 320 or i == 2]
 IMPLS = [("xla", 1e-5), ("pallas_interpret", 1e-4)]
 
 
@@ -174,54 +184,62 @@ def test_wide_plain_backward_matches_jax(d, mask):
 
 @pytest.mark.parametrize("d", (*WIDE_HEAD_DIMS, 384))
 def test_wide_plain_versions_ignore_round_dtype(d):
-    """Up to 320 K2, K3 and K4 run on the tensor cores, so every plain
-    version follows ``round_dtype`` and differs from the float32 one; one
-    call for dq and dk/dv gives what two calls give.  Above 320 the sliced
-    kernels round nothing to bfloat16 (no tensor core takes a bfloat16
-    operand there), so all three rounding-matched plain versions are the
-    float32 ones, bit for bit."""
+    """No plain version ignores ``round_dtype`` any more: K2, K3 and K4 on
+    bfloat16 inputs round as the TPU does at every head dim, on the tensor
+    cores and on the sliced kernels (above 320 for K3, above 512 for all
+    three), so every rounding-matched plain version differs from the
+    float32 one (at 384: K3 sliced); one call for dq and dk/dv gives what
+    two calls give."""
     arrays = _qkv(200 + d, d, t=100)
     q, k, v = (torch.from_numpy(a).reshape(2, 100, d).to(torch.bfloat16) for a in arrays)
     pos = (0, 0, 100, True, d ** -0.5)
-    rounds = d <= fa.WIDE_HEAD_DIMS[-1]
-    assert fa.rounds_at(d, dq=True) == fa.rounds_at(d) == rounds
+    assert fa.rounds_at(d, dq=True) and fa.rounds_at(d)
     exact = fa.flash_forward_plain(q, k, v, *pos)
     matched = fa.flash_forward_plain(q, k, v, *pos, round_dtype=torch.bfloat16)
-    assert torch.equal(exact[0], matched[0]) != rounds
+    assert not torch.equal(exact[0], matched[0])
     g_out = torch.from_numpy(_qkv(300 + d, d, t=100)[0]).reshape(2, 100, d)
     args = (q, k, v, g_out, exact[1], fa.flash_delta(exact[0], g_out),
             torch.zeros(2, 100), *pos)
     dq = fa.flash_dq_plain(*args, round_dtype=torch.bfloat16)
-    assert torch.equal(dq, fa.flash_dq_plain(*args)) != rounds
+    assert not torch.equal(dq, fa.flash_dq_plain(*args))
     both = fa._backward_plain(*args, round_dtype=torch.bfloat16)
     assert torch.equal(both[0], dq)
     dkv = fa.flash_dkv_plain(*args, round_dtype=torch.bfloat16)
     assert all(torch.equal(a, b) for a, b in zip(both[1:], dkv))
     exact_dkv = fa.flash_dkv_plain(*args)
-    assert all(torch.equal(a, b) != rounds for a, b in zip(dkv, exact_dkv))
+    assert not any(torch.equal(a, b) for a, b in zip(dkv, exact_dkv))
 
 
 def test_wide_head_dim_maps_bf16_k2_k4_to_the_tensor_core_dims():
-    """bfloat16 K2, K3 and K4 from 129 to 320 run at the next of 192, 256
-    and 320 (one head dim for all three: ``_kernel_head_dim`` serves every
-    launch); float32 inputs and head dims above 320 at the head dim itself
-    (the sliced kernels); up to 128 every kernel at ``padded_head_dim``."""
-    for d in range(129, 321):
+    """bfloat16 K2 and K4 from 129 to 512 run at the next of 192, 256, 320,
+    384 and 512, and K3 from 129 to 320 at the next of the first three
+    (``_kernel_head_dim``, K3's with ``dq``); bfloat16 K3 above 320, every
+    bfloat16 kernel above 512 and float32 inputs at the head dim itself
+    (the sliced kernels); up to 128 every kernel at ``padded_head_dim``.
+    Every bfloat16 kernel rounds (``rounds_at``), and the key tiles are
+    those of the kernel that runs the head dim."""
+    for d in range(129, 513):
         dim = fa.wide_head_dim(d)
-        assert dim in fa.WIDE_HEAD_DIMS and dim >= d and dim - d < 64
+        assert dim in fa.WIDE_HEAD_DIMS and dim >= d and dim - d < 128
+        assert all(w < d for w in fa.WIDE_HEAD_DIMS if w < dim)
         assert fa._kernel_head_dim(d, torch.bfloat16) == dim
         assert fa._kernel_head_dim(d, torch.float32) == d
+        dq_dim = fa.wide_head_dim(d, dq=True)
+        assert dq_dim == (dim if d <= 320 else None)
+        assert fa._kernel_head_dim(d, torch.bfloat16, dq=True) == (dq_dim or d)
         assert fa.rounds_at(d, dq=True)
-    for d in (321, 384, 1000):
-        assert fa.wide_head_dim(d) is None
+    for d in (513, 576, 1000):
+        assert fa.wide_head_dim(d) is None and fa.wide_head_dim(d, dq=True) is None
         assert fa._kernel_head_dim(d, torch.bfloat16) == d
     for d in (1, 24, 100, 128):
         assert fa.wide_head_dim(d) is None
         assert fa._kernel_head_dim(d, torch.bfloat16) == fa.padded_head_dim(d)
-    assert fa.rounds_at(320) and not fa.rounds_at(321)
-    assert fa.rounds_at(320, dq=True) and not fa.rounds_at(321, dq=True)
-    assert [fa.fwd_key_tile(d) for d in (128, 129, 320)] == [128, 64, 64]
-    assert [fa.dq_key_tile(d) for d in (128, 192, 193, 320)] == [64, 64, 32, 32]
+    assert fa.rounds_at(320) and fa.rounds_at(321) and fa.rounds_at(576)
+    assert fa.rounds_at(320, dq=True) and fa.rounds_at(321, dq=True)
+    assert [fa.fwd_key_tile(d) for d in (128, 129, 320, 321, 448, 512, 513)] == [
+        128, 64, 64, 32, 32, 32, 64]
+    assert [fa.dq_key_tile(d) for d in (128, 192, 193, 320, 321, 576)] == [
+        64, 64, 32, 32, 64, 64]
 
 
 def _online_tiles(q, k, v, pos, n, round_dtype):
@@ -264,6 +282,23 @@ def test_wide_rounding_matched_forward_takes_key_tiles_of_64(d, mask):
     assert float((got - _online_tiles(q, k, v, pos, 128, torch.bfloat16)).abs().max()) > tol
 
 
+@pytest.mark.parametrize("d,tile,other", [(448, 32, 64), (576, 64, 32)])
+def test_rounding_matched_forward_takes_the_kernels_key_tiles_above_320(d, tile, other):
+    """From 321 to 512 the tensor-core K2 advances its running max over key
+    tiles of 32, above 512 the sliced K2 over its tiles of 64: the
+    rounding-matched plain forward is that loop, within float32 rounding
+    of it (1e-5·max), and not the loop over the other tile."""
+    arrays = _qkv(450 + d, d, t=200)
+    q, k, v = (torch.from_numpy(a).reshape(2, 200, d).to(torch.bfloat16) for a in arrays)
+    pos = (30, 7, 180, True, d ** -0.5)
+    assert fa.fwd_key_tile(d) == tile
+    got = fa.flash_forward_plain(q, k, v, *pos, round_dtype=torch.bfloat16)[0]
+    want = _online_tiles(q, k, v, pos, tile, torch.bfloat16)
+    tol = 1e-5 * float(want.abs().max())
+    assert float((got - want).abs().max()) <= tol
+    assert float((got - _online_tiles(q, k, v, pos, other, torch.bfloat16)).abs().max()) > tol
+
+
 # bfloat16 carries 8 bits: the rounding-matched plain versions and the JAX
 # package's bfloat16 attention each err by the format's error, so they are
 # held to each other within 2e-2 of the largest magnitude, as below 128
@@ -278,8 +313,7 @@ def _bf16_jax_inputs(seed, d, t=100):
 
 
 @pytest.mark.parametrize("impl", ["xla", "pallas_interpret"])
-@pytest.mark.parametrize("mask", WIDE_MASKS)
-@pytest.mark.parametrize("d", WIDE_HEAD_DIMS)
+@pytest.mark.parametrize("d,mask", BF16_CASES)
 def test_wide_rounding_matched_forward_matches_jax_in_bf16(d, mask, impl):
     """The rounding-matched plain K2 above 128 against the JAX package's
     forward on the same bfloat16 inputs, within BF16_FORMAT_RTOL·max."""
@@ -295,8 +329,7 @@ def test_wide_rounding_matched_forward_matches_jax_in_bf16(d, mask, impl):
     assert np.abs(got - want).max() <= BF16_FORMAT_RTOL * np.abs(want).max()
 
 
-@pytest.mark.parametrize("mask", WIDE_MASKS)
-@pytest.mark.parametrize("d", WIDE_HEAD_DIMS)
+@pytest.mark.parametrize("d,mask", BF16_CASES)
 def test_wide_rounding_matched_dkv_matches_jax_in_bf16(d, mask):
     """The rounding-matched plain K4 above 128 (``g_out``, ``p`` and ``ds``
     in bfloat16) against the JAX package's dk and dv (``jax.vjp`` of its XLA
@@ -324,8 +357,7 @@ def test_wide_rounding_matched_dkv_matches_jax_in_bf16(d, mask):
         assert np.abs(got.numpy() - w).max() <= BF16_FORMAT_RTOL * np.abs(w).max()
 
 
-@pytest.mark.parametrize("mask", WIDE_MASKS)
-@pytest.mark.parametrize("d", WIDE_HEAD_DIMS)
+@pytest.mark.parametrize("d,mask", BF16_CASES)
 def test_wide_rounding_matched_dq_matches_jax_in_bf16(d, mask):
     """The rounding-matched plain K3 above 128 (``g_out`` and ``ds`` in
     bfloat16, as the tensor-core K3 rounds them) against the JAX package's

@@ -20,7 +20,9 @@ import torch
 fa = importlib.import_module("coinstac_dinunet_tpu_torch.ops.flash_attention")
 
 RTOL, ATOL = 1e-4, 1e-6  # chip_smoke.FLASH_RTOL, FLASH_ATOL
-HEAD_DIMS = (24, 160, 256, 320)
+# 384: K2 and K4 on the tensor cores over 32-key and 32-query tiles, K3 on
+# the sliced kernel, which rounds ds as they do
+HEAD_DIMS = (24, 160, 256, 320, 384)
 
 
 @pytest.fixture(autouse=True)
@@ -78,8 +80,9 @@ def test_near_boundary_flags_values_by_their_distance_to_a_rounding_midpoint():
 
 @pytest.mark.parametrize("d", HEAD_DIMS)
 def test_float32_rounding_matched_plain_versions_keep_to_the_bound(d):
-    """The float32 rounding-matched plain K2, K3 and K4 (up to 320, where
-    they round) lie within the bound of the float64 reference."""
+    """The float32 rounding-matched plain K2, K3 and K4 (every kernel
+    rounds, ``rounds_at``) lie within the bound of the float64
+    reference."""
     qkv, pos, args = _inputs(d, d)
     want, bound = fa.rounding_bound_forward(*qkv, *pos)
     got = fa.flash_forward_plain(*qkv, *pos, round_dtype=torch.bfloat16)[0]
@@ -98,7 +101,7 @@ def test_planted_faults_cross_the_bound(d):
     """One key tile dropped (K2, K3: ``kv_len`` one tile of the kernel's
     short; K4: the lse of the first query tile padded, so its ``p`` is 0)
     and the rounding in float16 instead of bfloat16: every output crosses
-    its bound (K3 where it rounds, up to 320)."""
+    its bound (K3 where it rounds: everywhere)."""
     qkv, pos, args = _inputs(50 + d, d)
     q_offset, k_offset, kv_len, causal, scale = pos
     want, bound = fa.rounding_bound_forward(*qkv, *pos)
