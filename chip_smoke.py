@@ -25,14 +25,13 @@ Phases, in order; any failure exits non-zero before the last line:
    types beside ``scaled_dot_product_attention``), where the bfloat16 K2,
    K3 and K4 run on the tensor cores
    (``csrc/flash_attention_wide_wgmma.cuh``, zero-padded to 192, 256 or
-   320), the float32 K2 too, as three TF32 products a float32 product
-   (``csrc/flash_attention_wide_tf32.cuh``, padded the same way), and the
-   float32 K3 and K4 unpadded on the sliced kernels
-   (``csrc/flash_attention_wide.cuh``), and at head dims 384 and 576 (both
-   types) and 512 (bfloat16; d 384 also at B 8, H 4, T 4096, timed), where
-   the bfloat16 K2, K3 and K4 and the float32 K2 run on the tensor cores
-   up to 512 (padded to 384 or 512) and all three above 512 on the sliced
-   kernels, which round as the TPU does; within stated tolerances
+   320), the float32 K2, K3 and K4 too, as three TF32 products a float32
+   product (``csrc/flash_attention_wide_tf32.cuh``, padded the same way),
+   and at head dims 384 and 576 (both types) and 512 (bfloat16; d 384 also
+   at B 8, H 4, T 4096, timed), where K2, K3 and K4 of both types run on
+   the tensor cores up to 512 (padded to 384 or 512) and all three above
+   512 on the sliced kernels (``csrc/flash_attention_wide.cuh``), which
+   round as the TPU does; within stated tolerances
    (the bfloat16 forward, dq and dk/dv against the plain version with the
    kernels' bfloat16 roundings and against the float32 one, with
    ``scaled_dot_product_attention``'s forward and backward as the
@@ -668,10 +667,9 @@ _FLASH_PADDED_EDGES = [
 # offsets and a masked key tail, keys past kv_len, every row masked; in both
 # types.  In bfloat16, K2, K3 and K4 run on the tensor-core kernels of
 # csrc/flash_attention_wide_wgmma.cuh (d zero-padded to 192, 256 or 320)
-# and are held to the rounding-matched plain version; in float32 K2 runs on
-# the tensor cores too (csrc/flash_attention_wide_tf32.cuh, padded the
-# same way), K3 and K4 unpadded on the sliced kernels.  (Above 320: the d
-# 384, 512 and 576 cases below.)
+# and are held to the rounding-matched plain version; in float32 K2, K3
+# and K4 run on the tensor cores too (csrc/flash_attention_wide_tf32.cuh,
+# padded the same way).  (Above 320: the d 384, 512 and 576 cases below.)
 _FLASH_WIDE_EDGES = [
     ("t160_d160", 1, 2, 160, 160, False, 0, 0, None, True),
     ("offsets_d160", 1, 2, 333, 160, True, 100, 37, 300, True),
@@ -711,9 +709,9 @@ FLASH_CASES = [
     ("d256_long_f32", 8, 4, 4096, 256, "float32", False, 0, 0, None, False),
     # the padded head dim 24 in bfloat16 at T 4096, under the derived bound
     ("d24_long", 8, 4, 4096, 24, "bfloat16", False, 0, 0, None, False),
-    # d 384 in both types (bf16: K2, K3 and K4 on the tensor cores; float32:
-    # K2 on them, three TF32 products a float32 product), 512 in bf16 (the
-    # same) and 576 in bf16 (every kernel sliced, rounding as the TPU does)
+    # d 384 in both types (K2, K3 and K4 on the tensor cores; in float32 as
+    # three TF32 products a float32 product), 512 in bf16 (the same) and 576
+    # in bf16 (every kernel sliced, rounding as the TPU does)
     ("offsets_d384", 1, 2, 333, 384, "float32", True, 100, 37, 300, True),
     ("offsets_d384_bf16", 1, 2, 333, 384, "bfloat16", True, 100, 37, 300, True),
     ("offsets_d512_bf16", 1, 2, 333, 512, "bfloat16", True, 100, 37, 300, True),
@@ -721,7 +719,7 @@ FLASH_CASES = [
     # head dim 384 at the sequence model's T, timed, all three under the
     # derived bound
     ("d384_long", 8, 4, 4096, 384, "bfloat16", False, 0, 0, None, False),
-    # 576 in float32: K2 past the TF32 kernel's widths, so all three on the
+    # 576 in float32: past the TF32 kernels' widths, so all three on the
     # sliced float32 kernels (last, so every earlier case keeps its seed)
     ("offsets_d576", 1, 2, 333, 576, "float32", True, 100, 37, 300, True),
 ]
@@ -782,8 +780,8 @@ FLASH_TIMED = ("main", "tpu", "vectorized", *FLASH_D16_TIMED, *FLASH_PADDED_TIME
                *FLASH_WIDE_TIMED, *FLASH_D384_TIMED)
 # K2, K3 and K4 on bfloat16 inputs above head dim 128 (the kernels line's
 # "wide_bf16" entries at d256_long, "d384_bf16" at d384_long: the
-# instances that run there), and K2 on float32 inputs above it ("wide_f32"
-# at d256_long_f32)
+# instances that run there), and K2, K3 and K4 on float32 inputs above it
+# ("wide_f32" at d256_long_f32)
 FLASH_WIDE_SOURCE = "coinstac_dinunet_tpu_torch/csrc/flash_attention_wide_wgmma.cuh"
 FLASH_TF32_SOURCE = "coinstac_dinunet_tpu_torch/csrc/flash_attention_wide_tf32.cuh"
 FLASH_D384_INSTANCES = {
@@ -794,7 +792,11 @@ FLASH_D384_INSTANCES = {
     "flash_attention_dkv": (FLASH_WIDE_SOURCE,
                             ["flash_dkv_split_kernel<384>", "flash_dkv_split_kernel<512>"]),
 }
-FLASH_F32_WIDE_INSTANCES = [f"flash_fwd_tf32_kernel<{d}>" for d in (192, 256, 320, 384, 512)]
+FLASH_F32_WIDE_INSTANCES = {
+    name: [f"{kernel}<{d}>" for d in (192, 256, 320, 384, 512)]
+    for name, kernel in (("flash_attention_fwd", "flash_fwd_tf32_kernel"),
+                         ("flash_attention_dq", "flash_dq_tf32_kernel"),
+                         ("flash_attention_dkv", "flash_dkv_tf32_kernel"))}
 FLASH_SOURCES = {
     "flash_attention_fwd": ("coinstac_dinunet_tpu_torch/csrc/flash_attention_fwd.cu",
                             "coinstac_dinunet_tpu/ops/flash_attention.py:79"),
@@ -966,7 +968,7 @@ def check_flash(dev, report):
     errs_f32 = {name: 0.0 for name in FLASH_SOURCES}
     library_errs = {}
     wide_errs = {name: 0.0 for name in FLASH_SOURCES}
-    wide_f32_err = 0.0  # K2 on float32 above head dim 128
+    wide_f32_errs = {name: 0.0 for name in FLASH_SOURCES}  # float32 above head dim 128
     exp_per_s = (EXP_PER_CLOCK_PER_SM * torch.cuda.get_device_properties(dev).multi_processor_count
                  * max_sm_clock_hz())
     for (case, b, h, t, d, dtype, causal, qo, ko, kv, nz_glse) in FLASH_CASES:
@@ -1094,7 +1096,8 @@ def check_flash(dev, report):
             for name, e in zip(FLASH_SOURCES, (e_fwd, e_dq, e_dkv)):
                 wide_errs[name] = max(wide_errs[name], e)
         if not bf16 and fa.wide_head_dim(d) is not None:
-            wide_f32_err = max(wide_f32_err, e_fwd)
+            for name, e in zip(FLASH_SOURCES, (e_fwd, e_dq, e_dkv)):
+                wide_f32_errs[name] = max(wide_f32_errs[name], e)
         row = {"case": case, "shape": [b, h, t, d], "dtype": dtype, "causal": causal,
                "q_offset": qo, "k_offset": ko, "kv_len": kv_len, "g_lse_nonzero": nz_glse,
                "max_abs_err": {"fwd": e_fwd, "dq": e_dq, "dkv": e_dkv},
@@ -1141,7 +1144,7 @@ def check_flash(dev, report):
                          + ", ".join(map(str, fa.WIDE_HEAD_DIMS)),
             "max_abs_err": wide_errs[name], "timed_at": "d256_long", **times,
             "derived_bound": {n: wide["derived_bound"][n] for n in parts[name]}}
-    # at d384_long: the D 384 / 512 instances of K2 and K4, the sliced K3
+    # at d384_long: the D 384 / 512 instances of K2, K3 and K4
     d384 = next(row for row in rows if row["case"] == "d384_long")
     for name, (source, instances) in FLASH_D384_INSTANCES.items():
         kernels[name]["d384_bf16"] = {
@@ -1149,16 +1152,17 @@ def check_flash(dev, report):
             "max_abs_err": d384["max_abs_err"][name.split("_")[-1]], "timed_at": "d384_long",
             **d384["times"][name],
             "derived_bound": {n: d384["derived_bound"][n] for n in parts[name]}}
-    # K2 on float32 above head dim 128 (three TF32 products a float32
-    # product), timed at d256_long_f32
+    # K2, K3 and K4 on float32 above head dim 128 (three TF32 products a
+    # float32 product), timed at d256_long_f32
     f32 = next(row for row in rows if row["case"] == "d256_long_f32")
-    kernels["flash_attention_fwd"]["wide_f32"] = {
-        "source": FLASH_TF32_SOURCE, "instances": FLASH_F32_WIDE_INSTANCES,
-        "replaces": FLASH_SOURCES["flash_attention_fwd"][1],
-        "head_dims": f"{fa.HEAD_DIMS[-1] + 1}-{fa.WIDE_HEAD_DIMS[-1]}, zero-padded to "
-                     + ", ".join(map(str, fa.WIDE_HEAD_DIMS)),
-        "max_abs_err": wide_f32_err, "timed_at": "d256_long_f32",
-        **f32["times"]["flash_attention_fwd"]}
+    for name, instances in FLASH_F32_WIDE_INSTANCES.items():
+        kernels[name]["wide_f32"] = {
+            "source": FLASH_TF32_SOURCE, "instances": instances,
+            "replaces": FLASH_SOURCES[name][1],
+            "head_dims": f"{fa.HEAD_DIMS[-1] + 1}-{fa.WIDE_HEAD_DIMS[-1]}, zero-padded to "
+                         + ", ".join(map(str, fa.WIDE_HEAD_DIMS)),
+            "max_abs_err": wide_f32_errs[name], "timed_at": "d256_long_f32",
+            **f32["times"][name]}
     for name in FLASH_SOURCES:
         for key in ("wide_bf16", "d384_bf16", "wide_f32"):
             if key not in kernels[name]:

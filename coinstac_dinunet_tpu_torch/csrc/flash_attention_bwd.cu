@@ -31,12 +31,15 @@
 //    arithmetic: both products of a step run on the CUDA cores from float32
 //    tiles in shared memory, as in the forward (flash_attention.cuh), and
 //    agree with the plain version to the last bits.
-//  - above head dim 128: K3 and K4 on bfloat16 q, k, v at the padded head
-//    dims 192, 256, 320, 384 and 512 on the tensor-core kernels of
+//  - above head dim 128, at the padded head dims 192, 256, 320, 384 and
+//    512: K3 and K4 on bfloat16 q, k, v on the wgmma kernels of
 //    flash_attention_wide_wgmma.cuh (K3 at d = 256, B 8, H 4, T 4096 bound
 //    by its products at 0.834 ms; above 320 K3 and K4 as one kernel each
-//    whose two warpgroups share S's and dP's work); both on float32
-//    inputs, and on bfloat16 above 512, on the sliced kernels of
+//    whose two warpgroups share S's and dP's work), and on float32 q, k, v
+//    on the TF32 kernels of flash_attention_wide_tf32.cuh (mma.sync, three
+//    TF32 products a float32 product; K3 and K4 at d = 256, B 8, H 4,
+//    T 4096 bound at 4.998 and 6.664 ms on an NVIDIA H100 80GB HBM3 at
+//    700.00 W).  Above 512 both types run on the sliced kernels of
 //    flash_attention_wide.cuh (one block per output slice of 128 columns;
 //    on bfloat16 inputs they round g_out, p and ds to bfloat16 as well).
 //    g_out arrives in the inputs' type everywhere.
@@ -48,8 +51,9 @@
 // tensor cores' 989 TFLOP/s and the exps at 16 a clock on each of 132 SMs;
 // the tensor-core kernels reach about half of it (PERF.md).  For float32 it
 // is the products at the tensor cores' TF32 rate with three TF32 products a
-// float32 product (495 / 3 = 165 TFLOP/s); these kernels run on the CUDA
-// cores (67 TFLOP/s) and reach about a third of that lower rate.
+// float32 product (495 / 3 = 165 TFLOP/s); the kernels of this file, up to
+// head dim 128, run on the CUDA cores (67 TFLOP/s) and reach about a third
+// of that lower rate.
 //
 // Shared memory of the float32 kernels: K3 holds Q, g_out, K, V
 // (64 x (D + 1) floats each) and dS (64 x 65); K4 holds K, V, Q, g_out, Pᵀ,
@@ -58,6 +62,7 @@
 #include "flash_attention.cuh"
 #include "flash_attention_bwd_wgmma.cuh"
 #include "flash_attention_wide.cuh"
+#include "flash_attention_wide_tf32.cuh"
 #include "flash_attention_wide_wgmma.cuh"
 
 namespace {
@@ -276,25 +281,25 @@ int launch(int is_bf16, const Args& a) {
   return kDq ? launch_dq<D, float>(a) : launch_dkv<D, float>(a);
 }
 
-// bfloat16 above head dim 128: the tensor-core kernels of
-// flash_attention_wide_wgmma.cuh
+// above head dim 128: the tensor-core kernels of
+// flash_attention_wide_wgmma.cuh (bfloat16) and
+// flash_attention_wide_tf32.cuh (float32)
 template <bool kDq, int D>
-int launch_wide(const Args& a) {
+int launch_wide(int is_bf16, const Args& a) {
+  if (!is_bf16) return wide_tf32::launch_bwd<D, kDq>(a);
   return kDq ? wide_wgmma::launch_dq_wide<D>(a) : wide_wgmma::launch_dkv<D>(a);
 }
 
 template <bool kDq>
 int run(int d, int is_bf16, const Args& a) {
   if (a.bh <= 0 || a.tq <= 0 || a.tk <= 0) return 0;
-  if (is_bf16) {
-    switch (d) {
-      case 192: return launch_wide<kDq, 192>(a);
-      case 256: return launch_wide<kDq, 256>(a);
-      case 320: return launch_wide<kDq, 320>(a);
-      case 384: return launch_wide<kDq, 384>(a);
-      case 512: return launch_wide<kDq, 512>(a);
-      default: break;
-    }
+  switch (d) {
+    case 192: return launch_wide<kDq, 192>(is_bf16, a);
+    case 256: return launch_wide<kDq, 256>(is_bf16, a);
+    case 320: return launch_wide<kDq, 320>(is_bf16, a);
+    case 384: return launch_wide<kDq, 384>(is_bf16, a);
+    case 512: return launch_wide<kDq, 512>(is_bf16, a);
+    default: break;
   }
   if (d > 128)
     return is_bf16 ? wide::launch_bwd<__nv_bfloat16, kDq>(a, d)
@@ -312,11 +317,11 @@ int run(int d, int is_bf16, const Args& a) {
 
 // Plain C interfaces, loaded with ctypes.  q (bh, tq, d), k and v (bh, tk, d)
 // and g_out (bh, tq, d) in float32 (is_bf16 = 0) or bfloat16 (is_bf16 = 1);
-// above d = 128 the bfloat16 K3 and K4 at d = 192, 256, 320, 384 and 512
-// run on the tensor-core kernels of flash_attention_wide_wgmma.cuh
-// (replacing _dq_kernel and _dkv_kernel there; the wrapper pads 129-512 to
-// these), every other d above 128 on the sliced kernels of
-// flash_attention_wide.cuh;
+// above d = 128, K3 and K4 at d = 192, 256, 320, 384 and 512 run on the
+// tensor-core kernels of flash_attention_wide_wgmma.cuh (bfloat16) and
+// flash_attention_wide_tf32.cuh (float32), replacing _dq_kernel and
+// _dkv_kernel there (the wrapper pads 129-512 to these), every other d
+// above 128 on the sliced kernels of flash_attention_wide.cuh;
 // lse, delta and g_lse (bh, tq) float32; dq (bh, tq, d), dk and dv
 // (bh, tk, d) float32.  d is 16, 32, 64, 128 or any d above 128.  Each launches on `stream` and
 // returns cudaGetLastError() (0 = launched), or cudaErrorInvalidValue when

@@ -7,9 +7,9 @@
 // a whole (rows, d) tile per operand in shared memory and a whole output row
 // in registers, which stops at d = 128; flash_attention_wide_wgmma.cuh
 // takes bfloat16 K2, K3 and K4 from 129 to 512 onto the tensor cores, and
-// flash_attention_wide_tf32.cuh float32 K2.  These kernels take the rest,
-// at any d above 128, with the same masks and outputs: K3 and K4 on
-// float32 inputs, and all three above 512.
+// flash_attention_wide_tf32.cuh float32 K2, K3 and K4.  These kernels take
+// the rest, all three above 512 in both types, with the same masks and
+// outputs (and any d above 128 that a caller passes unpadded).
 //  - the head dim goes in slices of kS = 128 columns (the last one
 //    zero-filled past d), so shared memory holds a few (64, 128) slices
 //    and never a whole row, whatever d is;
@@ -44,8 +44,8 @@
 // TFLOP/s (as flash_attention_wide_tf32.cuh computes it).  The CUDA cores
 // they run on give 67 TFLOP/s.  The slicing recomputes the scores once per
 // output slice, so at d = 256 the forward does about twice the work of the
-// function and K4 about 1.5 times.  A simple kernel that is right: its
-// times are in PERF.md.
+// function and K4 about 1.5 times (at d = 576, 3.6 and 3.1 times).  A
+// simple kernel that is right: its times are in PERF.md.
 #pragma once
 
 #include <type_traits>

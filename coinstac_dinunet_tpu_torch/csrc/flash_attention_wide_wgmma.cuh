@@ -12,9 +12,9 @@
 // log2 e folded in) multiplies the float32 scores; p (K2, K4) and ds (K3,
 // K4) are rounded to bfloat16 only as the register A operand of the second
 // products, and g_out arrives in bfloat16 (one cast in the wrapper); dq and
-// dk take `scale` at the store.  Float32 inputs above 128 (but K2, which
-// flash_attention_wide_tf32.cuh takes) and bfloat16 inputs above 512 keep
-// the sliced CUDA-core kernels of flash_attention_wide.cuh.
+// dk take `scale` at the store.  Float32 inputs above 128 run on
+// flash_attention_wide_tf32.cuh, and both types above 512 on the sliced
+// CUDA-core kernels of flash_attention_wide.cuh.
 //
 // Bound on an H100 (989 TFLOP/s bfloat16, 3.35 TB/s): K2 does 4·d, K3 6·d
 // and K4 8·d tensor operations per valid (query, key) pair, with one exp,

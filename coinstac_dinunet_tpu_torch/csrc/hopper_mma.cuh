@@ -5,9 +5,9 @@
 // forward (flash_attention_fwd_wgmma.cuh, replacing the TPU kernel
 // _flash_kernel) and the backward (flash_attention_bwd_wgmma.cuh, replacing
 // _dq_kernel and _dkv_kernel), and above head dim 128 the forward, dq and
-// dk/dv (flash_attention_wide_wgmma.cuh); so is the float32 forward above
-// head dim 128 (flash_attention_wide_tf32.cuh: float32 tiles through TMA,
-// mma.sync in TF32, below).
+// dk/dv (flash_attention_wide_wgmma.cuh); so are the float32 forward, dq
+// and dk/dv above head dim 128 (flash_attention_wide_tf32.cuh: float32
+// tiles through TMA, mma.sync in TF32, below).
 //
 // Tile layout.  A (rows, D) bfloat16 tile sits in shared memory as D / 64
 // column chunks (one chunk of D columns at D = 16 and D = 32), each chunk a
@@ -108,8 +108,8 @@ inline bool make_tile_map(CUtensorMap* map, const void* base, int bh, int rows,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// Float32 tiles (the float32 forward above head dim 128, which multiplies
-// on the tensor cores in TF32, see mma_f32x3): a (rows, D) float32 tile sits
+// Float32 tiles (the float32 kernels above head dim 128, which multiply on
+// the tensor cores in TF32, see mma_f32x3): a (rows, D) float32 tile sits
 // in shared memory as D / 32 column chunks, each a dense (rows, 32) array
 // whose 128-byte row is one swizzle span (mode 128B), on a 1024-byte
 // boundary.  Element (r, c) of a chunk lies at byte r·128 + 16·(((c / 4) ^
@@ -397,6 +397,16 @@ __device__ __forceinline__ uint32_t to_tf32(float x) {
 __device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
   big = to_tf32(x);
   small = to_tf32(x - __uint_as_float(big));
+}
+// The same with small handed over unrounded: the TF32 product takes its top
+// 10 significand bits, so at most 2^-21 of |x| is lost where the rounded
+// small loses 2^-22, for two integer operations less a value.  The float32
+// K3 and K4 split so (7-9 % faster than rounding, with the same error
+// against the float32 gate, on an NVIDIA H100 80GB HBM3 at 700.00 W;
+// PERF.md §6 PR 27); K2 rounds.
+__device__ __forceinline__ void split_tf32_trunc(float x, uint32_t& big, uint32_t& small) {
+  big = to_tf32(x);
+  small = __float_as_uint(x - __uint_as_float(big));
 }
 
 // d (16 x 8, float32) += A (16 x 8) · B (8 x 8) in TF32, one warp.  Thread

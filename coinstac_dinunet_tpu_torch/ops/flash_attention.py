@@ -25,19 +25,18 @@ Two implementations of each direction:
   other head dim up to 128 runs on the next of them, q, k, v and g_out
   zero-padded in the head dim and out, dq, dk, dv sliced back
   (:func:`padded_head_dim`; zero columns change no score).  Above 128, K2,
-  K3 and K4 on bfloat16 inputs run on the tensor cores as well
-  (``csrc/flash_attention_wide_wgmma.cuh``, the same roundings), and so
-  does K2 on float32 inputs, each float32 product as three TF32 products
+  K3 and K4 run on the tensor cores as well, on bfloat16 inputs with the
+  same roundings (``csrc/flash_attention_wide_wgmma.cuh``), on float32
+  inputs each float32 product as three TF32 products
   (``csrc/flash_attention_wide_tf32.cuh``), at head dims 192, 256, 320,
   384 and 512, any head dim from 129 to 512 zero-padded to the next of
-  them (:func:`wide_head_dim`, :func:`_kernel_head_dim`).  Every other
-  case above 128 — float32 K3 and K4, and everything above 512 — runs
-  unpadded on the sliced kernels of ``csrc/flash_attention_wide.cuh``
-  (128-column slices of the head dim, each output slice written against a
-  known lse), which compute on the CUDA cores and, on bfloat16 inputs,
-  round ``g_out``, ``p`` and ``ds`` to bfloat16 before their second
-  products as the tensor-core kernels do (K2 ``p`` against the running max
-  of its key tiles);
+  them (:func:`wide_head_dim`, :func:`_kernel_head_dim`).  Above 512 all
+  three run unpadded on the sliced kernels of
+  ``csrc/flash_attention_wide.cuh`` (128-column slices of the head dim,
+  each output slice written against a known lse), which compute on the
+  CUDA cores and, on bfloat16 inputs, round ``g_out``, ``p`` and ``ds`` to
+  bfloat16 before their second products as the tensor-core kernels do (K2
+  ``p`` against the running max of its key tiles);
 - :func:`flash_forward_plain` and :func:`flash_backward_plain`, plain
   PyTorch in float32 with autocast off (the dense form of the same
   identities, the counterparts of ``_flash_xla`` and the XLA backward),
@@ -82,12 +81,12 @@ _LN2 = 0.6931471805599453
 #: next of them, q, k, v and g_out zero-padded in the head dim
 #: (:func:`padded_head_dim`); above it see ``WIDE_HEAD_DIMS``
 HEAD_DIMS = (16, 32, 64, 128)
-#: head dims above ``HEAD_DIMS[-1]`` that K2, K3 and K4 on bfloat16 inputs
-#: (``csrc/flash_attention_wide_wgmma.cuh``) and K2 on float32 inputs
-#: (``csrc/flash_attention_wide_tf32.cuh``) run at on the tensor cores: a
-#: head dim from 129 to the largest runs on the next of them, zero-padded
-#: (:func:`wide_head_dim`); float32 K3 and K4, and head dims above the
-#: largest, run on the sliced kernels at their own width
+#: head dims above ``HEAD_DIMS[-1]`` that K2, K3 and K4 run at on the
+#: tensor cores (bfloat16 inputs: ``csrc/flash_attention_wide_wgmma.cuh``;
+#: float32 inputs: ``csrc/flash_attention_wide_tf32.cuh``): a head dim
+#: from 129 to the largest runs on the next of them, zero-padded
+#: (:func:`wide_head_dim`); head dims above the largest run on the sliced
+#: kernels at their own width
 WIDE_HEAD_DIMS = (192, 256, 320, 384, 512)
 #: keys of a K/V tile of the bfloat16 forward kernel up to ``HEAD_DIMS[-1]``
 #: (``Config<D>::kN`` in ``csrc/flash_attention_fwd_wgmma.cuh``): the tiles
@@ -317,8 +316,8 @@ def flash_backward_plain(q, k, v, out, lse, g_out, g_lse, q_offset, k_offset,
 def padded_head_dim(d):
     """The head dim a head dim ``d`` runs at: up to ``HEAD_DIMS[-1]`` the
     smallest instantiated one (``HEAD_DIMS``) that holds it, above it ``d``
-    itself (the sliced kernels take any width; the bfloat16 tensor-core
-    kernels there pad to :func:`wide_head_dim` instead).  Zero columns change no
+    itself (the sliced kernels take any width; the tensor-core kernels
+    there pad to :func:`wide_head_dim` instead).  Zero columns change no
     score ``q·k`` and add nothing to ``p·v``, so the kernel's output, lse
     and gradients in the first ``d`` columns are those of the unpadded call
     (given the unpadded head dim's scale); the padded columns are
@@ -332,8 +331,8 @@ def padded_head_dim(d):
 
 
 def wide_head_dim(d):
-    """The head dim the tensor-core kernels above ``HEAD_DIMS[-1]`` (every
-    bfloat16 kernel and the float32 K2) run at for a head dim ``d``: the
+    """The head dim the tensor-core kernels above ``HEAD_DIMS[-1]`` (K2, K3
+    and K4 of both types) run at for a head dim ``d``: the
     smallest of ``WIDE_HEAD_DIMS`` that holds it, or ``None`` above the
     largest (the sliced kernels, at ``d`` itself).  Zero-padded as
     :func:`padded_head_dim` says."""
@@ -342,12 +341,12 @@ def wide_head_dim(d):
 
 def _kernel_head_dim(d, dtype, kernel=FWD_KERNEL):
     """The head dim ``kernel`` (``FWD_KERNEL``, ``DQ_KERNEL`` or
-    ``DKV_KERNEL``) runs at on inputs of ``dtype``: the padded ones (any
-    kernel up to ``HEAD_DIMS[-1]``; above it the ones on the tensor cores,
-    :func:`wide_head_dim`: every bfloat16 kernel and the float32 K2), else
-    ``d`` itself (the sliced kernels: float32 K3 and K4, and every kernel
-    above ``WIDE_HEAD_DIMS[-1]``)."""
-    if d > HEAD_DIMS[-1] and (dtype == torch.bfloat16 or kernel is FWD_KERNEL):
+    ``DKV_KERNEL``) runs at on inputs of ``dtype``: up to ``HEAD_DIMS[-1]``
+    :func:`padded_head_dim`, above it :func:`wide_head_dim` (the
+    tensor-core kernels), and ``d`` itself above ``WIDE_HEAD_DIMS[-1]``
+    (the sliced kernels).  The same for every dtype and kernel; a caller
+    names the ones it asks about."""
+    if d > HEAD_DIMS[-1]:
         return wide_head_dim(d) or d
     return padded_head_dim(d)
 

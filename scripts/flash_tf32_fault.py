@@ -1,16 +1,18 @@
 #!/usr/bin/env python3
-"""The float32 K2's planted one-product fault against phase 3's gate.
+"""The float32 K2's, K3's and K4's planted one-product fault against phase
+3's gate.
 
-The float32 forward above head dim 128 (``csrc/flash_attention_wide_tf32.cuh``)
-computes each float32 product as three TF32 products (``mma_f32x3`` in
+The float32 kernels above head dim 128 (``csrc/flash_attention_wide_tf32.cuh``)
+compute each float32 product as three TF32 products (``mma_f32x3`` in
 ``csrc/hopper_mma.cuh``).  This script copies the package into a temporary
 directory, replaces ``mma_f32x3``'s three products there by big·big alone
 (one TF32 product), builds both packages, and runs the intact and the
-faulty kernel at every float32 case of ``chip_smoke.FLASH_CASES`` that the
-tensor-core kernel takes, with phase 3's inputs (the generator seeded with
-the case's position).  For each it prints one JSON line: the largest
-``|kernel − plain|`` of ``out`` and of ``lse`` over phase 3's gate,
-``FLASH_RTOL·max|plain| + FLASH_ATOL`` (at most 1 passes).  The faulty
+faulty kernels at every float32 case of ``chip_smoke.FLASH_CASES`` that the
+tensor-core kernels take, with phase 3's inputs (the generator seeded with
+the case's position; the backward from the plain forward's lse, as phase 3
+feeds it).  For each it prints one JSON line: the largest ``|kernel −
+plain|`` of ``out``, ``lse``, ``dq``, ``dk`` and ``dv`` over phase 3's
+gate, ``FLASH_RTOL·max|plain| + FLASH_ATOL`` (at most 1 passes).  The faulty
 package is made and deleted under the temporary directory; the checkout is
 not touched.  Needs one CUDA card; imports torch, not JAX:
 
@@ -42,17 +44,28 @@ def excess(got, want):
     tol = cs.FLASH_RTOL * float(want.abs().max()) + cs.FLASH_ATOL
     return float((got - want).abs().max()) / tol
 
-for idx, (case, b, h, t, d, dtype, causal, qo, ko, kv, _) in enumerate(cs.FLASH_CASES):
+for idx, (case, b, h, t, d, dtype, causal, qo, ko, kv, nz_glse) in enumerate(cs.FLASH_CASES):
     if dtype != "float32" or fa.wide_head_dim(d) is None:
         continue
     gen = torch.Generator(device=dev).manual_seed(idx)
-    q, k, v = [torch.randn((b * h, t, d), generator=gen, device=dev) for _ in range(3)]
+    bh = b * h
+    q, k, v = [torch.randn((bh, t, d), generator=gen, device=dev) for _ in range(3)]
     pos = (qo, ko, t if kv is None else kv, causal, d ** -0.5)
     out, lse = fa.flash_forward_cuda(q, k, v, *pos)
     want, want_lse = fa.flash_forward_plain(q, k, v, *pos)
-    print(json.dumps({"kernel": label, "case": case, "out_excess": excess(out, want),
-                      "lse_excess": excess(lse, want_lse),
-                      "device": torch.cuda.get_device_name(0)}), flush=True)
+    g_out = torch.randn((bh, t, d), generator=gen, device=dev)
+    g_lse = (torch.randn((bh, t), generator=gen, device=dev) if nz_glse
+             else torch.zeros((bh, t), device=dev))
+    args = (q, k, v, g_out, want_lse, fa.flash_delta(want, g_out), g_lse, *pos)
+    grads = (fa.flash_dq_cuda(*args), *fa.flash_dkv_cuda(*args))
+    wants = (fa.flash_dq_plain(*args), *fa.flash_dkv_plain(*args))
+    line = {"kernel": label, "case": case, "out_excess": excess(out, want),
+            "lse_excess": excess(lse, want_lse)}
+    for name, got, w in zip(("dq", "dk", "dv"), grads, wants):
+        line[name + "_excess"] = excess(got, w)
+    print(json.dumps({**line, "device": torch.cuda.get_device_name(0)}), flush=True)
+    del q, k, v, out, lse, want, want_lse, g_out, g_lse, args, grads, wants
+    torch.cuda.empty_cache()
 """
 
 

@@ -18,11 +18,12 @@ bfloat16, not causal, the other tensor-core head dims 192 and 320
 (``d384``, ``d512``: K2, K3 and K4 on the tensor cores), the
 site-vectorized path's folded batch (``vec``: B 272, H 4, T 4096, d 32),
 and head dims 192, 256, 384 and 512 in float32 (``d192_f32``,
-``d256_f32``, ``d384_f32``, ``d512_f32``: K2 on the tensor cores as three
-TF32 products a float32 product, K3 and K4 on the sliced kernels).  The
+``d256_f32``, ``d384_f32``, ``d512_f32``: K2, K3 and K4 on the tensor
+cores as three TF32 products a float32 product).  The
 inputs are random from a seed; ``g_out`` is float32, as the model hands it
 to the kernels.  Each line carries a SHA-256 of the
-kernels' outputs (out, lse, dq, dk, dv) on those inputs, so two roots'
+kernels' outputs (out, lse, dq, dk, dv) on those inputs, and one each of
+the forward's (out, lse) and the backward's (dq, dk, dv), so two roots'
 lines say whether the kernels compute the same bits.  Times are CUDA events
 around 20 launches after 3 warm-up launches.  Beside them,
 ``scaled_dot_product_attention``'s forward and its backward (dq, dk and dv
@@ -118,9 +119,12 @@ def worker(root, shapes):
         fwd_ms = cuda_ms(lambda: fa.flash_forward_cuda(q, k, v, *pos))
         g_out = torch.randn(out.shape, generator=gen, device=dev)
         args = (q, k, v, g_out, lse, fa.flash_delta(out, g_out), torch.zeros_like(lse), *pos)
-        digest = hashlib.sha256()
-        for x in (out, lse, fa.flash_dq_cuda(*args), *fa.flash_dkv_cuda(*args)):
+        digest, fwd_digest, bwd_digest = (hashlib.sha256() for _ in range(3))
+        grads = (fa.flash_dq_cuda(*args), *fa.flash_dkv_cuda(*args))
+        for x in (out, lse, *grads):
             digest.update(x.cpu().numpy().tobytes())
+            (fwd_digest if x is out or x is lse else bwd_digest).update(x.cpu().numpy().tobytes())
+        del grads
         dq_ms = cuda_ms(lambda: fa.flash_dq_cuda(*args))
         dkv_ms = cuda_ms(lambda: fa.flash_dkv_cuda(*args))
         ql, kl, vl = [x.reshape(b, h, t, d).detach().requires_grad_() for x in (q, k, v)]
@@ -132,7 +136,9 @@ def worker(root, shapes):
         lib_names = library_kernels(lambda: torch.autograd.grad(
             F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal), (ql, kl, vl), gl))
         print(json.dumps({"root": root, "shape": name, "dtype": dtype,
-                          "outputs_sha256": digest.hexdigest()[:16], "fwd_ms": fwd_ms,
+                          "outputs_sha256": digest.hexdigest()[:16],
+                          "fwd_sha256": fwd_digest.hexdigest()[:16],
+                          "bwd_sha256": bwd_digest.hexdigest()[:16], "fwd_ms": fwd_ms,
                           "dq_ms": dq_ms, "dkv_ms": dkv_ms, "library_forward_ms": lib_fwd_ms,
                           "library_backward_ms": lib_ms, "library_kernels": lib_names,
                           "device": torch.cuda.get_device_name(0)}), flush=True)

@@ -11,12 +11,12 @@ compute in float32 from the same inputs; they differ in the order of the
 float32 sums and in ``expf`` against torch's ``exp``).  The backward kernels
 take no atomics, so two launches agree bit for bit.
 
-Head dims 160, 256, 320, 384, 512 and 576 run the float32 K3 and K4 on
-the sliced kernels (``csrc/flash_attention_wide.cuh``), in float32 on the
-CUDA cores, and the float32 K2 up to 512 on the tensor cores as three TF32
-products a float32 product (``csrc/flash_attention_wide_tf32.cuh``, the
-head dim zero-padded to 192, 256, 320, 384 or 512; 576 on the sliced
-kernel): there the same tolerances hold.  The bfloat16 K2, K3 and K4 run
+Head dims 160, 256, 320, 384 and 512 run the float32 K2, K3 and K4 on the
+tensor cores as three TF32 products a float32 product
+(``csrc/flash_attention_wide_tf32.cuh``, the head dim zero-padded to 192,
+256, 320, 384 or 512), and 576 on the sliced kernels
+(``csrc/flash_attention_wide.cuh``), in float32 on the CUDA cores: there
+the same tolerances hold.  The bfloat16 K2, K3 and K4 run
 on the tensor cores up to 512 (``csrc/flash_attention_wide_wgmma.cuh``,
 padded the same way), at 576 on the sliced kernels, all with the
 roundings below, and are held as below; at T 2048 also to the derived
@@ -45,10 +45,9 @@ import torch
 
 fa = importlib.import_module("coinstac_dinunet_tpu_torch.ops.flash_attention")
 
-# the instantiated head dims and, above 128, head dims the bfloat16 K2, K3
-# and K4 and the float32 K2 pad to 192, 256, 320, 384 and 512, and 576,
-# where all three run on the sliced kernels, as the float32 K3 and K4 do at
-# every head dim above 128
+# the instantiated head dims and, above 128, head dims K2, K3 and K4 of
+# both types pad to 192, 256, 320, 384 and 512, and 576, where all three
+# run on the sliced kernels
 KERNEL_HEAD_DIMS = (*fa.HEAD_DIMS, 160, 256, 320, 384, 512, 576)
 
 CASES = [  # (causal, q_offset, k_offset, kv_len, g_lse nonzero)
@@ -121,6 +120,25 @@ def test_f32_wide_forward_of_a_long_sequence(card, d):
         _close(lse, want_lse)
         again = fa.flash_forward_cuda(*qkv, *pos)
         assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [160, 256, 384, 512])
+def test_f32_wide_backward_of_a_long_sequence(card, d):
+    """The float32 K3 and K4 above 128 (three TF32 products a float32
+    product) over many key and query tiles, unmasked and causal, with a
+    nonzero lse cotangent: dq, dk and dv within 1e-4·max of the float32
+    plain versions (TF32 off), and bit-identical reruns."""
+    for case in [(False, 0, 0, 1024, True), (True, 0, 0, 1024, True)]:
+        qkv, pos, (out, lse, g_out, g_lse) = _inputs(card, d, torch.float32, case, bh=2, t=1024)
+        args = (*qkv, g_out, lse, fa.flash_delta(out, g_out), g_lse, *pos)
+        dq = fa.flash_dq_cuda(*args)
+        dk, dv = fa.flash_dkv_cuda(*args)
+        _close(dq, fa.flash_dq_plain(*args))
+        for got, want in zip((dk, dv), fa.flash_dkv_plain(*args)):
+            _close(got, want)
+        assert torch.equal(dq, fa.flash_dq_cuda(*args))
+        assert all(torch.equal(a, b) for a, b in zip((dk, dv), fa.flash_dkv_cuda(*args)))
 
 
 @pytest.mark.cuda
@@ -293,8 +311,8 @@ def test_autograd_function_launches_the_kernels(card):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_autograd_function_launches_the_kernels_above_head_dim_128(card, dtype):
     """Head dim 256 through the autograd function: one launch of each
-    kernel (the tensor-core K2, K3 and K4 in bfloat16, the sliced ones
-    otherwise), never the plain version."""
+    kernel (the tensor-core K2, K3 and K4: wgmma in bfloat16, three TF32
+    products a float32 product in float32), never the plain version."""
     q, k, v = [torch.randn((2, 2, 200, 256), device=card, dtype=dtype,
                            requires_grad=True) for _ in range(3)]
     before = [kern.launches for kern in fa.KERNELS]

@@ -17,10 +17,10 @@ Above 128, bfloat16 K2, K3 and K4 run on the tensor cores at the head dim
 zero-padded to 192, 256, 320, 384 or 512 (``wide_head_dim``), with the
 roundings of the kernels below it (``p`` and ``ds`` in bfloat16, the
 forward's online softmax over key tiles of 64, or 32 at 384 and 512), and
-so does the float32 K2 (three TF32 products a float32 product, no
-rounding); the float32 K3 and K4 and every head dim above 512 run on the
-sliced kernels at the head dim itself, which on bfloat16 inputs round the
-same values (the forward's running max over key tiles of 64).
+so do the float32 K2, K3 and K4 (three TF32 products a float32 product, no
+rounding); every head dim above 512 runs on the sliced kernels at the head
+dim itself, which on bfloat16 inputs round the same values (the forward's
+running max over key tiles of 64).
 So the rounding-matched plain forward, dq and dk/dv round at every head
 dim (held to the JAX package's bfloat16 attention within 2e-2·max, the
 format's error, as below 128), and the unrounded plain versions equal JAX
@@ -213,10 +213,9 @@ def test_wide_plain_versions_ignore_round_dtype(d):
 
 
 def test_wide_head_dim_maps_bf16_k2_k4_to_the_tensor_core_dims():
-    """bfloat16 K2, K3 and K4 and the float32 K2 from 129 to 512 run at the
-    next of 192, 256, 320, 384 and 512 (``_kernel_head_dim``); every kernel
-    above 512 and the float32 K3 and K4
-    at the head dim itself (the sliced kernels); up to 128 every kernel at
+    """K2, K3 and K4 from 129 to 512, bfloat16 and float32, run at the next
+    of 192, 256, 320, 384 and 512 (``_kernel_head_dim``); every kernel above
+    512 at the head dim itself (the sliced kernels); up to 128 every kernel at
     ``padded_head_dim``.  Every bfloat16 kernel rounds (``rounds_at``), and
     the key tiles are those of the kernel that runs the head dim."""
     for d in range(129, 513):
@@ -227,7 +226,7 @@ def test_wide_head_dim_maps_bf16_k2_k4_to_the_tensor_core_dims():
         assert fa._kernel_head_dim(d, torch.float32) == dim
         for kernel in (fa.DQ_KERNEL, fa.DKV_KERNEL):
             assert fa._kernel_head_dim(d, torch.bfloat16, kernel) == dim
-            assert fa._kernel_head_dim(d, torch.float32, kernel) == d
+            assert fa._kernel_head_dim(d, torch.float32, kernel) == dim
         assert fa.rounds_at(d, dq=True)
     for d in (513, 576, 1000):
         assert fa.wide_head_dim(d) is None
