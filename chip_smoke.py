@@ -26,12 +26,17 @@ Phases, in order; any failure exits non-zero before the last line:
    K3 and K4 run on the tensor cores
    (``csrc/flash_attention_wide_wgmma.cuh``, zero-padded to 192, 256 or
    320), the float32 K2, K3 and K4 too, as three TF32 products a float32
-   product (``csrc/flash_attention_wide_tf32.cuh``, padded the same way),
+   product (``csrc/flash_attention_tf32.cuh``, padded the same way),
    and at head dims 384 and 576 (both types) and 512 (bfloat16; d 384 also
    at B 8, H 4, T 4096, timed), where K2, K3 and K4 of both types run on
    the tensor cores up to 512 (padded to 384 or 512) and all three above
    512 on the sliced kernels (``csrc/flash_attention_wide.cuh``), which
-   round as the TPU does; within stated tolerances
+   round as the TPU does; float32 at T 4096 at path 2's shape with head
+   dim 32 and at path 16's one-rank shape (head dim 16, causal), timed,
+   where up to 128 the float32 K2 and K4 run as three TF32 products and K3
+   on the CUDA cores; at the sequence example's shape each wrapper's
+   launches also under ``torch.profiler`` (the kernel's device time beside
+   the wrapper call's); within stated tolerances
    (the bfloat16 forward, dq and dk/dv against the plain version with the
    kernels' bfloat16 roundings and against the float32 one, with
    ``scaled_dot_product_attention``'s forward and backward as the
@@ -388,7 +393,7 @@ CUDA_CORE_OPS_PER_S = 67e12
 BF16_TENSOR_OPS_PER_S = 989e12
 # float32 products on the tensor cores: the TF32 rate (495 TFLOP/s dense)
 # with three TF32 products a float32 product (big·big + big·small +
-# small·big, as csrc/flash_attention_wide_tf32.cuh and the library's
+# small·big, as csrc/flash_attention_tf32.cuh and the library's
 # float32 attention compute them); the least time of a float32 product
 F32_TENSOR_OPS_PER_S = 495e12 / 3
 # exponentials a clock on one SM's special function units
@@ -638,8 +643,9 @@ def check_quantize(dev, report):
 # shape scripts/validate_tpu.py measured the TPU kernels at; the rest are
 # edges: a T that is no tile multiple, every head dim, a masked key tail,
 # no valid key at all, a causal slice with every row masked, and a causal
-# slice with both offsets nonzero.  Every edge runs in float32 (the
-# CUDA-core kernels) and in bfloat16 (the tensor-core kernels).
+# slice with both offsets nonzero.  Every edge runs in float32 (K2 and K4
+# on the TF32 tensor-core kernels, K3 on the CUDA cores) and in bfloat16
+# (the wgmma kernels).
 _FLASH_EDGES = [
     ("t160", 1, 2, 160, 32, False, 0, 0, None, True),
     ("t160_causal", 1, 2, 160, 32, True, 0, 0, None, True),
@@ -668,7 +674,7 @@ _FLASH_PADDED_EDGES = [
 # types.  In bfloat16, K2, K3 and K4 run on the tensor-core kernels of
 # csrc/flash_attention_wide_wgmma.cuh (d zero-padded to 192, 256 or 320)
 # and are held to the rounding-matched plain version; in float32 K2, K3
-# and K4 run on the tensor cores too (csrc/flash_attention_wide_tf32.cuh,
+# and K4 run on the tensor cores too (csrc/flash_attention_tf32.cuh,
 # padded the same way).  (Above 320: the d 384, 512 and 576 cases below.)
 _FLASH_WIDE_EDGES = [
     ("t160_d160", 1, 2, 160, 160, False, 0, 0, None, True),
@@ -722,6 +728,11 @@ FLASH_CASES = [
     # 576 in float32: past the TF32 kernels' widths, so all three on the
     # sliced float32 kernels (last, so every earlier case keeps its seed)
     ("offsets_d576", 1, 2, 333, 576, "float32", True, 100, 37, 300, True),
+    # float32 at T 4096, timed (K2 and K4 on the TF32 kernels, K3 on the
+    # CUDA cores): path 2's shape at the compspec's head dim 32, and path
+    # 16's float32 pair at one rank (TSP d_model 128 over 8 heads, causal)
+    ("main_f32", 16, 4, 4096, 32, "float32", False, 0, 0, None, False),
+    ("tsp_f32", 16, 8, 4096, 16, "float32", True, 0, 0, None, False),
 ]
 # Tolerance of a kernel's output against its plain version: 1e-4 of the
 # plain output's largest magnitude, plus 1e-6.  Both compute in float32 from
@@ -776,14 +787,31 @@ FLASH_D16_TIMED = ("seq_example", "seq_example_f32", "d16_long")
 FLASH_PADDED_TIMED = ("d4_long", "d8_long", "d24_long_f32")
 FLASH_WIDE_TIMED = ("d256_long", "d256_long_f32")
 FLASH_D384_TIMED = ("d384_long",)
+# float32 up to head dim 128 at T 4096 (K2 and K4 on the TF32 kernels)
+FLASH_F32_TIMED = ("main_f32", "tsp_f32")
 FLASH_TIMED = ("main", "tpu", "vectorized", *FLASH_D16_TIMED, *FLASH_PADDED_TIMED,
-               *FLASH_WIDE_TIMED, *FLASH_D384_TIMED)
+               *FLASH_WIDE_TIMED, *FLASH_D384_TIMED, *FLASH_F32_TIMED)
+# At the sequence example's shape (B 8, H 4, T 128, d 16) the bound is a few
+# microseconds, so the CUDA events around back-to-back wrapper calls may
+# time the wrapper's host work: there each wrapper's launches also run
+# under torch.profiler, which gives the kernel's own device time a launch
+# and the names of the kernels it ran, held to fa.kernel_route
+FLASH_DEVICE_SPLIT = ("seq_example", "seq_example_f32")
+FLASH_SPLIT_LAUNCHES = 20
+# the CUDA kernel (its name up to the template arguments) a wrapper runs by
+# route up to head dim 128 (fa.kernel_route)
+FLASH_ROUTE_KERNELS = {
+    ("flash_attention_fwd", "tf32"): "flash_fwd_tf32_kernel",
+    ("flash_attention_fwd", "wgmma"): "flash_fwd_wgmma_kernel",
+    ("flash_attention_dq", "cuda_cores"): "flash_dq_kernel",
+    ("flash_attention_dkv", "tf32"): "flash_dkv_tf32_rows_kernel",
+}
 # K2, K3 and K4 on bfloat16 inputs above head dim 128 (the kernels line's
 # "wide_bf16" entries at d256_long, "d384_bf16" at d384_long: the
 # instances that run there), and K2, K3 and K4 on float32 inputs above it
 # ("wide_f32" at d256_long_f32)
 FLASH_WIDE_SOURCE = "coinstac_dinunet_tpu_torch/csrc/flash_attention_wide_wgmma.cuh"
-FLASH_TF32_SOURCE = "coinstac_dinunet_tpu_torch/csrc/flash_attention_wide_tf32.cuh"
+FLASH_TF32_SOURCE = "coinstac_dinunet_tpu_torch/csrc/flash_attention_tf32.cuh"
 FLASH_D384_INSTANCES = {
     "flash_attention_fwd": (FLASH_WIDE_SOURCE,
                             ["flash_fwd_wide_kernel<384>", "flash_fwd_wide_kernel<512>"]),
@@ -792,6 +820,12 @@ FLASH_D384_INSTANCES = {
     "flash_attention_dkv": (FLASH_WIDE_SOURCE,
                             ["flash_dkv_split_kernel<384>", "flash_dkv_split_kernel<512>"]),
 }
+# K2 and K4 on float32 inputs up to 128 (the kernels line's "f32_tf32"
+# entries, timed at main_f32)
+FLASH_F32_INSTANCES = {
+    name: [f"{kernel}<{d}>" for d in (16, 32, 64, 128)]
+    for name, kernel in (("flash_attention_fwd", "flash_fwd_tf32_kernel"),
+                         ("flash_attention_dkv", "flash_dkv_tf32_rows_kernel"))}
 FLASH_F32_WIDE_INSTANCES = {
     name: [f"{kernel}<{d}>" for d in (192, 256, 320, 384, 512)]
     for name, kernel in (("flash_attention_fwd", "flash_fwd_tf32_kernel"),
@@ -969,6 +1003,7 @@ def check_flash(dev, report):
     library_errs = {}
     wide_errs = {name: 0.0 for name in FLASH_SOURCES}
     wide_f32_errs = {name: 0.0 for name in FLASH_SOURCES}  # float32 above head dim 128
+    f32_errs = {name: 0.0 for name in FLASH_SOURCES}  # float32 up to head dim 128
     exp_per_s = (EXP_PER_CLOCK_PER_SM * torch.cuda.get_device_properties(dev).multi_processor_count
                  * max_sm_clock_hz())
     for (case, b, h, t, d, dtype, causal, qo, ko, kv, nz_glse) in FLASH_CASES:
@@ -1098,6 +1133,9 @@ def check_flash(dev, report):
         if not bf16 and fa.wide_head_dim(d) is not None:
             for name, e in zip(FLASH_SOURCES, (e_fwd, e_dq, e_dkv)):
                 wide_f32_errs[name] = max(wide_f32_errs[name], e)
+        if not bf16 and d <= fa.HEAD_DIMS[-1]:
+            for name, e in zip(FLASH_SOURCES, (e_fwd, e_dq, e_dkv)):
+                f32_errs[name] = max(f32_errs[name], e)
         row = {"case": case, "shape": [b, h, t, d], "dtype": dtype, "causal": causal,
                "q_offset": qo, "k_offset": ko, "kv_len": kv_len, "g_lse_nonzero": nz_glse,
                "max_abs_err": {"fwd": e_fwd, "dq": e_dq, "dkv": e_dkv},
@@ -1122,7 +1160,8 @@ def check_flash(dev, report):
         for group, cases in (("times_d16", FLASH_D16_TIMED),
                              ("times_padded_d", FLASH_PADDED_TIMED),
                              ("times_d256", FLASH_WIDE_TIMED),
-                             ("times_d384", FLASH_D384_TIMED)):
+                             ("times_d384", FLASH_D384_TIMED),
+                             ("times_f32", FLASH_F32_TIMED)):
             if row["case"] in cases:
                 for name, kern in kernels.items():
                     kern.setdefault(group, {})[row["case"]] = row["times"][name]
@@ -1163,12 +1202,22 @@ def check_flash(dev, report):
                          + ", ".join(map(str, fa.WIDE_HEAD_DIMS)),
             "max_abs_err": wide_f32_errs[name], "timed_at": "d256_long_f32",
             **f32["times"][name]}
+    # K2 and K4 on float32 up to head dim 128 (three TF32 products a float32
+    # product), timed at main_f32
+    f32 = next(row for row in rows if row["case"] == "main_f32")
+    for name, instances in FLASH_F32_INSTANCES.items():
+        kernels[name]["f32_tf32"] = {
+            "source": FLASH_TF32_SOURCE, "instances": instances,
+            "replaces": FLASH_SOURCES[name][1],
+            "head_dims": f"1-{fa.HEAD_DIMS[-1]}, zero-padded to "
+                         + ", ".join(map(str, fa.HEAD_DIMS)),
+            "max_abs_err": f32_errs[name], "timed_at": "main_f32", **f32["times"][name]}
     for name in FLASH_SOURCES:
-        for key in ("wide_bf16", "d384_bf16", "wide_f32"):
+        for key in ("wide_bf16", "d384_bf16", "wide_f32", "f32_tf32"):
             if key not in kernels[name]:
                 continue
             times = kernels[name][key]
-            log(f"  {name} {'float32' if key == 'wide_f32' else 'bfloat16'} "
+            log(f"  {name} {'bfloat16' if key.endswith('bf16') else 'float32'} "
                 f"{times['timed_at']}: {times['ms']:.4f} ms, "
                 f"{times['bound_ms'] / times['ms']:.1%} of its bound {times['bound_ms']:.4f} ms, "
                 f"{times['ms'] / times['library_ms']:.2f} x the library's "
@@ -1217,8 +1266,55 @@ def time_flash(fa, F, case, shape, q, k, v, g_out, args, pos, kernels, exp_per_s
                 "name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": None, "max_abs_err": None, **out[name],
             }
+    if case in FLASH_DEVICE_SPLIT:
+        for name, (kern, _) in timed.items():
+            out[name]["device_split"] = flash_device_split(fa, name, kern, q.dtype, d)
+            split = out[name]["device_split"]
+            log(f"    {name:20s} at {case}: kernel device time {split['device_ms']:.4f} ms a "
+                f"launch of {out[name]['ms']:.4f} ms a wrapper call (torch.profiler saw "
+                f"{split['launches_seen']} of {FLASH_SPLIT_LAUNCHES} launches; other device "
+                f"work {split['other_device_ms']:.4f} ms a launch; wall "
+                f"{split['wall_ms']:.4f} ms a call): " + ", ".join(split["kernels"]))
     del lib_out
     return out
+
+
+def flash_device_split(fa, name, kern, dtype, d):
+    """``FLASH_SPLIT_LAUNCHES`` calls of one wrapper under torch.profiler:
+    the port kernel's device time a launch and the other device work a
+    launch (over the launches the profiler saw, which may miss the first
+    few), the wall time a call, and the names of the kernels that ran,
+    which must be the route's (``fa.kernel_route``,
+    ``FLASH_ROUTE_KERNELS``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    kern()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(FLASH_SPLIT_LAUNCHES):
+            kern()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    summary = profile_summary(prof, wall)
+    ours = summary["port_kernels"]
+    device_ms = sum(op["device_ms"] for op in ours)
+    seen = sum(op["count"] for op in ours)
+    route = fa.kernel_route(d, dtype, {"flash_attention_fwd": fa.FWD_KERNEL,
+                                       "flash_attention_dq": fa.DQ_KERNEL,
+                                       "flash_attention_dkv": fa.DKV_KERNEL}[name])
+    want = FLASH_ROUTE_KERNELS.get((name, route))
+    names = [op["name"] for op in ours]
+    if not 0 < seen <= FLASH_SPLIT_LAUNCHES or (
+            want is not None and not all(f"{want}<" in n for n in names)):
+        raise AssertionError(f"{name} ({route}, head dim {d}): the profiler saw {names} "
+                             f"({[op['count'] for op in ours]} launches), expected up to "
+                             f"{FLASH_SPLIT_LAUNCHES} of {want}")
+    return {"route": route, "kernels": names, "launches_seen": seen,
+            "device_ms": device_ms / seen,
+            "other_device_ms": (summary["device_busy_s"] * 1e3 - device_ms) / seen,
+            "wall_ms": wall * 1e3 / FLASH_SPLIT_LAUNCHES}
 
 
 def check_reference(dev):
@@ -5676,6 +5772,7 @@ def run_tsp_case(dev, shape, cfg, whole, batches, steps=TSP_STEPS, split=None):
     mesh = seq.build_tsp_mesh(*shape, devices=[dev] * n, split=split)
     params = seq.shard_tsp_params(whole, mesh)
     stats = []
+    before = [kern.launches for kern in fa.KERNELS]
     with torch.no_grad():
         logits, aux = seq.tsp_forward(params, batches[0][0], cfg, mesh, stats=stats)
     xs, ys = seq.shard_tsp_batch(*batches[0], mesh)
@@ -5683,6 +5780,10 @@ def run_tsp_case(dev, shape, cfg, whole, batches, steps=TSP_STEPS, split=None):
                                   params, xs, ys)
     stats = [s for s in stats if not s["dropped"].is_meta]
     out = {"shape": list(shape), "logits": logits.float().cpu(), "aux": float(aux),
+           # K2/K3/K4 launches of the forward and the first gradient (the
+           # float32 pair's only work): in float32 K2 and K4 on the TF32
+           # kernels, K3 on the CUDA cores (fa.kernel_route)
+           "first_launches": [kern.launches - b for kern, b in zip(fa.KERNELS, before)],
            "dropped": [float(s["dropped"]) for s in stats],
            "capacity": [s["capacity"] for s in stats],
            "experts": [s["expert"].cpu() for s in stats],
@@ -5774,6 +5875,9 @@ def run_tsp_pair(dev, tag, shape, moe, seed):
     for got, want in ((f32[0], f32[1]), (mesh, one)):  # tokens routed differently a layer
         got["rerouted"] = [int((a != b).sum()) for a, b in zip(got["experts"], want["experts"])]
     dp, tp, sp, _ = shape
+    faults += [f"{tag} float32 {run['shape']}: the forward and first gradient launched "
+               f"K2/K3/K4 {run['first_launches']} times" for run in f32
+               if min(run["first_launches"]) == 0]
     faults += launch_faults(tag, mesh, TSP_ARGS["num_layers"] * dp * tp * sp * sp)
     faults += launch_faults(tag, one, TSP_ARGS["num_layers"])
     # path 18 holds two processes to this process's mesh runs
@@ -5882,6 +5986,11 @@ def run_sharded_path(dev):
         for path, run in (("tsp_dense_mesh", dense["mesh"]), ("tsp_dense_one_rank", dense["one"]),
                           ("tsp_moe_mesh", moe["mesh"]), ("tsp_moe_one_rank", moe["one"]),
                           ("pp_gpipe", mesh), ("pp_one_stage", one))}
+    # the float32 pairs' mesh runs: their forward and first gradient
+    out["launches"].update({
+        path: dict(zip(FLASH_SOURCES, run["first_launches"]))
+        for path, run in (("tsp_dense_mesh_float32", dense["float32"]),
+                          ("tsp_moe_mesh_float32", moe["float32"]))})
     out["keep"] = keep  # for path 18, not written out
     return out
 
@@ -5903,7 +6012,8 @@ def log_sharded_path(path, smi):
             + ", ".join(f"{f} {x:.3e}" for f, x in m["planted"].items())
             + f"), updates {m['update_gap']:.3e} (leaf {m['update_worst_leaf']}){aux}")
         log(f"    K2/K3/K4 a step {m['steps'][0]['launches']} (one rank "
-            f"{one['steps'][0]['launches']}); losses " + " ".join(
+            f"{one['steps'][0]['launches']}; the float32 forward and first gradient "
+            f"{f32['first_launches']}, K2 and K4 on the TF32 kernels); losses " + " ".join(
                 f"{s['loss']:.5f}" for s in m["steps"])
             + f"; fenced step s {steps(m)} against one rank's {steps(one)}; peak memory "
             f"{m['peak_bytes'] / 2**30:.3f} GiB (one rank {one['peak_bytes'] / 2**30:.3f})"
@@ -6267,6 +6377,13 @@ def run_split_path(dev, keep):
                                        for i in range(3))))
         for path, tag in (("tsp_dense_two_processes", "18a"), ("tsp_moe_two_processes", "18b"),
                           ("pp_gpipe_two_processes", "18c"))}
+    # both processes' float32 forward and first gradient (K2 and K4 on the
+    # TF32 kernels)
+    report["launches"].update({
+        path: dict(zip(FLASH_SOURCES, (sum(w[tag]["float32"]["first_launches"][i]
+                                           for w in workers) for i in range(3))))
+        for path, tag in (("tsp_dense_two_processes_float32", "18a"),
+                          ("tsp_moe_two_processes_float32", "18b"))})
     if faults:
         raise AssertionError("path 18:\n  " + "\n  ".join(faults))
     return report

@@ -23,20 +23,25 @@
 //    besides, so they contribute exactly zero; key rows at or past
 //    min(kv_len, Tk) get exactly zero dk and dv.
 //
-// Two implementations, picked by the inputs' type:
+// Two implementations up to head dim 128, picked by the inputs' type:
 //  - bfloat16 q, k, v (the sequence model under autocast): the tensor-core
 //    kernels of flash_attention_bwd_wgmma.cuh — wgmma on bfloat16 tiles fed
 //    by TMA, P and dS kept in registers.  g_out arrives as bfloat16 too.
-//  - float32 q, k, v: the kernels of this file.  Float32 in means float32
-//    arithmetic: both products of a step run on the CUDA cores from float32
-//    tiles in shared memory, as in the forward (flash_attention.cuh), and
-//    agree with the plain version to the last bits.
+//  - float32 q, k, v (the sequence family's default compute type): K4 on
+//    the tensor cores, flash_dkv_tf32_rows_kernel of flash_attention_tf32.cuh
+//    (every float32 product as three TF32 products on mma.sync, each warp
+//    its own 16 key rows, Sᵀ and dPᵀ over all of D; bound at d 32, B 16,
+//    H 4, T 4096 by its products at 1.666 ms); K3 still on the kernel of
+//    this file: float32 arithmetic on the CUDA cores (67 TFLOP/s), both
+//    products of a step from float32 tiles in shared memory
+//    (flash_attention.cuh), agreeing with the plain version to the last
+//    bits and reaching about a tenth of the TF32 bound.
 //  - above head dim 128, at the padded head dims 192, 256, 320, 384 and
 //    512: K3 and K4 on bfloat16 q, k, v on the wgmma kernels of
 //    flash_attention_wide_wgmma.cuh (K3 at d = 256, B 8, H 4, T 4096 bound
 //    by its products at 0.834 ms; above 320 K3 and K4 as one kernel each
 //    whose two warpgroups share S's and dP's work), and on float32 q, k, v
-//    on the TF32 kernels of flash_attention_wide_tf32.cuh (mma.sync, three
+//    on the TF32 kernels of flash_attention_tf32.cuh (mma.sync, three
 //    TF32 products a float32 product; K3 and K4 at d = 256, B 8, H 4,
 //    T 4096 bound at 4.998 and 6.664 ms on an NVIDIA H100 80GB HBM3 at
 //    700.00 W).  Above 512 both types run on the sliced kernels of
@@ -51,18 +56,15 @@
 // tensor cores' 989 TFLOP/s and the exps at 16 a clock on each of 132 SMs;
 // the tensor-core kernels reach about half of it (PERF.md).  For float32 it
 // is the products at the tensor cores' TF32 rate with three TF32 products a
-// float32 product (495 / 3 = 165 TFLOP/s); the kernels of this file, up to
-// head dim 128, run on the CUDA cores (67 TFLOP/s) and reach about a third
-// of that lower rate.
+// float32 product (495 / 3 = 165 TFLOP/s).
 //
-// Shared memory of the float32 kernels: K3 holds Q, g_out, K, V
-// (64 x (D + 1) floats each) and dS (64 x 65); K4 holds K, V, Q, g_out, Pᵀ,
-// dSᵀ and three per-row vectors: 149 KB and 166 KB at D = 128, so the
-// launches raise the dynamic shared memory limit.
+// Shared memory of the float32 K3 of this file: Q, g_out, K, V (64 x (D +
+// 1) floats each) and dS (64 x 65): 149 KB at D = 128, so the launch raises
+// the dynamic shared memory limit.
 #include "flash_attention.cuh"
 #include "flash_attention_bwd_wgmma.cuh"
+#include "flash_attention_tf32.cuh"
 #include "flash_attention_wide.cuh"
-#include "flash_attention_wide_tf32.cuh"
 #include "flash_attention_wide_wgmma.cuh"
 
 namespace {
@@ -144,101 +146,6 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int D, typename T>
-__global__ void __launch_bounds__(kThreads)
-    flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const float* __restrict__ g_out,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ delta,
-                     const float* __restrict__ g_lse, float* __restrict__ dk,
-                     float* __restrict__ dv, int tq, int tk, float scale,
-                     bool causal, int q_offset, int k_offset, int kv_len) {
-  extern __shared__ float smem[];
-  float* sK = smem;
-  float* sV = sK + kTile * (D + 1);
-  float* sQ = sV + kTile * (D + 1);
-  float* sG = sQ + kTile * (D + 1);
-  float* sP = sG + kTile * (D + 1);       // pᵀ  (key row, q row)
-  float* sS = sP + kTile * (kTile + 1);   // dsᵀ (key row, q row)
-  float* sLse = sS + kTile * (kTile + 1);
-  float* sSub = sLse + kTile;             // Δ - g_lse per q row
-
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
-  const int64_t bh = blockIdx.y;
-  const int64_t k0 = (int64_t)blockIdx.x * kTile;
-  const T* qb = q + bh * tq * D;
-  const float* gb = g_out + bh * tq * D;
-
-  const int64_t kv_eff = kv_len < tk ? kv_len : tk;
-  const int n_q = (tq + kTile - 1) / kTile;
-  // the first q tile with a row that may see this block's first key
-  int first = 0;
-  if (causal) {
-    const int64_t need = (int64_t)k_offset + k0 - q_offset - (kTile - 1);
-    if (need > 0) first = (int)((need + kTile - 1) / kTile);
-  }
-  const int last = k0 < kv_eff ? n_q : 0;  // keys all masked: nothing to do
-
-  load_tile<D>(sK, k + bh * tk * D, k0, tk, 1.0f);
-  load_tile<D>(sV, v + bh * tk * D, k0, tk, 1.0f);
-
-  float dk_acc[kPer][D / 16], dv_acc[kPer][D / 16];
-#pragma unroll
-  for (int i = 0; i < kPer; ++i)
-#pragma unroll
-    for (int j = 0; j < D / 16; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.0f;
-
-  for (int t = first; t < last; ++t) {
-    const int64_t r0 = (int64_t)t * kTile;
-    __syncthreads();
-    load_tile<D>(sQ, qb, r0, tq, scale);
-    load_tile<D>(sG, gb, r0, tq, 1.0f);
-    if (threadIdx.x < kTile) {
-      const int64_t r = r0 + threadIdx.x;
-      const bool in = r < tq;
-      sLse[threadIdx.x] = in ? safe_lse(lse[bh * tq + r]) : kLsePad;
-      sSub[threadIdx.x] = in ? delta[bh * tq + r] - g_lse[bh * tq + r] : 0.0f;
-    }
-    __syncthreads();
-
-    // transposed tiles: rows are this block's keys, columns the q rows
-    float st[kPer][kPer], dpt[kPer][kPer];
-    tile_abt<D>(st, sK, sQ, ty, tx);
-    tile_abt<D>(dpt, sV, sG, ty, tx);
-#pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      const int64_t col = k0 + ty + 16 * i;
-#pragma unroll
-      for (int j = 0; j < kPer; ++j) {
-        const int qc = tx + 16 * j;
-        const int64_t r = r0 + qc;
-        const bool ok = r < tq &&
-                        key_valid((int64_t)q_offset + r, col, kv_eff, k_offset, causal);
-        const float p = ok ? expf(st[i][j] - sLse[qc]) : 0.0f;
-        sP[(ty + 16 * i) * (kTile + 1) + qc] = p;
-        sS[(ty + 16 * i) * (kTile + 1) + qc] = p * (dpt[i][j] - sSub[qc]);
-      }
-    }
-    __syncthreads();
-    tile_pm<D>(dv_acc, sP, sG, ty, tx);
-    tile_pm<D>(dk_acc, sS, sQ, ty, tx);
-  }
-
-#pragma unroll
-  for (int i = 0; i < kPer; ++i) {
-    const int64_t r = k0 + ty + 16 * i;
-    if (r >= tk) continue;
-    float* kr = dk + (bh * tk + r) * D;
-    float* vr = dv + (bh * tk + r) * D;
-#pragma unroll
-    for (int j = 0; j < D / 16; ++j) {
-      kr[tx + 16 * j] = dk_acc[i][j];
-      vr[tx + 16 * j] = dv_acc[i][j];
-    }
-  }
-}
-
 using Args = BwdArgs;
 
 template <int D, typename T>
@@ -257,36 +164,21 @@ int launch_dq(const Args& a) {
   return (int)cudaGetLastError();
 }
 
-template <int D, typename T>
-int launch_dkv(const Args& a) {
-  const size_t smem = smem_bytes(D, 4, 2, 2);
-  auto kernel = flash_dkv_kernel<D, T>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((a.tk + kTile - 1) / kTile, a.bh);
-  kernel<<<grid, kThreads, smem, a.stream>>>(
-      (const T*)a.q, (const T*)a.k, (const T*)a.v, (const float*)a.g_out,
-      (const float*)a.lse, (const float*)a.delta, (const float*)a.g_lse,
-      (float*)a.out0, (float*)a.out1, a.tq, a.tk, a.scale, a.causal != 0,
-      a.q_offset, a.k_offset, a.kv_len);
-  return (int)cudaGetLastError();
-}
-
-// float32 inputs: the CUDA-core kernels above; bfloat16 inputs: the
-// tensor-core kernels of flash_attention_bwd_wgmma.cuh
+// bfloat16 inputs: the tensor-core kernels of flash_attention_bwd_wgmma.cuh;
+// float32 inputs: K3 the CUDA-core kernel above, K4 the tensor-core kernel
+// of flash_attention_tf32.cuh
 template <bool kDq, int D>
 int launch(int is_bf16, const Args& a) {
   if (is_bf16) return wgmma_bwd::launch<D, kDq>(a);
-  return kDq ? launch_dq<D, float>(a) : launch_dkv<D, float>(a);
+  return kDq ? launch_dq<D, float>(a) : tf32::launch_dkv_rows<D>(a);
 }
 
 // above head dim 128: the tensor-core kernels of
 // flash_attention_wide_wgmma.cuh (bfloat16) and
-// flash_attention_wide_tf32.cuh (float32)
+// flash_attention_tf32.cuh (float32)
 template <bool kDq, int D>
 int launch_wide(int is_bf16, const Args& a) {
-  if (!is_bf16) return wide_tf32::launch_bwd<D, kDq>(a);
+  if (!is_bf16) return tf32::launch_bwd<D, kDq>(a);
   return kDq ? wide_wgmma::launch_dq_wide<D>(a) : wide_wgmma::launch_dkv<D>(a);
 }
 
@@ -319,7 +211,7 @@ int run(int d, int is_bf16, const Args& a) {
 // and g_out (bh, tq, d) in float32 (is_bf16 = 0) or bfloat16 (is_bf16 = 1);
 // above d = 128, K3 and K4 at d = 192, 256, 320, 384 and 512 run on the
 // tensor-core kernels of flash_attention_wide_wgmma.cuh (bfloat16) and
-// flash_attention_wide_tf32.cuh (float32), replacing _dq_kernel and
+// flash_attention_tf32.cuh (float32), replacing _dq_kernel and
 // _dkv_kernel there (the wrapper pads 129-512 to these), every other d
 // above 128 on the sliced kernels of flash_attention_wide.cuh;
 // lse, delta and g_lse (bh, tq) float32; dq (bh, tq, d), dk and dv

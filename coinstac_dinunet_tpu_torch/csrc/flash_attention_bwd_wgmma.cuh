@@ -2,8 +2,9 @@
 // (sm_90a): K3 (dq) and K4 (dk, dv) as one kernel template.
 //
 // Replace the TPU kernels coinstac_dinunet_tpu/ops/flash_attention.py::
-// _dq_kernel and ::_dkv_kernel for bfloat16 q, k, v (float32 inputs keep the
-// CUDA-core kernels of flash_attention_bwd.cu).  The function is the one
+// _dq_kernel and ::_dkv_kernel for bfloat16 q, k, v (float32 inputs: K3 on
+// the CUDA-core kernel of flash_attention_bwd.cu, K4 on the TF32 kernel of
+// flash_attention_tf32.cuh).  The function is the one
 // stated there; like the TPU's matrix unit at default precision, every tile
 // product takes bfloat16 operands and sums in float32.
 //

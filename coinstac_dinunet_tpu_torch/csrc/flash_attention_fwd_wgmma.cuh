@@ -2,8 +2,8 @@
 // (sm_90a).
 //
 // Replaces the TPU kernel coinstac_dinunet_tpu/ops/flash_attention.py::
-// _flash_kernel for bfloat16 q, k, v (float32 inputs keep the CUDA-core
-// kernel of flash_attention_fwd.cu).  The function is the one stated there;
+// _flash_kernel for bfloat16 q, k, v (float32 inputs run on the TF32
+// kernel of flash_attention_tf32.cuh).  The function is the one stated there;
 // like the TPU's matrix unit at default precision, both tile products take
 // bfloat16 operands and sum in float32:
 //  - S = q·kᵀ from bfloat16 tiles into float32, then `scale` (with log2 e

@@ -7,7 +7,7 @@
 // a whole (rows, d) tile per operand in shared memory and a whole output row
 // in registers, which stops at d = 128; flash_attention_wide_wgmma.cuh
 // takes bfloat16 K2, K3 and K4 from 129 to 512 onto the tensor cores, and
-// flash_attention_wide_tf32.cuh float32 K2, K3 and K4.  These kernels take
+// flash_attention_tf32.cuh float32 K2, K3 and K4.  These kernels take
 // the rest, all three above 512 in both types, with the same masks and
 // outputs (and any d above 128 that a caller passes unpadded).
 //  - the head dim goes in slices of kS = 128 columns (the last one
@@ -41,7 +41,7 @@
 // per valid pair and head-dim element), over the tensor cores' rates, which
 // these kernels do not use: 989 TFLOP/s for bfloat16, and for float32 the
 // TF32 rate with a float32 product as three TF32 products, 495 / 3 = 165
-// TFLOP/s (as flash_attention_wide_tf32.cuh computes it).  The CUDA cores
+// TFLOP/s (as flash_attention_tf32.cuh computes it).  The CUDA cores
 // they run on give 67 TFLOP/s.  The slicing recomputes the scores once per
 // output slice, so at d = 256 the forward does about twice the work of the
 // function and K4 about 1.5 times (at d = 576, 3.6 and 3.1 times).  A

@@ -13,7 +13,7 @@
 // K4) are rounded to bfloat16 only as the register A operand of the second
 // products, and g_out arrives in bfloat16 (one cast in the wrapper); dq and
 // dk take `scale` at the store.  Float32 inputs above 128 run on
-// flash_attention_wide_tf32.cuh, and both types above 512 on the sliced
+// flash_attention_tf32.cuh, and both types above 512 on the sliced
 // CUDA-core kernels of flash_attention_wide.cuh.
 //
 // Bound on an H100 (989 TFLOP/s bfloat16, 3.35 TB/s): K2 does 4·d, K3 6·d

@@ -5,9 +5,10 @@
 // forward (flash_attention_fwd_wgmma.cuh, replacing the TPU kernel
 // _flash_kernel) and the backward (flash_attention_bwd_wgmma.cuh, replacing
 // _dq_kernel and _dkv_kernel), and above head dim 128 the forward, dq and
-// dk/dv (flash_attention_wide_wgmma.cuh); so are the float32 forward, dq
-// and dk/dv above head dim 128 (flash_attention_wide_tf32.cuh: float32
-// tiles through TMA, mma.sync in TF32, below).
+// dk/dv (flash_attention_wide_wgmma.cuh); so are the float32 forward and
+// dk/dv at every head dim up to 512 and dq above 128
+// (flash_attention_tf32.cuh: float32 tiles through TMA, mma.sync in TF32,
+// below).
 //
 // Tile layout.  A (rows, D) bfloat16 tile sits in shared memory as D / 64
 // column chunks (one chunk of D columns at D = 16 and D = 32), each chunk a
@@ -108,35 +109,60 @@ inline bool make_tile_map(CUtensorMap* map, const void* base, int bh, int rows,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// Float32 tiles (the float32 kernels above head dim 128, which multiply on
-// the tensor cores in TF32, see mma_f32x3): a (rows, D) float32 tile sits
-// in shared memory as D / 32 column chunks, each a dense (rows, 32) array
-// whose 128-byte row is one swizzle span (mode 128B), on a 1024-byte
-// boundary.  Element (r, c) of a chunk lies at byte r·128 + 16·(((c / 4) ^
-// r) % 8) + 4·(c % 4): the mma.sync fragments read it without bank
-// conflicts, K-major (eight rows, four consecutive columns) and MN-major
-// (four row pairs, eight consecutive columns) alike.
-struct F32Layout {
-  static constexpr int kChunkCols = 32;
-  static constexpr int kPitch = 128;  // bytes of a chunk row
+// Float32 tiles (the float32 kernels, which multiply on the tensor cores in
+// TF32, see mma_f32x3): a (rows, D) float32 tile sits in shared memory as
+// D / C column chunks of C = 32 columns (C = 16 at D = 16), each a dense
+// (rows, C) array whose row of 4·C bytes is one swizzle span (mode 128B at
+// 32 columns, 64B at 16), on a 1024-byte boundary.  Element (r, c) of a
+// chunk lies at byte r·4C + 16·(((c / 4) ^ w(r)) % (C / 4)) + 4·(c % 4),
+// w(r) = r at 128 bytes and r / 2 at 64 (the hardware xors the 16-byte unit
+// with address bits 7 and up): the mma.sync fragments read it without bank
+// conflicts K-major (eight rows, four consecutive columns), and MN-major
+// (four row pairs, eight consecutive columns) without them at 32 columns
+// and two ways at 16.
+template <int C>
+struct F32Tile {
+  static_assert(C == 16 || C == 32, "float32 tile chunks are 16 or 32 columns");
+  static constexpr int kChunkCols = C;
+  static constexpr int kPitch = 4 * C;     // bytes of a chunk row
+  static constexpr int kGroup = 8 * kPitch;  // bytes of 8 rows
+  static constexpr int kBlocks = C / 8;      // 8-column blocks of a chunk
   __host__ __device__ static constexpr int chunk_bytes(int rows) { return rows * kPitch; }
+  __device__ static int unit(int u, int r) {
+    return ((u ^ (C == 32 ? r : r >> 1)) & (C / 4 - 1)) << 4;
+  }
+  // K-major fragment reads: row g of an 8-row group, columns 4u + c4
+  __device__ static uint32_t kofs(int u, int g, int c4) {
+    return g * kPitch + unit(u, g) + (c4 << 2);
+  }
+  // MN-major fragment reads: rows 2 c4 + e of an 8-row group, columns 8u + g
+  __device__ static uint32_t vofs(int u, int e, int g, int c4) {
+    const int r = 2 * c4 + e;
+    return r * kPitch + unit(2 * u + (g >> 2), r) + ((g & 3) << 2);
+  }
 };
+using F32Layout = F32Tile<32>;
+// the chunking of a float32 tile of D columns
+template <int D>
+using F32TileOf = F32Tile<(D < 32 ? D : 32)>;
 
 // Map of a contiguous (bh, rows, d) float32 array, read in boxes of (1,
-// box_rows, 32 columns) with the 128-byte swizzle; d a multiple of 32.
-// Rows past `rows` of a bh are filled with zeros.
+// box_rows, one chunk: 32 columns, 16 at d = 16) with the chunk's swizzle;
+// d 16 or a multiple of 32.  Rows past `rows` of a bh are filled with zeros.
 inline bool make_f32_tile_map(CUtensorMap* map, const void* base, int bh, int rows, int d,
                               int box_rows) {
   const TensorMapEncodeFn encode = tensor_map_encoder();
   if (encode == nullptr) return false;
+  const int chunk = d < 32 ? d : 32;
   const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)rows, (cuuint64_t)bh};
   const cuuint64_t strides[2] = {(cuuint64_t)d * 4, (cuuint64_t)rows * d * 4};
-  const cuuint32_t box[3] = {(cuuint32_t)F32Layout::kChunkCols, (cuuint32_t)box_rows, 1};
+  const cuuint32_t box[3] = {(cuuint32_t)chunk, (cuuint32_t)box_rows, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(base), dims,
                 strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+                chunk == 32 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+         CUDA_SUCCESS;
 }
 
 // -------------------------------------------------------------- device side

@@ -20,17 +20,19 @@ Two implementations of each direction:
   ``g_out``, ``p`` and ``ds`` in the backward, are rounded to bfloat16
   before the products, whose sums are float32, as on the TPU's matrix unit;
   the softmax state (row max, row sum, the output accumulator) stays
-  float32.  For float32 inputs all three compute in float32 on the CUDA
-  cores.  They are instantiated for head dims 16, 32, 64 and 128; any
-  other head dim up to 128 runs on the next of them, q, k, v and g_out
-  zero-padded in the head dim and out, dq, dk, dv sliced back
-  (:func:`padded_head_dim`; zero columns change no score).  Above 128, K2,
-  K3 and K4 run on the tensor cores as well, on bfloat16 inputs with the
-  same roundings (``csrc/flash_attention_wide_wgmma.cuh``), on float32
-  inputs each float32 product as three TF32 products
-  (``csrc/flash_attention_wide_tf32.cuh``), at head dims 192, 256, 320,
-  384 and 512, any head dim from 129 to 512 zero-padded to the next of
-  them (:func:`wide_head_dim`, :func:`_kernel_head_dim`).  Above 512 all
+  float32.  For float32 inputs K2 and K4 run on the tensor cores too, each
+  float32 product as three TF32 products (``csrc/flash_attention_tf32.cuh``),
+  and K3 computes in float32 on the CUDA cores.  They are instantiated for
+  head dims 16, 32, 64 and 128; any other head dim up to 128 runs on the
+  next of them, q, k, v and g_out zero-padded in the head dim and out, dq,
+  dk, dv sliced back (:func:`padded_head_dim`; zero columns change no
+  score).  Above 128, K2, K3 and K4 run on the tensor cores, on bfloat16
+  inputs with the same roundings (``csrc/flash_attention_wide_wgmma.cuh``),
+  on float32 inputs each float32 product as three TF32 products
+  (``csrc/flash_attention_tf32.cuh``), at head dims 192, 256, 320, 384 and
+  512, any head dim from 129 to 512 zero-padded to the next of them
+  (:func:`wide_head_dim`, :func:`_kernel_head_dim`; :func:`kernel_route`
+  names the kernels that run).  Above 512 all
   three run unpadded on the sliced kernels of
   ``csrc/flash_attention_wide.cuh`` (128-column slices of the head dim,
   each output slice written against a known lse), which compute on the
@@ -83,7 +85,7 @@ _LN2 = 0.6931471805599453
 HEAD_DIMS = (16, 32, 64, 128)
 #: head dims above ``HEAD_DIMS[-1]`` that K2, K3 and K4 run at on the
 #: tensor cores (bfloat16 inputs: ``csrc/flash_attention_wide_wgmma.cuh``;
-#: float32 inputs: ``csrc/flash_attention_wide_tf32.cuh``): a head dim
+#: float32 inputs: ``csrc/flash_attention_tf32.cuh``): a head dim
 #: from 129 to the largest runs on the next of them, zero-padded
 #: (:func:`wide_head_dim`); head dims above the largest run on the sliced
 #: kernels at their own width
@@ -349,6 +351,23 @@ def _kernel_head_dim(d, dtype, kernel=FWD_KERNEL):
     if d > HEAD_DIMS[-1]:
         return wide_head_dim(d) or d
     return padded_head_dim(d)
+
+
+def kernel_route(d, dtype, kernel=FWD_KERNEL):
+    """Which hand-written kernels run ``kernel`` (``FWD_KERNEL``,
+    ``DQ_KERNEL`` or ``DKV_KERNEL``) at head dim ``d`` on inputs of
+    ``dtype``, as ``csrc/flash_attention_{fwd,bwd}.cu`` dispatch:
+    ``"wgmma"`` (bfloat16 on the tensor cores), ``"tf32"`` (float32 on the
+    tensor cores, three TF32 products a float32 product), ``"cuda_cores"``
+    (float32 K3 up to ``HEAD_DIMS[-1]``) or ``"sliced"`` (every kernel above
+    ``WIDE_HEAD_DIMS[-1]``)."""
+    if d > WIDE_HEAD_DIMS[-1]:
+        return "sliced"
+    if dtype == torch.bfloat16:
+        return "wgmma"
+    if kernel is DQ_KERNEL and d <= HEAD_DIMS[-1]:
+        return "cuda_cores"
+    return "tf32"
 
 
 def _pad_head_dim(t, dim):

@@ -2,13 +2,15 @@
 """The float32 K2's, K3's and K4's planted one-product fault against phase
 3's gate.
 
-The float32 kernels above head dim 128 (``csrc/flash_attention_wide_tf32.cuh``)
-compute each float32 product as three TF32 products (``mma_f32x3`` in
-``csrc/hopper_mma.cuh``).  This script copies the package into a temporary
-directory, replaces ``mma_f32x3``'s three products there by big·big alone
-(one TF32 product), builds both packages, and runs the intact and the
-faulty kernels at every float32 case of ``chip_smoke.FLASH_CASES`` that the
-tensor-core kernels take, with phase 3's inputs (the generator seeded with
+The float32 K2 and K4 at every head dim up to 512 and K3 above 128
+(``csrc/flash_attention_tf32.cuh``) compute each float32 product as three
+TF32 products (``mma_f32x3`` in ``csrc/hopper_mma.cuh``).  This script
+copies the package into a temporary directory, replaces ``mma_f32x3``'s
+three products there by big·big alone (one TF32 product), builds both
+packages, and runs the intact and the faulty kernels at every float32 case
+of ``chip_smoke.FLASH_CASES`` that the tensor-core kernels take (every one
+up to 512; K3 up to 128 stays on the CUDA cores, so its dq does not move),
+with phase 3's inputs (the generator seeded with
 the case's position; the backward from the plain forward's lse, as phase 3
 feeds it).  For each it prints one JSON line: the largest ``|kernel −
 plain|`` of ``out``, ``lse``, ``dq``, ``dk`` and ``dv`` over phase 3's
@@ -45,7 +47,7 @@ def excess(got, want):
     return float((got - want).abs().max()) / tol
 
 for idx, (case, b, h, t, d, dtype, causal, qo, ko, kv, nz_glse) in enumerate(cs.FLASH_CASES):
-    if dtype != "float32" or fa.wide_head_dim(d) is None:
+    if dtype != "float32" or fa.kernel_route(d, torch.float32) != "tf32":
         continue
     gen = torch.Generator(device=dev).manual_seed(idx)
     bh = b * h

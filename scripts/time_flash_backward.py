@@ -17,14 +17,20 @@ bfloat16, not causal, the other tensor-core head dims 192 and 320
 (``d192``, ``d320``), and head dims 384 and 512 at the same B, H and T
 (``d384``, ``d512``: K2, K3 and K4 on the tensor cores), the
 site-vectorized path's folded batch (``vec``: B 272, H 4, T 4096, d 32),
-and head dims 192, 256, 384 and 512 in float32 (``d192_f32``,
-``d256_f32``, ``d384_f32``, ``d512_f32``: K2, K3 and K4 on the tensor
-cores as three TF32 products a float32 product).  The
+head dims 192, 256, 384 and 512 in float32 (``d192_f32``, ``d256_f32``,
+``d384_f32``, ``d512_f32``: K2, K3 and K4 on the tensor cores as three
+TF32 products a float32 product), and float32 up to 128, where K2 and K4
+run so and K3 on the CUDA cores: the sequence example's shape (``ex_f32``:
+B 8, H 4, T 128, d 16), d 16, 24 (padded to 32), 64 and 128 at B 8, H 4,
+T 4096 (``d16_f32``, ``d24_f32``, ``d64_f32``, ``d128_f32``), path 2's
+shape at head dim 32 (``main_f32``: B 16, H 4, T 4096) and path 16's
+one-rank shape (``tsp_f32``: B 16, H 8, T 4096, d 16, causal).  The
 inputs are random from a seed; ``g_out`` is float32, as the model hands it
 to the kernels.  Each line carries a SHA-256 of the
 kernels' outputs (out, lse, dq, dk, dv) on those inputs, and one each of
-the forward's (out, lse) and the backward's (dq, dk, dv), so two roots'
-lines say whether the kernels compute the same bits.  Times are CUDA events
+the forward's (out, lse), the backward's (dq, dk, dv), and K3's dq from
+the plain forward's lse and Δ (so it does not move with K2's bits), so two
+roots' lines say whether the kernels compute the same bits.  Times are CUDA events
 around 20 launches after 3 warm-up launches.  Beside them,
 ``scaled_dot_product_attention``'s forward and its backward (dq, dk and dv
 together) on the same inputs, and the names of the CUDA kernels one
@@ -57,6 +63,15 @@ SHAPES = [  # (name, B, H, T, d, causal, dtype)
     ("d256_f32", 8, 4, 4096, 256, False, "float32"),
     ("d384_f32", 8, 4, 4096, 384, False, "float32"),
     ("d512_f32", 8, 4, 4096, 512, False, "float32"),
+    # float32 up to head dim 128: K2 and K4 on the tensor cores, K3 on the
+    # CUDA cores
+    ("ex_f32", 8, 4, 128, 16, False, "float32"),
+    ("d16_f32", 8, 4, 4096, 16, False, "float32"),
+    ("d24_f32", 8, 4, 4096, 24, False, "float32"),
+    ("main_f32", 16, 4, 4096, 32, False, "float32"),
+    ("tsp_f32", 16, 8, 4096, 16, True, "float32"),
+    ("d64_f32", 8, 4, 4096, 64, False, "float32"),
+    ("d128_f32", 8, 4, 4096, 128, False, "float32"),
 ]
 DEFAULT_SHAPES = ("main", "tpu", "d256")
 
@@ -119,12 +134,21 @@ def worker(root, shapes):
         fwd_ms = cuda_ms(lambda: fa.flash_forward_cuda(q, k, v, *pos))
         g_out = torch.randn(out.shape, generator=gen, device=dev)
         args = (q, k, v, g_out, lse, fa.flash_delta(out, g_out), torch.zeros_like(lse), *pos)
-        digest, fwd_digest, bwd_digest = (hashlib.sha256() for _ in range(3))
+        digest, fwd_digest, bwd_digest, dq_digest = (hashlib.sha256() for _ in range(4))
         grads = (fa.flash_dq_cuda(*args), *fa.flash_dkv_cuda(*args))
         for x in (out, lse, *grads):
             digest.update(x.cpu().numpy().tobytes())
             (fwd_digest if x is out or x is lse else bwd_digest).update(x.cpu().numpy().tobytes())
         del grads
+        # K3 once more, from the plain forward's lse and Δ (8 heads at a
+        # time), so its digest does not move with K2's bits
+        plain = [fa.flash_forward_plain(q[i:i + 8], k[i:i + 8], v[i:i + 8], *pos)
+                 for i in range(0, bh, 8)]
+        p_out, p_lse = (torch.cat(x) for x in zip(*plain))
+        del plain
+        dq_digest.update(fa.flash_dq_cuda(q, k, v, g_out, p_lse, fa.flash_delta(p_out, g_out),
+                                          torch.zeros_like(lse), *pos).cpu().numpy().tobytes())
+        del p_out, p_lse
         dq_ms = cuda_ms(lambda: fa.flash_dq_cuda(*args))
         dkv_ms = cuda_ms(lambda: fa.flash_dkv_cuda(*args))
         ql, kl, vl = [x.reshape(b, h, t, d).detach().requires_grad_() for x in (q, k, v)]
@@ -138,7 +162,8 @@ def worker(root, shapes):
         print(json.dumps({"root": root, "shape": name, "dtype": dtype,
                           "outputs_sha256": digest.hexdigest()[:16],
                           "fwd_sha256": fwd_digest.hexdigest()[:16],
-                          "bwd_sha256": bwd_digest.hexdigest()[:16], "fwd_ms": fwd_ms,
+                          "bwd_sha256": bwd_digest.hexdigest()[:16],
+                          "dq_sha256": dq_digest.hexdigest()[:16], "fwd_ms": fwd_ms,
                           "dq_ms": dq_ms, "dkv_ms": dkv_ms, "library_forward_ms": lib_fwd_ms,
                           "library_backward_ms": lib_ms, "library_kernels": lib_names,
                           "device": torch.cuda.get_device_name(0)}), flush=True)

@@ -11,12 +11,12 @@ compute in float32 from the same inputs; they differ in the order of the
 float32 sums and in ``expf`` against torch's ``exp``).  The backward kernels
 take no atomics, so two launches agree bit for bit.
 
-Head dims 160, 256, 320, 384 and 512 run the float32 K2, K3 and K4 on the
-tensor cores as three TF32 products a float32 product
-(``csrc/flash_attention_wide_tf32.cuh``, the head dim zero-padded to 192,
-256, 320, 384 or 512), and 576 on the sliced kernels
-(``csrc/flash_attention_wide.cuh``), in float32 on the CUDA cores: there
-the same tolerances hold.  The bfloat16 K2, K3 and K4 run
+The float32 K2 and K4 run on the tensor cores as three TF32 products a
+float32 product (``csrc/flash_attention_tf32.cuh``) at every head dim up
+to 512 (zero-padded to 16, 32, 64, 128, 192, 256, 320, 384 or 512), the
+float32 K3 there above 128 (up to 128 on the CUDA cores), and all three at
+576 on the sliced kernels (``csrc/flash_attention_wide.cuh``), in float32
+on the CUDA cores: everywhere the same tolerances hold.  The bfloat16 K2, K3 and K4 run
 on the tensor cores up to 512 (``csrc/flash_attention_wide_wgmma.cuh``,
 padded the same way), at 576 on the sliced kernels, all with the
 roundings below, and are held as below; at T 2048 also to the derived
@@ -106,12 +106,12 @@ def test_forward_kernel_matches_plain(card, d, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [160, 256, 384, 512])
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 160, 256, 384, 512])
 def test_f32_wide_forward_of_a_long_sequence(card, d):
-    """The float32 K2 above 128 (three TF32 products a float32 product)
-    over many key tiles, unmasked and causal: within 1e-4·max of the
-    float32 plain version (TF32 off), out and lse, and bit-identical
-    reruns."""
+    """The float32 K2 at every instantiated head dim (three TF32 products a
+    float32 product) over many key tiles, unmasked and causal: within
+    1e-4·max of the float32 plain version (TF32 off), out and lse, and
+    bit-identical reruns."""
     for case in [(False, 0, 0, 1024, False), (True, 0, 0, 1024, False)]:
         qkv, pos, _ = _inputs(card, d, torch.float32, case, bh=2, t=1024)
         out, lse = fa.flash_forward_cuda(*qkv, *pos)
@@ -123,12 +123,13 @@ def test_f32_wide_forward_of_a_long_sequence(card, d):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [160, 256, 384, 512])
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 160, 256, 384, 512])
 def test_f32_wide_backward_of_a_long_sequence(card, d):
-    """The float32 K3 and K4 above 128 (three TF32 products a float32
-    product) over many key and query tiles, unmasked and causal, with a
-    nonzero lse cotangent: dq, dk and dv within 1e-4·max of the float32
-    plain versions (TF32 off), and bit-identical reruns."""
+    """The float32 K3 and K4 over many key and query tiles, unmasked and
+    causal, with a nonzero lse cotangent: dq, dk and dv within 1e-4·max of
+    the float32 plain versions (TF32 off), and bit-identical reruns.  K4 at
+    every instantiated head dim and K3 above 128 run as three TF32 products
+    a float32 product; K3 up to 128 on the CUDA cores."""
     for case in [(False, 0, 0, 1024, True), (True, 0, 0, 1024, True)]:
         qkv, pos, (out, lse, g_out, g_lse) = _inputs(card, d, torch.float32, case, bh=2, t=1024)
         args = (*qkv, g_out, lse, fa.flash_delta(out, g_out), g_lse, *pos)

@@ -1,7 +1,7 @@
 """The float32 kernels' three-product TF32 split, emulated on the CPU.
 
-Above head dim 128 the float32 K2, K3 and K4
-(``csrc/flash_attention_wide_tf32.cuh``) compute every tile product (K2's
+The float32 K2 and K4 at every head dim up to 512, and K3 above 128
+(``csrc/flash_attention_tf32.cuh``), compute every tile product (K2's
 S = Q·Kᵀ and O += P·V; K3's S, dP = dO·Vᵀ and dq += dS·K; K4's Sᵀ, dPᵀ,
 dk += dSᵀ·q and dv += Pᵀ·dO) on the tensor cores in TF32: each float32
 operand x splits into big = x rounded to TF32 (10 significand bits, to
@@ -16,17 +16,20 @@ and:
 - the three-product forward and backward stay within FLASH_RTOL·max +
   FLASH_ATOL (the float32 gate of ``chip_smoke.py`` phase 3) of the
   function, with a margin of 10 or more (the backward against the
-  function in float64 at phase 3's float32 cases above 128), and equal the
-  JAX package's float32 attention and its vjp within that gate;
+  function in float64 at phase 3's float32 cases, at head dims 16 to
+  384), and equal the JAX package's float32 attention and its vjp within
+  that gate, at head dims 16, 32, 64, 128 and 256;
 - one TF32 product (big·big alone, the fault planted in the kernel)
   crosses the gate against the float32 plain version at ``offsets_d384``,
   the phase-3 case (B 1, H 2, T 333, d 384, causal, offsets 100 and 37,
   kv_len 300) where the fault is planted on the card: in K2's out, and in
-  one of K3's and K4's dq, dk and dv.
+  one of K3's and K4's dq, dk and dv; and at phase 3's float32 cases of
+  128 and below, in K2's out and in one of K4's dk and dv.
 
 Besides: which kernel runs which head dim (``_kernel_head_dim``,
-``wide_head_dim``, ``dq_key_tile``), and ``chip_smoke.flash_bound_ms`` at
-the timed shapes (float32 K2 at the tensor cores' TF32 rate over three).
+``wide_head_dim``, ``dq_key_tile``, ``kernel_route``), and
+``chip_smoke.flash_bound_ms`` at the timed shapes (float32 at the tensor
+cores' TF32 rate over three).
 """
 import importlib
 import importlib.util
@@ -53,13 +56,36 @@ BWD_CASES = [
     (("kv_len_96_d256", 1, 1, 128, 256, False, 0, 0, 96), False),
     (("offsets_d320", 1, 2, 333, 320, True, 100, 37, 300), True),
     (OFFSETS_D384, True),
+    # and up to 128, where K4 runs so (K3 there on the CUDA cores)
+    (("offsets_d16", 1, 2, 333, 16, True, 100, 37, 300), True),
+    (("kv_len_96", 1, 1, 128, 32, False, 0, 0, 96), False),
+    (("offsets_d64", 1, 2, 333, 64, True, 100, 37, 300), True),
+    (("t160_d128", 1, 2, 160, 128, False, 0, 0, 160), True),
+    (("offsets_d128", 1, 2, 333, 128, True, 100, 37, 300), True),
+]
+# phase 3's float32 cases up to 128 at which the one-product fault is held
+# to cross the gate (K2's out; one of K4's dk and dv)
+SMALL_FAULT_CASES = [
+    ("offsets_d16", 1, 2, 333, 16, True, 100, 37, 300),
+    ("offsets_d24", 1, 2, 333, 24, True, 100, 37, 300),
+    ("offsets_d64", 1, 2, 333, 64, True, 100, 37, 300),
+    ("offsets_d128", 1, 2, 333, 128, True, 100, 37, 300),
 ]
 CASES = [  # (name, B, H, T, d, causal, q_offset, k_offset, kv_len)
     ("t512_d256", 1, 2, 512, 256, False, 0, 0, 512),
     ("t333_d256_offsets", 1, 2, 333, 256, True, 100, 37, 300),
     ("t512_d384_causal", 1, 2, 512, 384, True, 0, 0, 512),
     OFFSETS_D384,
+    # up to 128 (K2 at 16, 32, 64 and 128)
+    ("t512_d16", 1, 2, 512, 16, False, 0, 0, 512),
+    ("t333_d32_offsets", 1, 2, 333, 32, True, 100, 37, 300),
+    ("t512_d64_causal", 1, 2, 512, 64, True, 0, 0, 512),
+    ("t512_d128", 1, 2, 512, 128, False, 0, 0, 512),
 ]
+# head dims of the JAX comparisons: 256 (the first, whose cases keep their
+# ids) and those up to 128
+JAX_CASES = [pytest.param(d, causal, id=str(causal) if d == 256 else f"d{d}-{causal}")
+             for d in (256, 16, 32, 64, 128) for causal in (False, True)]
 
 
 def _chip_smoke():
@@ -214,11 +240,11 @@ def test_three_products_keep_to_the_float32_gate(case):
     assert _excess(lse, want_lse) * MARGIN <= 1.0
 
 
-@pytest.mark.parametrize("causal", [False, True])
-def test_three_products_match_the_jax_attention(causal):
+@pytest.mark.parametrize("d,causal", JAX_CASES)
+def test_three_products_match_the_jax_attention(d, causal):
     """Against the JAX package's float32 attention (its XLA path) at head
-    dim 256: within the float32 gate."""
-    b, h, t, d = 1, 2, 256, 256
+    dims 16, 32, 64, 128 and 256: within the float32 gate."""
+    b, h, t = 1, 2, 256
     rng = np.random.default_rng(7)
     arrays = [rng.standard_normal((b, h, t, d)).astype(np.float32) for _ in range(3)]
     want, want_lse = jax_flash(*map(jnp.asarray, arrays), causal=causal, impl="xla",
@@ -250,12 +276,13 @@ def test_three_product_backward_keeps_to_the_float32_gate(case, nz_glse):
         assert _excess(got, want) * MARGIN <= 1.0
 
 
-@pytest.mark.parametrize("causal", [False, True])
-def test_three_product_backward_matches_the_jax_vjp(causal):
+@pytest.mark.parametrize("d,causal", JAX_CASES)
+def test_three_product_backward_matches_the_jax_vjp(d, causal):
     """Against the vjp of the JAX package's float32 attention (its XLA
-    path) at head dim 256, with offsets, a masked key tail and cotangents
-    for both out and lse: dq, dk and dv within the float32 gate."""
-    b, h, t, d = 1, 2, 256, 256
+    path) at head dims 16, 32, 64, 128 and 256, with offsets, a masked key
+    tail and cotangents for both out and lse: dq, dk and dv within the
+    float32 gate."""
+    b, h, t = 1, 2, 256
     qo, ko, kv_len = 40, 9, 200
     rng = np.random.default_rng(11)
     arrays = [rng.standard_normal((b, h, t, d)).astype(np.float32) for _ in range(4)]
@@ -286,6 +313,44 @@ def test_one_product_backward_crosses_the_gate_at_the_planted_case():
     assert max(one) > 1.0
 
 
+@pytest.mark.parametrize("case", SMALL_FAULT_CASES, ids=[c[0] for c in SMALL_FAULT_CASES])
+def test_one_product_crosses_the_gate_up_to_128(case):
+    """Up to head dim 128 (phase 3's float32 cases, the head dim padded as
+    the kernels run it): big·big alone crosses the float32 gate against
+    the float32 plain versions in K2's out and in one of K4's dk and dv,
+    while three products keep all of them within it."""
+    q, k, v, pos = _inputs(case, 0)
+    dim = fa._kernel_head_dim(case[4], torch.float32)
+    q, k, v = (fa._pad_head_dim(x, dim) for x in (q, k, v))
+    want, lse = fa.flash_forward_plain(q, k, v, *pos)
+    assert _excess(emulated_forward(q, k, v, pos, n=3)[0], want) <= 1.0
+    assert _excess(emulated_forward(q, k, v, pos, n=1)[0], want) > 1.0
+    rng = np.random.default_rng(1)
+    g_out = fa._pad_head_dim(torch.from_numpy(rng.standard_normal(
+        q.shape[:2] + (case[4],)).astype(np.float32)), dim)
+    g_lse = torch.from_numpy(rng.standard_normal(q.shape[:2]).astype(np.float32))
+    args = (q, k, v, g_out, lse, fa.flash_delta(want, g_out), g_lse)
+    wants = fa.flash_dkv_plain(*args, *pos)
+    three = [_excess(g, w) for g, w in zip(emulated_backward(*args, pos)[1:], wants)]
+    one = [_excess(g, w) for g, w in zip(emulated_backward(*args, pos, n=1)[1:], wants)]
+    assert max(three) <= 1.0
+    assert max(one) > 1.0
+
+
+@pytest.mark.parametrize("d", [1, 4, 8, 16, 24, 32, 48, 64, 100, 128])
+def test_dispatch_up_to_128(d):
+    """Up to 128: float32 K2 and K4 on the TF32 kernels, float32 K3 still
+    on the CUDA cores, every bfloat16 kernel on wgmma; the head dim padded
+    to 16, 32, 64 or 128 for every dtype and kernel."""
+    dim = next(x for x in fa.HEAD_DIMS if d <= x)
+    for kernel in fa.KERNELS:
+        assert fa._kernel_head_dim(d, torch.float32, kernel) == dim
+        assert fa.kernel_route(d, torch.bfloat16, kernel) == "wgmma"
+    assert fa.kernel_route(d, torch.float32, fa.FWD_KERNEL) == "tf32"
+    assert fa.kernel_route(d, torch.float32, fa.DKV_KERNEL) == "tf32"
+    assert fa.kernel_route(d, torch.float32, fa.DQ_KERNEL) == "cuda_cores"
+
+
 @pytest.mark.parametrize("d,dim,dq_tile", [
     (129, 192, 64), (160, 192, 64), (256, 256, 32), (320, 320, 32), (321, 384, 32),
     (384, 384, 32), (448, 512, 16), (512, 512, 16), (513, None, 64)])
@@ -300,6 +365,8 @@ def test_dispatch_of_the_wide_head_dims(d, dim, dq_tile):
     assert fa._kernel_head_dim(d, torch.float32, fa.DKV_KERNEL) == (dim or d)
     assert fa._kernel_head_dim(d, torch.bfloat16, fa.DQ_KERNEL) == (dim or d)
     assert fa.dq_key_tile(d) == dq_tile
+    for kernel in fa.KERNELS:
+        assert fa.kernel_route(d, torch.float32, kernel) == ("tf32" if dim else "sliced")
 
 
 def test_flash_bound_ms_at_the_timed_shapes():
@@ -316,3 +383,21 @@ def test_flash_bound_ms_at_the_timed_shapes():
     ms, by, term = cs.flash_bound_ms("flash_attention_dq", 32, 4096, 4096, 384, pairs, 2,
                                      exp_per_s)
     assert (by, term) == ("operations", "products") and ms == pytest.approx(1.2507, abs=1e-4)
+
+
+@pytest.mark.parametrize("case,name,want", [
+    ("main_f32", "flash_attention_fwd", 0.833), ("main_f32", "flash_attention_dkv", 1.666),
+    ("tsp_f32", "flash_attention_fwd", 0.417), ("tsp_f32", "flash_attention_dkv", 0.833),
+    ("d24_long_f32", "flash_attention_fwd", 0.3124),
+    ("d24_long_f32", "flash_attention_dkv", 0.6247)])
+def test_flash_bound_ms_of_the_float32_cases(case, name, want):
+    """Phase 3's timed float32 cases up to 128: path 2's shape at head dim
+    32 (B 16, H 4, T 4096), path 16's one-rank shape (B 16, H 8, T 4096, d
+    16, causal) and d 24 (B 8, H 4, T 4096; the bound at the true head
+    dim), each bound by its products at 495 / 3 TFLOP/s."""
+    cs = _chip_smoke()
+    _, b, h, t, d, _, causal, qo, ko, kv, _ = next(c for c in cs.FLASH_CASES if c[0] == case)
+    pairs = b * h * int(fa._valid_mask(t, t, qo, ko, t if kv is None else kv, causal,
+                                       "cpu").sum())
+    ms, by, term = cs.flash_bound_ms(name, b * h, t, t, d, pairs, 4, 16 * 132 * 1.98e9)
+    assert (by, term) == ("operations", "products") and ms == pytest.approx(want, abs=1e-3)
